@@ -1,0 +1,453 @@
+#!/usr/bin/env python3
+"""Smoke test of deconv_api_tpu_torch on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs a
+card, ``nvcc`` and the repository's sources; without them it exits non-zero
+and prints no result.  It imports nothing of JAX or of the JAX package.
+
+Phases, each printing JSON lines:
+1. environment: torch, CUDA, nvcc, triton, the TF32 flags, the codec
+   backend, and the card's name and power limit;
+2. build: the three kernels from ``deconv_api_tpu_torch/csrc``, one nvcc each,
+   all started together;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's VGG16 shapes (batch 8, top-4), with times by CUDA events
+   beside the plain version's, a library call's and the bound;
+4. main path: ``serve`` with VGG16 at full width on a free port, 8
+   concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one at
+   fc1, then one batch repeated with ``fused_unpool=off``; the launch
+   counters are zeroed just before and read just after;
+5. throughput of the batch-8 block5_conv1 program.
+The line before the last is the kernels line, the last the result line.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import os
+import statistics
+import struct
+import subprocess
+import sys
+import threading
+import time
+import urllib.error
+import urllib.parse
+import urllib.request
+import zlib
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+B, K = 8, 4  # batch and top-k of the main path (POST / serves the top 4)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+# (H, W, C) entering each forward pool of a block5_conv1 request
+POOL_SITES = ((224, 224, 64), (112, 112, 128), (56, 56, 256), (28, 28, 512))
+# (pooled ho, wo, Cout) -> Cin of the conv the fused kernel projects through
+FUSED_SITES = ((14, 14, 512, 512), (28, 28, 256, 256), (56, 56, 128, 128), (112, 112, 64, 64))
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def png_bytes(img) -> bytes:
+    """uint8 (H, W, 3) RGB -> PNG, filter 0, no ancillary chunks."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[r].tobytes() for r in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF
+        )
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def psnr_db(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
+
+
+# --- phase 1 -------------------------------------------------------------------
+
+
+def phase_environment(torch) -> dict:
+    from deconv_api_tpu_torch._device import resolve_device, tf32_flags
+    from deconv_api_tpu_torch.ops import _build
+    from deconv_api_tpu_torch.serving import codec
+
+    resolve_device("cuda")
+    nvcc_out = subprocess.run([_build.nvcc(), "--version"], capture_output=True, text=True, check=True).stdout
+    release = next((l.strip() for l in nvcc_out.splitlines() if "release" in l), nvcc_out.strip())
+    try:
+        import triton
+
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    env = {
+        "phase": "environment",
+        "python": sys.version.split()[0],
+        "torch": torch.__version__,
+        "torch_cuda": torch.version.cuda,
+        "nvcc": release,
+        "triton": triton_version,
+        "tf32": tf32_flags(),
+        "codec_backend": codec.backend(),
+        "device_name": torch.cuda.get_device_name(0),
+        "device_count": torch.cuda.device_count(),
+        "nvidia_smi": smi,
+    }
+    emit(env)
+    return env
+
+
+# --- phase 2 -------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from deconv_api_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    seconds = _build.build()
+    wall = time.perf_counter() - t0
+    ptxas = {
+        name: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
+        for name, log in _build.build_logs.items()
+    }
+    emit({"phase": "build", "wall_s": wall, "per_kernel_s": seconds, "ptxas": ptxas})
+
+
+# --- phase 3 -------------------------------------------------------------------
+
+
+def phase_kernels(torch) -> dict:
+    """Each kernel vs its plain version; returns the kernels-line fields."""
+    import torch.nn.functional as F
+
+    from deconv_api_tpu_torch.ops import conv, cuda_deconv, cuda_pool, pool
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = {}
+
+    # K1: every forward pool, fp32 on the main path; bf16 checked too
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    ties_values = torch.tensor([-0.0, 0.0, 1.0], device=dev)
+    ms, plain, lib, nbytes = 0.0, 0.0, 0.0, 0
+    for h, w, c in POOL_SITES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for ties in (False, True):
+                if ties:  # all-equal windows, +0 against -0
+                    x = ties_values[torch.randint(0, 3, (B, h, w, c), generator=gen, device=dev)]
+                else:
+                    x = torch.randn((B, h, w, c), generator=gen, device=dev)
+                x = x.to(dtype)
+                got, want = cuda_pool.pool_argmax(x), pool.maxpool_argmax_plain(x)
+                # bit for bit: both keep the first maximum's own bits
+                if not (torch.equal(got[0].view(bits[dtype]), want[0].view(bits[dtype]))
+                        and torch.equal(got[1], want[1])):
+                    raise AssertionError(f"pool_argmax differs from plain at {(B, h, w, c)} {dtype} ties={ties}")
+        x = torch.randn((B, h, w, c), generator=gen, device=dev)
+        ms += time_ms(lambda: cuda_pool.pool_argmax(x))
+        plain += time_ms(lambda: pool.maxpool_argmax_plain(x))
+        xn = x.permute(0, 3, 1, 2)
+        lib += time_ms(lambda: F.max_pool2d(xn, 2, return_indices=True))
+        nbytes += x.numel() * 4 + x.numel() // 4 * (4 + 1)
+    rows["pool_argmax"] = {
+        "source": "deconv_api_tpu_torch/csrc/pool_argmax.cu",
+        "replaces": "deconv_api_tpu/ops/pallas_pool.py:74",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": lib,
+    }
+
+    # K2: every unpool+ReLU of the backward when fusion is off, bf16
+    ms, plain, lib, nbytes = 0.0, 0.0, 0.0, 0
+    for ho, wo, c, _ in FUSED_SITES:
+        idx = torch.randint(0, 4, (B, ho, wo, c), generator=gen, device=dev, dtype=torch.int8)
+        for dtype in (torch.float32, torch.bfloat16):
+            y = torch.randn((B * K, ho, wo, c), generator=gen, device=dev).to(dtype)
+            for relu in (False, True):
+                got = cuda_pool.unpool_argmax(y, idx, (2, 2), None, relu)
+                want = pool.unpool_argmax_plain(y, idx, (2, 2), None, relu)
+                if not torch.equal(got, want):
+                    raise AssertionError(f"unpool_argmax differs from plain at {tuple(y.shape)} {dtype} relu={relu}")
+        # odd extent: out_hw one row and col past the pooled extent
+        got = cuda_pool.unpool_argmax(y, idx, (2, 2), (2 * ho + 1, 2 * wo + 1), True)
+        want = pool.unpool_argmax_plain(y, idx, (2, 2), (2 * ho + 1, 2 * wo + 1), True)
+        if not torch.equal(got, want):
+            raise AssertionError(f"unpool_argmax out_hw differs from plain at {tuple(y.shape)}")
+        ms += time_ms(lambda: cuda_pool.unpool_argmax(y, idx, (2, 2), None, True))
+        plain += time_ms(lambda: pool.unpool_argmax_plain(y, idx, (2, 2), None, True))
+        ind = F.max_pool2d(torch.randn((B * K, c, 2 * ho, 2 * wo), generator=gen, device=dev), 2, return_indices=True)[1]
+        yn = y.permute(0, 3, 1, 2)
+        lib += time_ms(lambda: F.max_unpool2d(yn, ind, 2))
+        nbytes += y.numel() * 2 + idx.numel() + y.numel() * 4 * 2
+    rows["unpool_argmax"] = {
+        "source": "deconv_api_tpu_torch/csrc/unpool_argmax.cu",
+        "replaces": "deconv_api_tpu/ops/pallas_pool.py:105",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": lib,
+    }
+
+    # K3: every pool -> ReLU -> conv step of the backward, bf16; fp32 checked too
+    err, ms, plain, lib, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0, 0
+    checks = []
+    for ho, wo, cout, cin in FUSED_SITES:
+        idx = torch.randint(0, 4, (B, ho, wo, cout), generator=gen, device=dev, dtype=torch.int8)
+        y32 = torch.randn((B * K, ho, wo, cout), generator=gen, device=dev)
+        w32 = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (2.0 / (9 * cout)) ** 0.5
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)):
+            y, w = y32.to(dtype), w32.to(dtype)
+            got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True).float()
+            want = cuda_deconv.fused_plain(y, idx, w, (2, 2), True).float()
+            e = float((got - want).abs().max())
+            rel = e / float(want.abs().max())
+            checks.append({"site": [B * K, ho, wo, cout, cin], "dtype": str(dtype), "max_abs_err": e, "rel_err": rel, "tol": tol})
+            if not rel <= tol:
+                raise AssertionError(f"fused_unpool_conv off by {rel:.3g} (tol {tol}) at {checks[-1]}")
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+        y, w = y32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        ms += time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True))
+        plain += time_ms(lambda: cuda_deconv.fused_plain(y, idx, w, (2, 2), True))
+        lib += time_ms(lambda: conv.conv2d_input_backward(cuda_pool.unpool_argmax(y, idx, (2, 2), None, True), w))
+        m = B * K * ho * 2 * wo * 2
+        flops += 2 * m * cin * 9 * cout
+        nbytes += y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2
+    emit({"phase": "kernels", "fused_unpool_conv_checks": checks})
+    rows["fused_unpool_conv"] = {
+        "source": "deconv_api_tpu_torch/csrc/fused_unpool_conv.cu",
+        "replaces": "deconv_api_tpu/ops/pallas_deconv.py:270",
+        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+        "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+        "library_ms": lib,
+    }
+    emit({"phase": "kernels", "checked": sorted(rows), "exact": ["pool_argmax", "unpool_argmax"],
+          "per_kernel": rows})
+    return rows
+
+
+# --- phase 4 -------------------------------------------------------------------
+
+
+def _post(port: int, layer: str, uri: str):
+    data = urllib.parse.urlencode({"file": uri, "layer": layer}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/", data=data)
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8", "replace"), time.perf_counter() - t0
+
+
+def phase_main_path(torch) -> dict:
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.serving import codec
+
+    # what `python -m deconv_api_tpu_torch serve ...` runs, on a free port
+    t0 = time.perf_counter()
+    server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda",
+                           "--max-batch", str(B)])
+    warm_s = time.perf_counter() - t0
+    service, bundle, port = server.service, server.service.bundle, server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/ready", timeout=10) as r:
+            assert json.loads(r.read()) == {"ready": True}
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health-check", timeout=10) as r:
+            assert json.loads(r.read()) == {"healthy": "true"}
+
+        rng = np.random.default_rng(1)
+        # smooth random images at a non-224 size, so resize runs
+        imgs = []
+        for _ in range(B + 2):
+            base = rng.integers(0, 256, (16, 15, 3)).astype(np.float64)
+            img = np.kron(base, np.ones((16, 16, 1)))[:256, :240] + rng.normal(0, 12, (256, 240, 3))
+            imgs.append(np.clip(img, 0, 255).astype(np.uint8))
+        uris = ["data:image/png;base64," + base64.b64encode(png_bytes(i)).decode() for i in imgs]
+        layers = ["block5_conv1"] * B + ["block3_conv3", "fc1"]
+
+        ops.reset_launch_counts()
+        service.batch_sizes.clear()
+        results = [None] * len(uris)
+
+        def run(i):
+            results[i] = _post(port, layers[i], uris[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(uris))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        responses = []
+        for (status, body, secs), layer in zip(results, layers):
+            ok = status == 200 and isinstance(body, str) and body.startswith("data:image/webp;base64,")
+            if not ok:
+                raise AssertionError(f"POST / {layer}: {status} {str(body)[:300]}")
+            raw = base64.b64decode(urllib.parse.unquote(body.split(",", 1)[1]))
+            size = codec.jpeg_size(raw)
+            if size != (448, 448):
+                raise AssertionError(f"POST / {layer}: grid {size}, expected 448x448")
+            if codec.backend() == "cv2":
+                import cv2
+
+                dec = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR)
+                assert dec is not None and dec.shape == (448, 448, 3), "grid does not decode"
+            responses.append({"layer": layer, "status": status, "seconds": secs, "jpeg_hw": list(size)})
+        batch_sizes = list(service.batch_sizes)
+
+        # the same block5_conv1 batch with the fused kernel off: K2 carries
+        # every unpool, F.conv2d every conv; the grids must agree
+        xs = np.stack([service.decode_preprocess(u) for u in uris[:B]])
+        fused = service.visualize_batch("block5_conv1", xs)
+        unfused = service.visualize_batch("block5_conv1", xs, fused_unpool="off")
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+
+        psnr = min(psnr_db(a, b) for a, b in zip(fused["grid"], unfused["grid"]))
+        same_idx = bool((fused["indices"] == unfused["indices"]).all())
+        out = {
+            "phase": "main_path", "model": "vgg16", "boot_s": warm_s,
+            "responses": responses, "batch_sizes": batch_sizes,
+            "launches": counts,
+            "fused_vs_off_min_psnr_db": psnr if np.isfinite(psnr) else "identical",
+            "fused_vs_off_indices_equal": same_idx,
+            "grid_finite_uint8": fused["grid"].dtype == np.uint8 and fused["grid"].shape == (B, 448, 448, 3),
+        }
+        emit(out)
+        if not all(counts[k] > 0 for k in ("pool_argmax", "unpool_argmax", "fused_unpool_conv")):
+            raise AssertionError(f"a kernel of the path never launched: {counts}")
+        if max(batch_sizes) <= 1:
+            raise AssertionError(f"no batch held more than one image: {batch_sizes}")
+        if psnr < 52.0 or not same_idx:
+            raise AssertionError(f"fused vs off: {psnr:.1f} dB, indices equal {same_idx}")
+        return {"bundle": bundle, "xs": xs, "counts": counts}
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(10)
+
+
+# --- phase 5 -------------------------------------------------------------------
+
+
+def device_breakdown(torch, run) -> dict:
+    """One call of ``run`` under torch.profiler: device time by kernel, and
+    the device's idle share of the host-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(e) -> float:
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    except Exception as e:  # the trace is a reading, not a check of the port
+        return {"device_busy_ms": "not measured", "profiler_error": repr(e)}
+    events = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and device_us(e) > 0]
+    busy_ms = sum(device_us(e) for e in events) / 1e3
+    if not busy_ms:
+        return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
+    top = sorted(events, key=device_us, reverse=True)[:10]
+    return {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+        "top": [{"kernel": e.key[:90], "ms": device_us(e) / 1e3, "calls": e.count} for e in top],
+    }
+
+
+def phase_throughput(torch, ctx: dict, label: str) -> dict:
+    bundle, xs = ctx["bundle"], ctx["xs"]
+    batch = torch.from_numpy(xs).cuda()
+    out = {"phase": "throughput", "card": label, "batch": B, "layer": "block5_conv1", "top_k": K,
+           "forward": "float32", "backward": "bfloat16"}
+    for policy in ("auto", "off"):
+        fn = bundle.batched_visualizer("block5_conv1", "all", K, True, "bfloat16", post="grid", fused_unpool=policy)
+
+        def run():
+            return fn(bundle.params, batch)["block5_conv1"]["grid"].cpu()
+
+        for _ in range(2):
+            run()
+        times = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            run()
+            times.append(time.perf_counter() - t0)
+        p50 = statistics.median(times)
+        out[f"fused_{policy}"] = {"p50_ms": p50 * 1e3, "images_per_s": B / p50,
+                                  "min_ms": min(times) * 1e3, "max_ms": max(times) * 1e3,
+                                  "profile": device_breakdown(torch, run)}
+    emit(out)
+    return out
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this smoke test runs on an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        import deconv_api_tpu_torch
+    except ImportError:
+        deconv_api_tpu_torch = None
+    if deconv_api_tpu_torch is None or not os.path.abspath(deconv_api_tpu_torch.__file__).startswith(ROOT + os.sep):
+        print("chip_smoke: run it from the root of a deconv_api_tpu checkout", file=sys.stderr)
+        return 2
+
+    env = phase_environment(torch)
+    phase_build()
+    rows = phase_kernels(torch)
+    ctx = phase_main_path(torch)
+    phase_throughput(torch, ctx, env["nvidia_smi"])
+    kernels = [{"name": name, "route": "cuda", **row, "launches": ctx["counts"][name]} for name, row in rows.items()]
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+"""The port's CUDA kernels and its engine on the card, held against the plain
+PyTorch versions.  Needs an NVIDIA GPU and nvcc; skips without a card.  On
+a machine without jax, run it without the suite's conftest:
+
+    python -m pytest --noconftest -q tests/test_torch_cuda.py
+"""
+
+import pytest
+import torch
+
+from deconv_api_tpu_torch import ops
+from deconv_api_tpu_torch.engine.deconv import get_visualizer
+from deconv_api_tpu_torch.models import VGG_TINY_SPEC, init_params
+from deconv_api_tpu_torch.ops import cuda_deconv, cuda_pool, pool
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from deconv_api_tpu_torch._device import resolve_device
+
+    return resolve_device("cuda")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,pool_size", [((3, 9, 7, 5), (2, 2)), ((2, 12, 12, 33), (3, 2))])
+def test_pool_argmax_kernel_is_bit_exact(dev, dtype, shape, pool_size):
+    g = torch.Generator(device=dev).manual_seed(0)
+    for x in (
+        torch.randn(shape, generator=g, device=dev),
+        torch.tensor([-0.0, 0.0, 1.0], device=dev)[torch.randint(0, 3, shape, generator=g, device=dev)],
+    ):
+        x = x.to(dtype)
+        got, want = cuda_pool.pool_argmax(x, pool_size), pool.maxpool_argmax_plain(x, pool_size)
+        assert torch.equal(got[1], want[1])
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(got[0].view(bits), want[0].view(bits))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,rep,out_hw", [(False, 1, None), (True, 4, None), (True, 2, (9, 11))])
+def test_unpool_argmax_kernel_is_exact(dev, dtype, relu, rep, out_hw):
+    g = torch.Generator(device=dev).manual_seed(1)
+    y = torch.randn((2 * rep, 4, 5, 6), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (2, 4, 5, 6), generator=g, device=dev, dtype=torch.int8)
+    got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu)
+    assert torch.equal(got, pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
+@pytest.mark.parametrize("rep,relu,k,cin,cout", [(1, True, 3, 5, 6), (4, True, 3, 70, 20), (2, False, 5, 3, 17)])
+def test_fused_kernel_matches_pair(dev, dtype, tol, rep, relu, k, cin, cout):
+    g = torch.Generator(device=dev).manual_seed(2)
+    y = torch.randn((3 * rep, 5, 7, cout), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (3, 5, 7, cout), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randn((k, k, cin, cout), generator=g, device=dev).to(dtype)
+    got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), relu).float()
+    want = cuda_deconv.fused_plain(y, idx, w, (2, 2), relu).float()
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+def test_engine_on_the_card_goes_through_the_kernels(dev):
+    params = init_params(VGG_TINY_SPEC, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1)) * 50
+    want = get_visualizer(VGG_TINY_SPEC, "block3_conv1", 4, device="cpu")(params, x)["block3_conv1"]
+    gparams = {l: {k: t.to(dev) for k, t in v.items()} for l, v in params.items()}
+    ops.reset_launch_counts()
+    for policy, kernel in (("auto", "fused_unpool_conv"), ("off", "unpool_argmax")):
+        fn = get_visualizer(VGG_TINY_SPEC, "block3_conv1", 4, fused_unpool=policy, device=dev)
+        got = fn(gparams, x)["block3_conv1"]
+        assert torch.equal(got["indices"].cpu(), want["indices"])
+        scale = float(want["images"].abs().max())
+        assert float((got["images"].cpu() - want["images"]).abs().max()) <= 1e-4 * scale
+        assert ops.launch_counts()[kernel] > 0
+    assert ops.launch_counts()["pool_argmax"] == 4  # 2 pools below block3_conv1, 2 runs

@@ -1,0 +1,91 @@
+"""The port stands alone: importing it (and everything chip_smoke.py imports)
+loads neither jax nor the JAX package, no module of it imports them, its
+kernel modules import on a machine without nvcc or triton, and without a
+card every entry point raises unless it is given ``device="cpu"``."""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "deconv_api_tpu_torch"
+
+
+def _port_sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _run(code: str, env_extra=None):
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH",)}
+    env.update(env_extra or {})
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_port_imports_without_jax_nvcc_or_triton():
+    """One subprocess with no nvcc on its PATH: importing the port and what
+    chip_smoke.py imports loads no jax, no JAX package and no triton; the
+    kernel build says clearly that nvcc is missing."""
+    code = (
+        "import sys\n"
+        "import chip_smoke\n"
+        "import deconv_api_tpu_torch, deconv_api_tpu_torch.__main__\n"
+        "import deconv_api_tpu_torch.ops, deconv_api_tpu_torch.engine\n"
+        "import deconv_api_tpu_torch.serving.app, deconv_api_tpu_torch.models.weights\n"
+        "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "try:\n"
+        "    _build.nvcc()\n"
+        "except RuntimeError as e:\n"
+        "    print('clean; no nvcc:', e)\n"
+    )
+    out = _run(code, {"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
+    assert out.returncode == 0 and "clean; no nvcc" in out.stdout, out.stderr
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_imports_jax_or_the_jax_package(path):
+    def banned(name: str) -> bool:
+        top = name.split(".")[0]
+        return top in ("jax", "jaxlib", "deconv_api_tpu")
+
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(banned(n) for n in names), f"{path.name}:{node.lineno} imports {names}"
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from deconv_api_tpu_torch.__main__ import main
+    from deconv_api_tpu_torch._device import resolve_device
+    from deconv_api_tpu_torch.engine.deconv import get_visualizer
+    from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    for call in (
+        lambda: resolve_device(),
+        lambda: get_visualizer(VGG_TINY_SPEC, "fc1"),
+        lambda: build_bundle("vgg_tiny"),
+        lambda: main(["serve", "--model", "vgg_tiny", "--port", "0"]),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert resolve_device("cpu").type == "cpu"
+    assert build_bundle("vgg_tiny", "cpu").device.type == "cpu"
+    get_visualizer(VGG_TINY_SPEC, "fc1", device="cpu")
