@@ -11,14 +11,22 @@ Phases, each printing JSON lines:
 2. build: the three kernels from ``deconv_api_tpu_torch/csrc``, one nvcc each,
    all started together;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's VGG16 shapes (batch 8, top-4), with times by CUDA events
-   beside the plain version's, a library call's and the bound;
-4. main path: ``serve`` with VGG16 at full width on a free port, 8
-   concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one at
-   fc1, then one batch repeated with ``fused_unpool=off``; the launch
-   counters are zeroed just before and read just after;
-5. throughput of the batch-8 block5_conv1 program.
-The line before the last is the kernels line, the last the result line.
+   the main paths' VGG16 shapes (``POST /``: batch 8, top-4; the grouped
+   forms at the packed sites of ``/v1/deconv``: batch 8, top-8, 8 groups),
+   with times by CUDA events beside the plain version's, a library call's
+   and the bound;
+4. main path ``POST /``: ``serve`` with VGG16 at full width on a free port,
+   8 concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one
+   at fc1, then one batch repeated with ``fused_unpool=off``;
+5. main path ``POST /v1/deconv``: ``serve --lowc-kpack auto`` likewise, 8
+   concurrent tile requests at block5_conv1 plus one ``mode=max``, one
+   ``top_k=1`` and one ``sweep`` from block3_conv1, then one batch repeated
+   with ``lowc_kpack=off`` and with ``fused_unpool=off``;
+6. throughput of the batch-8 block5_conv1 programs (grid; tiles at each
+   ``lowc_kpack`` policy) and of one batch-8 sweep from block5_conv1.
+Each main path zeroes the launch counters just before it and reads them
+just after.  The line before the last is the kernels line, the last the
+result line.
 """
 
 from __future__ import annotations
@@ -45,6 +53,11 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 POOL_SITES = ((224, 224, 64), (112, 112, 128), (56, 56, 256), (28, 28, 512))
 # (pooled ho, wo, Cout) -> Cin of the conv the fused kernel projects through
 FUSED_SITES = ((14, 14, 512, 512), (28, 28, 256, 256), (56, 56, 128, 128), (112, 112, 64, 64))
+# the packed sites of /v1/deconv at its defaults (top_k 8, so 8 groups):
+# block1 (packed under lowc_kpack=auto, the main path) and block2 (forced)
+KG = 8
+V1_LAYER, V1_SWEEP_FROM = "block5_conv1", "block3_conv1"  # the /v1/deconv requests
+PACKED_SITES = {"pool1_auto": (112, 112, 64, 64), "pool2_forced": (56, 56, 128, 128)}
 
 
 def emit(obj) -> None:
@@ -250,17 +263,105 @@ def phase_kernels(torch) -> dict:
         "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": lib,
     }
-    emit({"phase": "kernels", "checked": sorted(rows), "exact": ["pool_argmax", "unpool_argmax"],
-          "per_kernel": rows})
+    rows.update(grouped_kernels(torch, gen))
+    emit({"phase": "kernels", "checked": sorted(rows),
+          "exact": ["pool_argmax", "unpool_argmax", "unpool_argmax_grouped"], "per_kernel": rows})
+    return rows
+
+
+def grouped_kernels(torch, gen) -> dict:
+    """K2 and K3 in their grouped (channel-packed) form at the packed sites
+    of ``/v1/deconv``: B rows of KG groups, switch rep 1.  Each row's
+    numbers are those of the block1 site, which ``lowc_kpack=auto`` packs;
+    the block2 site (``forced``) is checked and timed beside it."""
+    import torch.nn.functional as F
+
+    from deconv_api_tpu_torch.ops import conv, cuda_deconv, cuda_pool, pool
+
+    dev = torch.device("cuda")
+    rows, sites, checks = {}, {}, []
+    for site, (ho, wo, cout, cin) in PACKED_SITES.items():
+        idx = torch.randint(0, 4, (B, ho, wo, cout), generator=gen, device=dev, dtype=torch.int8)
+        y32 = torch.randn((B, ho, wo, KG * cout), generator=gen, device=dev)
+        w32 = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (2.0 / (9 * cout)) ** 0.5
+        # K2 grouped: bit for bit, both dtypes, ReLU on and off, odd extent
+        for dtype in (torch.float32, torch.bfloat16):
+            y = y32.to(dtype)
+            for relu, out_hw in ((False, None), (True, None), (True, (2 * ho + 1, 2 * wo + 1))):
+                got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu, KG)
+                if not torch.equal(got, pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu, KG)):
+                    raise AssertionError(f"unpool_argmax grouped differs from plain at {site} {dtype} relu={relu} out_hw={out_hw}")
+        # K3 grouped against the grouped pair
+        err = 0.0
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)):
+            y, w = y32.to(dtype), w32.to(dtype)
+            got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True, KG).float()
+            want = cuda_deconv.fused_plain(y, idx, w, (2, 2), True, KG).float()
+            e = float((got - want).abs().max())
+            rel = e / float(want.abs().max())
+            checks.append({"site": site, "y": list(y.shape), "dtype": str(dtype), "max_abs_err": e,
+                           "rel_err": rel, "tol": tol})
+            if not rel <= tol:
+                raise AssertionError(f"fused_unpool_conv grouped off by {rel:.3g} (tol {tol}) at {checks[-1]}")
+            if dtype == torch.bfloat16:
+                err = e
+            del got, want
+        y, w = y32.to(torch.bfloat16), w32.to(torch.bfloat16)
+        del y32
+        # the library's unpool: F.max_unpool2d with the switches repeated to
+        # KG blocks as int64 flat indices of each output plane
+        sw = idx.repeat(1, 1, 1, KG).permute(0, 3, 1, 2).long()
+        rows_i = torch.arange(ho, device=dev)[:, None] * 2 + sw // 2
+        ind = rows_i * (2 * wo) + torch.arange(wo, device=dev)[None, :] * 2 + sw % 2
+        yn = y.permute(0, 3, 1, 2).contiguous()
+        m = B * 2 * ho * 2 * wo * KG
+        sites[site] = {
+            "unpool_argmax_grouped": {
+                "ms": time_ms(lambda: cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, KG)),
+                "plain_ms": time_ms(lambda: pool.unpool_argmax_plain(y, idx, (2, 2), None, True, KG)),
+                "library_ms": time_ms(lambda: F.max_unpool2d(yn, ind, 2)),
+                "bytes": y.numel() * 2 + idx.numel() + y.numel() * 4 * 2,
+            },
+            "fused_unpool_conv_grouped": {
+                "ms": time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True, KG), reps=10),
+                "plain_ms": time_ms(lambda: cuda_deconv.fused_plain(y, idx, w, (2, 2), True, KG), reps=10),
+                "library_ms": time_ms(lambda: conv.conv2d_input_backward_grouped(
+                    cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, KG), w, KG), reps=10),
+                "flops": 2 * m * cin * 9 * cout,
+                "bytes": y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2,
+                "max_abs_err": err,
+            },
+        }
+        del ind, sw, yn
+    emit({"phase": "kernels", "grouped_sites": sites, "fused_unpool_conv_grouped_checks": checks})
+    main = sites["pool1_auto"]
+    k2, k3 = main["unpool_argmax_grouped"], main["fused_unpool_conv_grouped"]
+    rows["unpool_argmax_grouped"] = {
+        "source": "deconv_api_tpu_torch/csrc/unpool_argmax.cu",
+        "replaces": "deconv_api_tpu/ops/pallas_pool.py:105",
+        "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": k2["library_ms"],
+        "library": "F.max_unpool2d on the switches repeated to 8 groups (int64 indices)",
+    }
+    t_ops, t_bytes = k3["flops"] / BF16_FLOPS, k3["bytes"] / HBM_BYTES_PER_S
+    rows["fused_unpool_conv_grouped"] = {
+        "source": "deconv_api_tpu_torch/csrc/fused_unpool_conv.cu",
+        "replaces": "deconv_api_tpu/ops/pallas_deconv.py:270",
+        "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+        "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": k3["library_ms"],
+        "library": "K2 grouped + F.conv2d(groups=8)",
+    }
     return rows
 
 
 # --- phase 4 -------------------------------------------------------------------
 
 
-def _post(port: int, layer: str, uri: str):
-    data = urllib.parse.urlencode({"file": uri, "layer": layer}).encode()
-    req = urllib.request.Request(f"http://127.0.0.1:{port}/", data=data)
+def _post(port: int, path: str, form: dict):
+    data = urllib.parse.urlencode(form).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
     t0 = time.perf_counter()
     try:
         with urllib.request.urlopen(req, timeout=300) as r:
@@ -305,7 +406,7 @@ def phase_main_path(torch) -> dict:
         results = [None] * len(uris)
 
         def run(i):
-            results[i] = _post(port, layers[i], uris[i])
+            results[i] = _post(port, "/", {"file": uris[i], "layer": layers[i]})
 
         threads = [threading.Thread(target=run, args=(i,)) for i in range(len(uris))]
         for t in threads:
@@ -354,7 +455,7 @@ def phase_main_path(torch) -> dict:
             raise AssertionError(f"no batch held more than one image: {batch_sizes}")
         if psnr < 52.0 or not same_idx:
             raise AssertionError(f"fused vs off: {psnr:.1f} dB, indices equal {same_idx}")
-        return {"bundle": bundle, "xs": xs, "counts": counts}
+        return {"bundle": bundle, "xs": xs, "uris": uris, "counts": counts}
     finally:
         server.shutdown()
         server.server_close()
@@ -363,6 +464,125 @@ def phase_main_path(torch) -> dict:
 
 
 # --- phase 5 -------------------------------------------------------------------
+
+
+def _check_tiles(entry: dict, what: str, top_k: int, size: int) -> int:
+    """A fired-prefix ``{"filters", "images"}`` payload: as many images as
+    filters, at most ``top_k``, each a size x size JPEG data URL."""
+    from deconv_api_tpu_torch.serving import codec
+
+    filters, images = entry["filters"], entry["images"]
+    if len(filters) != len(images) or len(filters) > top_k:
+        raise AssertionError(f"{what}: {len(filters)} filters, {len(images)} images, top_k {top_k}")
+    for url in images:
+        if not url.startswith("data:image/webp;base64,"):
+            raise AssertionError(f"{what}: not a data URL: {url[:40]}")
+        hw = codec.jpeg_size(base64.b64decode(urllib.parse.unquote(url.split(",", 1)[1])))
+        if hw != (size, size):
+            raise AssertionError(f"{what}: tile {hw}, expected {size}x{size}")
+    return len(filters)
+
+
+def phase_v1_deconv(torch, uris: list) -> dict:
+    """``serve --lowc-kpack auto`` answers /v1/deconv tiles and a sweep,
+    through the grouped kernels at the packed block1 site."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.serving.app import Program
+
+    t0 = time.perf_counter()
+    server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda",
+                           "--max-batch", str(B), "--lowc-kpack", "auto"])
+    boot_s = time.perf_counter() - t0
+    service, port = server.service, server.server_address[1]
+    size = service.bundle.image_size
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        forms = [{"file": u, "layer": V1_LAYER} for u in uris[:B]] + [
+            {"file": uris[B], "layer": V1_LAYER, "mode": "max"},
+            {"file": uris[B + 1], "layer": V1_LAYER, "top_k": "1"},
+            {"file": uris[0], "layer": V1_SWEEP_FROM, "sweep": "true"},
+        ]
+        ops.reset_launch_counts()
+        service.batch_sizes.clear()
+        results = [None] * len(forms)
+
+        def run(i):
+            results[i] = _post(port, "/v1/deconv", forms[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(forms))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        responses = []
+        for form, (status, body, secs) in zip(forms, results):
+            what = f"POST /v1/deconv {form['layer']} {({k: v for k, v in form.items() if k not in ('file', 'layer')})}"
+            if status != 200 or not isinstance(body, dict):
+                raise AssertionError(f"{what}: {status} {str(body)[:300]}")
+            top_k = int(form.get("top_k", 8))
+            if form.get("sweep"):
+                want = list(service.bundle.sweep_layers(form["layer"]))
+                if not body.get("sweep") or list(body["layers"]) != want:
+                    raise AssertionError(f"{what}: layers {list(body.get('layers', {}))}, expected {want}")
+                n = {name: _check_tiles(e, f"{what} {name}", top_k, size) for name, e in body["layers"].items()}
+            else:
+                n = _check_tiles(body, what, top_k, size)
+            responses.append({"form": {k: v for k, v in form.items() if k != "file"}, "status": status,
+                              "seconds": secs, "filters": n})
+        batch_sizes = list(service.batch_sizes)
+
+        # the same block5_conv1 batch through the engine: packed (the
+        # service's policy), unpacked, and packed with fused_unpool=off,
+        # where the grouped K2 carries the packed unpools
+        xs = np.stack([service.decode_preprocess(u) for u in uris[:B]])
+        prog = Program(V1_LAYER, "all", 8, "tiles")
+        packed = service.run_program(prog, xs)[V1_LAYER]
+        unpacked = service.run_program(prog, xs, lowc_kpack="off")[V1_LAYER]
+        packed_unfused = service.run_program(prog, xs, fused_unpool="off")[V1_LAYER]
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+
+        served_ok = all(
+            r[1]["filters"] == [int(i) for i in packed["indices"][b][: int(packed["valid"][b].sum())]]
+            for b, r in enumerate(results[:B])
+        )
+        compare = {}
+        for name, other in (("unpacked", unpacked), ("packed_unfused", packed_unfused)):
+            psnr = min(psnr_db(a, o) for a, o in zip(packed["tiles"].reshape(-1, size, size, 3),
+                                                     other["tiles"].reshape(-1, size, size, 3)))
+            compare[name] = {
+                "min_tile_psnr_db": psnr if np.isfinite(psnr) else "identical",
+                "indices_equal": bool((packed["indices"] == other["indices"]).all()
+                                      and (packed["valid"] == other["valid"]).all()),
+            }
+        out = {"phase": "v1_deconv", "model": service.bundle.name, "lowc_kpack": "auto", "boot_s": boot_s,
+               "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
+               "served_filters_match_engine": served_ok, "packed_vs": compare,
+               "tiles_uint8": packed["tiles"].dtype == np.uint8 and packed["tiles"].shape == (B, 8, size, size, 3)}
+        emit(out)
+        needed = ("pool_argmax", "fused_unpool_conv", "fused_unpool_conv_grouped", "unpool_argmax_grouped")
+        if not all(counts[k] > 0 for k in needed):
+            raise AssertionError(f"a kernel of the path never launched: {counts}")
+        if not served_ok:
+            raise AssertionError("served filters differ from the engine's valid prefix")
+        for name, c in compare.items():
+            if not c["indices_equal"] or (c["min_tile_psnr_db"] != "identical" and c["min_tile_psnr_db"] < 52.0):
+                raise AssertionError(f"packed vs {name}: {c}")
+        if not out["tiles_uint8"]:
+            raise AssertionError(f"tiles are not uint8 (B, 8, {size}, {size}, 3)")
+        return {"bundle": service.bundle, "counts": counts}
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(10)
+
+
+# --- phase 6 -------------------------------------------------------------------
 
 
 def device_breakdown(torch, run) -> dict:
@@ -393,6 +613,21 @@ def device_breakdown(torch, run) -> dict:
     }
 
 
+def _timed(torch, run, reps: int = 10) -> dict:
+    """Host-clock p50 of ``run`` (which ends in a device-to-host copy)
+    after 2 warm-up calls, and one profiled call."""
+    for _ in range(2):
+        run()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        times.append(time.perf_counter() - t0)
+    p50 = statistics.median(times)
+    return {"p50_ms": p50 * 1e3, "images_per_s": B / p50, "min_ms": min(times) * 1e3,
+            "max_ms": max(times) * 1e3, "profile": device_breakdown(torch, run)}
+
+
 def phase_throughput(torch, ctx: dict, label: str) -> dict:
     bundle, xs = ctx["bundle"], ctx["xs"]
     batch = torch.from_numpy(xs).cuda()
@@ -400,21 +635,27 @@ def phase_throughput(torch, ctx: dict, label: str) -> dict:
            "forward": "float32", "backward": "bfloat16"}
     for policy in ("auto", "off"):
         fn = bundle.batched_visualizer("block5_conv1", "all", K, True, "bfloat16", post="grid", fused_unpool=policy)
+        out[f"fused_{policy}"] = _timed(torch, lambda: fn(bundle.params, batch)["block5_conv1"]["grid"].cpu())
+    emit(out)
+    return out
 
-        def run():
-            return fn(bundle.params, batch)["block5_conv1"]["grid"].cpu()
 
-        for _ in range(2):
-            run()
-        times = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            run()
-            times.append(time.perf_counter() - t0)
-        p50 = statistics.median(times)
-        out[f"fused_{policy}"] = {"p50_ms": p50 * 1e3, "images_per_s": B / p50,
-                                  "min_ms": min(times) * 1e3, "max_ms": max(times) * 1e3,
-                                  "profile": device_breakdown(torch, run)}
+def phase_throughput_v1(torch, bundle, batch, label: str) -> dict:
+    """/v1/deconv: the tiles program at top_k 8 under each lowc_kpack
+    policy, fused_unpool=auto, then one sweep from the same layer."""
+    out = {"phase": "throughput", "card": label, "batch": B, "layer": V1_LAYER, "top_k": 8,
+           "post": "tiles", "fused_unpool": "auto", "forward": "float32", "backward": "bfloat16"}
+    for policy in ("off", "auto", "forced"):
+        fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles",
+                                       lowc_kpack=policy)
+        out[f"lowc_kpack_{policy}"] = _timed(torch, lambda: fn(bundle.params, batch)[V1_LAYER]["tiles"].cpu())
+    fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles", sweep=True,
+                                   lowc_kpack="auto")
+
+    def sweep():
+        return [e["tiles"].cpu() for e in fn(bundle.params, batch).values()]
+
+    out["sweep_lowc_kpack_auto"] = {"layers": len(sweep()), **_timed(torch, sweep, reps=3)}
     emit(out)
     return out
 
@@ -441,8 +682,16 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(torch)
     ctx = phase_main_path(torch)
+    v1 = phase_v1_deconv(torch, ctx["uris"])
     phase_throughput(torch, ctx, env["nvidia_smi"])
-    kernels = [{"name": name, "route": "cuda", **row, "launches": ctx["counts"][name]} for name, row in rows.items()]
+    phase_throughput_v1(torch, v1["bundle"], torch.from_numpy(ctx["xs"]).cuda(), env["nvidia_smi"])
+    by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"]}
+    kernels = [
+        {"name": name, "route": "cuda", **row,
+         "launches": sum(c[name] for c in by_path.values()),
+         "launches_by_path": {path: c[name] for path, c in by_path.items()}}
+        for name, row in rows.items()
+    ]
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -10,22 +10,31 @@
 // Bound on the H100: operations.  Each output pixel reduces kh*kw*Cout
 // products per input channel: at VGG16 batch 8, top-4 the four fused
 // sites are 4 x 32 x 3.70 GFLOP, about 474 GFLOP, 0.48 ms at 989 TFLOP/s
-// dense bf16 on the tensor cores.
+// dense bf16 on the tensor cores; one packed block1 site at batch 8, top-8
+// (groups 8) is 236.7 GFLOP, 0.24 ms.
 //
-// Design: an implicit GEMM, M = output pixels (n, r, c), N = Cin,
-// reduction = kh*kw*Cout.  A block owns a 128-pixel x 64-channel output
-// tile; for each kernel tap and 16-wide Cout chunk it stages in shared
-// memory
+// Design: an implicit GEMM, M = output pixels x packed groups (n, r, c, g),
+// N = Cin, reduction = kh*kw*Cout.  A block owns a 128-row x 64-channel
+// output tile; for each kernel tap and 16-wide Cout chunk it stages in
+// shared memory
 //   A: the unpooled input, formed by gather: the value at unpooled (R, C)
-//      is relu?(y[n, R/ph, C/pw]) where idx[n/rep, R/ph, C/pw] equals the
-//      slot (R%ph)*pw + C%pw, else 0, and 0 outside the image (SAME);
+//      of group g is relu?(y[n, R/ph, C/pw, g*Cout + co]) where
+//      idx[n/rep, R/ph, C/pw, co] equals the slot (R%ph)*pw + C%pw, else 0,
+//      and 0 outside the image (SAME);
 //   B: the matching slice of the flipped kernel (kh, kw, Cout, Cin), which
-//      the wrapper computes once per call (ops/conv.py:flip_kernel);
-// and each of 256 threads accumulates an 8-pixel x 4-channel sub-tile in
-// fp32 registers with FMAs.  The unpooled tensor exists only as shared
+//      the wrapper computes once per call (ops/conv.py:flip_kernel) and
+//      every group shares;
+// and each of 256 threads accumulates an 8-row x 4-channel sub-tile in
+// fp32 registers with FMAs.  Row m stores to out[m*Cin + ci], which is
+// out[n, r, c, g*Cin + ci].  The unpooled tensor exists only as shared
 // memory tiles.  The store rounds to y's dtype.  fp32 instantiations never
 // touch TF32.  This is the simple first form: no tensor cores, no
 // double-buffering; mma/wgmma and TMA staging are the route to the bound.
+//
+// Groups (`groups` > 1) are the channel-packed ("kpack") tail of
+// deconv_api_tpu/engine/deconv.py, where the TPU kernel folds the packed
+// groups into the GEMM's M (_mxu_kernel) and broadcasts the switches across
+// them (_scatter_block): here too, so one grouped launch is one GEMM.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,13 +42,13 @@
 
 namespace {
 
-constexpr int BM = 128;  // output pixels per block
+constexpr int BM = 128;  // GEMM rows (pixel, group) per block
 constexpr int BN = 64;   // input channels (GEMM N) per block
 constexpr int BK = 16;   // Cout chunk per shared-memory stage
-constexpr int TM = 8;    // pixels per thread
+constexpr int TM = 8;    // rows per thread
 constexpr int TN = 4;    // channels per thread
 constexpr int NT = 256;  // threads per block: (BM/TM) x (BN/TN)
-constexpr int A_ROWS = NT / BK;  // pixels one A-loading pass covers
+constexpr int A_ROWS = NT / BK;  // rows one A-loading pass covers
 constexpr int B_ROWS = NT / BN;  // Cout rows one B-loading pass covers
 constexpr int APAD = 4;  // keeps A stores off one bank, float4 reads aligned
 
@@ -55,13 +64,15 @@ template <typename T, bool RELU>
 __global__ void __launch_bounds__(NT, 2)
 fused_unpool_conv_kernel(const T* __restrict__ y, const int8_t* __restrict__ idx,
                          const T* __restrict__ fk, T* __restrict__ out, int N, int Ho, int Wo,
-                         int Cout, int Cin, int ph, int pw, int kh, int kw, int rep) {
+                         int Cout, int Cin, int ph, int pw, int kh, int kw, int rep,
+                         int groups) {
   __shared__ __align__(16) float As[BK][BM + APAD];
   __shared__ __align__(16) float Bs[BK][BN];
 
   const int H = Ho * ph, W = Wo * pw;
   const int HW = H * W;
-  const int M = N * HW;
+  const int M = N * HW * groups;
+  const int Cy = groups * Cout;  // signal channels
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
@@ -95,14 +106,16 @@ fused_unpool_conv_kernel(const T* __restrict__ y, const int8_t* __restrict__ idx
         ysrc[i] = 0;
         isrc[i] = 0;
         if (m < M) {
-          const int n = m / HW;
-          const int rem = m - n * HW;
+          const int p = m / groups;  // pixel (n, r, c)
+          const int g = m - p * groups;
+          const int n = p / HW;
+          const int rem = p - n * HW;
           const int R = rem / W + dy - kh / 2;
           const int Cc = rem % W + dx - kw / 2;
           if (R >= 0 && R < H && Cc >= 0 && Cc < W) {
             const int pr = R / ph, pc = Cc / pw;
             slot[i] = (R - pr * ph) * pw + (Cc - pc * pw);
-            ysrc[i] = ((n * Ho + pr) * Wo + pc) * Cout;
+            ysrc[i] = ((n * Ho + pr) * Wo + pc) * Cy + g * Cout;
             isrc[i] = (((n / rep) * Ho + pr) * Wo + pc) * Cout;
           }
         }
@@ -159,14 +172,15 @@ fused_unpool_conv_kernel(const T* __restrict__ y, const int8_t* __restrict__ idx
 
 template <typename T>
 int launch(const void* y, const void* idx, const void* fk, void* out, int N, int Ho, int Wo,
-           int Cout, int Cin, int ph, int pw, int kh, int kw, int rep, int relu, void* stream) {
-  const int64_t M = (int64_t)N * Ho * ph * Wo * pw;
+           int Cout, int Cin, int ph, int pw, int kh, int kw, int rep, int groups, int relu,
+           void* stream) {
+  const int64_t M = (int64_t)N * Ho * ph * Wo * pw * groups;
   if (M == 0 || Cin == 0) return 0;
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cin + BN - 1) / BN));
   auto kernel = relu ? fused_unpool_conv_kernel<T, true> : fused_unpool_conv_kernel<T, false>;
   kernel<<<grid, NT, 0, (cudaStream_t)stream>>>((const T*)y, (const int8_t*)idx, (const T*)fk,
                                                 (T*)out, N, Ho, Wo, Cout, Cin, ph, pw, kh, kw,
-                                                rep);
+                                                rep, groups);
   return (int)cudaGetLastError();
 }
 
@@ -174,13 +188,14 @@ int launch(const void* y, const void* idx, const void* fk, void* out, int N, int
 
 extern "C" int fused_unpool_conv_f32(const void* y, const void* idx, const void* fk, void* out,
                                      int N, int Ho, int Wo, int Cout, int Cin, int ph, int pw,
-                                     int kh, int kw, int rep, int relu, void* stream) {
-  return launch<float>(y, idx, fk, out, N, Ho, Wo, Cout, Cin, ph, pw, kh, kw, rep, relu, stream);
+                                     int kh, int kw, int rep, int groups, int relu, void* stream) {
+  return launch<float>(y, idx, fk, out, N, Ho, Wo, Cout, Cin, ph, pw, kh, kw, rep, groups, relu,
+                       stream);
 }
 
 extern "C" int fused_unpool_conv_bf16(const void* y, const void* idx, const void* fk, void* out,
                                       int N, int Ho, int Wo, int Cout, int Cin, int ph, int pw,
-                                      int kh, int kw, int rep, int relu, void* stream) {
-  return launch<__nv_bfloat16>(y, idx, fk, out, N, Ho, Wo, Cout, Cin, ph, pw, kh, kw, rep, relu,
-                               stream);
+                                      int kh, int kw, int rep, int groups, int relu, void* stream) {
+  return launch<__nv_bfloat16>(y, idx, fk, out, N, Ho, Wo, Cout, Cin, ph, pw, kh, kw, rep, groups,
+                               relu, stream);
 }

@@ -11,8 +11,17 @@ the port runs one explicit batch: B images forward, then B·K projection
 rows, image-major (row ``b*K + k``).  The switches keep batch B and each is
 shared by the K rows of its image (``rep = K`` in the pool ops).
 
-Out of this slice: the kpack packed tail, the NCHW tail, the layer sweeps,
-int8 quant and the bf16 forward prefix.
+The kpack packed tail (``kpack_chan > 0``): below the boundary
+``_pack_boundary`` finds, the K projections of an image ride its channels
+instead (B rows of K·C channels, switch ``rep`` 1) through grouped convs,
+grouped unpools and the grouped fused kernel, and unpack at the input.  The
+layer sweep (``sweep=True``) shares one forward and projects every
+projectable layer from the requested one down, each on its own, as the
+reference's default separate-per-layer path does.
+
+Out of this slice: the merged sweep (``_sweep_merged``, measured negative
+and off by default in the reference), the NCHW tail, int8 quant and the
+bf16 forward prefix.
 """
 
 from __future__ import annotations
@@ -75,7 +84,10 @@ def _fusable_conv(l) -> bool:
     )
 
 
-def _down_step(e: Entry, params, x, switches, prev_shape, bug_compat: bool):
+def _down_step(e: Entry, params, x, switches, prev_shape, bug_compat: bool, groups: int = 1):
+    """One backward step; with ``groups > 1`` the signal carries that many
+    projections packed into its channels (only certified kinds appear
+    there: relu/linear activations, fusable convs, pools, the input)."""
     l = e.layer
     if e.is_companion_act:
         # deconvnet backward ReLU: the same activation on the way down
@@ -84,9 +96,12 @@ def _down_step(e: Entry, params, x, switches, prev_shape, bug_compat: bool):
         return x
     if l.kind == "conv":
         w = params[l.name]["w"].to(x.dtype)
-        y = ops.conv2d_input_backward(
-            x, w, strides=l.strides, padding=l.padding, input_hw=prev_shape[1:3]
-        )
+        if groups > 1:
+            y = ops.conv2d_input_backward_grouped(x, w, groups)
+        else:
+            y = ops.conv2d_input_backward(
+                x, w, strides=l.strides, padding=l.padding, input_hw=prev_shape[1:3]
+            )
         if bug_compat:
             # the reference's config clone keeps the fused activation in
             # the backward conv model too
@@ -94,7 +109,7 @@ def _down_step(e: Entry, params, x, switches, prev_shape, bug_compat: bool):
         return y
     if l.kind == "pool":
         idx, out_hw = switches[e.name]
-        return ops.unpool_with_argmax(x, idx, l.pool_size, out_hw)
+        return ops.unpool_with_argmax(x, idx, l.pool_size, out_hw, groups=groups)
     if l.kind == "flatten":
         return ops.unflatten(x, prev_shape[1:])
     if l.kind == "dense":
@@ -103,19 +118,23 @@ def _down_step(e: Entry, params, x, switches, prev_shape, bug_compat: bool):
     raise AssertionError(l.kind)
 
 
-def _down_chain(entries, params, ups, switches, x, start, bug_compat, fused_unpool):
-    """Walk the backward chain from entry ``start`` down to the input, with
-    two peepholes: pool -> backward ReLU (or linear) -> certified conv as
-    one fused unpool+conv op, and pool -> backward ReLU as one unpool with
-    the ReLU folded in."""
+def _down_chain(
+    entries, params, ups, switches, x, start, stop_after, bug_compat, fused_unpool,
+    groups: int = 1,
+):
+    """Walk the backward chain from entry ``start`` down to ``stop_after``
+    (exclusive; -1 walks to pixels), with two peepholes: pool -> backward
+    ReLU (or linear) -> certified conv as one fused unpool+conv op, and
+    pool -> backward ReLU as one unpool with the ReLU folded in.  Both
+    pass ``groups`` through (the packed tail)."""
     j = start
-    while j >= 0:
+    while j > stop_after:
         e = entries[j]
         is_pool = not e.is_companion_act and e.layer.kind == "pool"
         if (
             fused_unpool != "off"
             and is_pool
-            and j - 2 >= 0
+            and j - 2 > stop_after
             and entries[j - 1].is_companion_act
             and entries[j - 1].layer.activation in ("relu", "linear")
             and not entries[j - 2].is_companion_act
@@ -127,7 +146,7 @@ def _down_chain(entries, params, ups, switches, x, start, bug_compat, fused_unpo
                 x, sw_idx, params[conv_l.name]["w"].to(x.dtype),
                 e.layer.pool_size, out_hw,
                 fuse_relu=entries[j - 1].layer.activation == "relu",
-                mode=fused_unpool,
+                groups=groups, mode=fused_unpool,
             )
             if bug_compat:
                 # the bug-compat re-activation stays outside the fused op
@@ -136,20 +155,87 @@ def _down_chain(entries, params, ups, switches, x, start, bug_compat, fused_unpo
             continue
         if (
             is_pool
-            and j - 1 >= 0
+            and j - 1 > stop_after
             and entries[j - 1].is_companion_act
             and entries[j - 1].layer.activation == "relu"
         ):
             sw_idx, out_hw = switches[e.name]
             x = ops.unpool_with_argmax(
-                x, sw_idx, e.layer.pool_size, out_hw, fuse_relu=True
+                x, sw_idx, e.layer.pool_size, out_hw, fuse_relu=True, groups=groups
             )
             j -= 2
             continue
         prev_shape = ups[j - 1].shape if j > 0 else ups[0].shape
-        x = _down_step(e, params, x, switches, prev_shape, bug_compat)
+        x = _down_step(e, params, x, switches, prev_shape, bug_compat, groups)
         j -= 1
     return x
+
+
+def _pack_boundary(entries, ups, i: int, max_chan: int) -> int:
+    """Largest entry index ``jb < i`` such that every entry in ``[0, jb]``
+    is safe to run with the K projections packed into the channels and
+    the signal entering ``jb`` has at most ``max_chan`` channels; -1 when
+    no packed tail applies.  Safe: relu/linear activations (softmax would
+    mix the packed projections), pools, the input, and fusable convs."""
+    safe = []
+    for e in entries:
+        l = e.layer
+        act_ok = l.activation in ("relu", "linear")
+        if e.is_companion_act:
+            safe.append(act_ok)
+        elif l.kind in ("input", "pool"):
+            safe.append(True)
+        elif l.kind == "conv":
+            safe.append(act_ok and _fusable_conv(l))
+        else:  # dense / flatten
+            safe.append(False)
+    for j in range(i - 1, -1, -1):
+        if all(safe[: j + 1]) and ups[j].shape[-1] <= max_chan:
+            return j
+    return -1
+
+
+# lowc_kpack policy thresholds: ``auto`` packs the C <= 64 tail (VGG
+# block1), ``forced`` the whole certified C <= 128 tail (block2 too)
+KPACK_AUTO_CHAN = 64
+KPACK_FORCED_CHAN = 128
+
+
+def resolve_kpack_chan(policy, top_k: int = 8) -> int:
+    """The ``lowc_kpack`` policy (off|auto|forced|<chan>) as a kpack
+    channel threshold.  ``off`` (also '', '0', 'false', 'no') is 0;
+    ``auto`` is 64, or 0 when ``top_k == 1`` (nothing to pack);
+    ``forced`` is 128; an integer or digit string is itself."""
+    if isinstance(policy, bool):  # bool is an int subclass
+        raise ValueError(f"illegal lowc_kpack policy {policy!r}")
+    if isinstance(policy, int):
+        return policy
+    p = str(policy).strip().lower()
+    if p in ("", "0", "off", "false", "no"):
+        return 0
+    if p == "auto":
+        return KPACK_AUTO_CHAN if top_k > 1 else 0
+    if p == "forced":
+        return KPACK_FORCED_CHAN
+    if p.isdigit():
+        return int(p)
+    raise ValueError(
+        f"illegal lowc_kpack policy {policy!r}; expected "
+        "'off', 'auto', 'forced' or a channel threshold"
+    )
+
+
+def pack_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B·K, H, W, C) image-major -> (B, H, W, K·C): projection k of image
+    b moves to channels ``[k*C, (k+1)*C)`` of row b."""
+    bk, h, w, c = x.shape
+    return x.reshape(bk // k, k, h, w, c).permute(0, 2, 3, 1, 4).reshape(bk // k, h, w, k * c)
+
+
+def unpack_k(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(B, H, W, K·C) -> (B·K, H, W, C): ``pack_k``'s exact inverse."""
+    b, h, w, kc = x.shape
+    return x.reshape(b, h, w, k, kc // k).permute(0, 3, 1, 2, 4).reshape(b * k, h, w, kc // k)
 
 
 def _select_top(output: torch.Tensor, top_k: int):
@@ -184,6 +270,34 @@ def _seed_fmaps(output: torch.Tensor, top_idx: torch.Tensor, mode: str):
     return (fmap[..., None] * chan).reshape(b * k, *spatial, n_chan)
 
 
+def _visualize_entry(
+    entries, params, ups, switches, i, top_k, mode, bug_compat, bwd_dtype,
+    kpack_chan, fused_unpool,
+):
+    """Top-K selection at entry ``i`` and the B·K projections to pixels;
+    with a pack boundary ``jb`` the walk below it runs packed."""
+    output = ups[i]
+    top_idx, top_sums, valid = _select_top(output, top_k)
+    x = _seed_fmaps(output, top_idx, mode)
+    if bwd_dtype is not None:
+        x = x.to(bwd_dtype)
+    b, k = top_idx.shape
+    jb = _pack_boundary(entries, ups, i, kpack_chan) if kpack_chan > 0 else -1
+    walk = (entries, params, ups, switches)
+    if jb >= 0:
+        x = _down_chain(*walk, x, i, jb, bug_compat, fused_unpool)
+        x = _down_chain(*walk, pack_k(x, k), jb, -1, bug_compat, fused_unpool, groups=k)
+        x = unpack_k(x, k)
+    else:
+        x = _down_chain(*walk, x, i, -1, bug_compat, fused_unpool)
+    return {
+        "images": x.to(output.dtype).reshape(b, k, *x.shape[1:]),
+        "indices": top_idx,
+        "sums": top_sums,
+        "valid": valid,
+    }
+
+
 def get_visualizer(
     spec: ModelSpec,
     layer_name: str,
@@ -193,17 +307,25 @@ def get_visualizer(
     backward_dtype: str | None = None,
     fused_unpool: str = "auto",
     device=None,
+    *,
+    sweep: bool = False,
+    kpack_chan: int = 0,
 ):
     """``fn(params, images)`` for images (B, H, W, C) ->
-    ``{layer_name: {"images": (B, K, H, W, C), "indices": (B, K),
-    "sums": (B, K), "valid": (B, K)}}``.
+    ``{layer: {"images": (B, K, H, W, C), "indices": (B, K),
+    "sums": (B, K), "valid": (B, K)}}``, for ``layer_name`` alone or, with
+    ``sweep=True``, for every projectable layer from it down, deepest
+    first (the input dropped).
 
     ``backward_dtype`` (e.g. ``"bfloat16"``) runs only the projection chain
     in that dtype; selection and switches stay exact.  ``fused_unpool``
     (off|auto|forced) fuses each certified pool -> ReLU -> conv step of the
-    backward walk into one op (``ops/cuda_deconv.py``).  ``device`` is
-    where it runs: ``cuda`` unless ``"cpu"`` is passed (raises without a
-    card); the params must already be there, the images are moved."""
+    backward walk into one op (``ops/cuda_deconv.py``).  ``kpack_chan``
+    (``resolve_kpack_chan`` of the ``lowc_kpack`` policy; 0 is off) packs
+    the K projections into the channels below the boundary where the
+    signal has at most that many.  ``device`` is where it runs: ``cuda``
+    unless ``"cpu"`` is passed (raises without a card); the params must
+    already be there, the images are moved."""
     if mode not in ("all", "max"):
         raise ValueError(f"illegal visualize mode {mode!r}; expected 'all' or 'max'")
     if backward_dtype and backward_dtype not in _DTYPES:
@@ -212,11 +334,15 @@ def get_visualizer(
         )
     fused_unpool = resolve_fused_unpool(fused_unpool)
     entries = entry_chain(spec.truncated(layer_name))
-    i = next(j for j, e in enumerate(entries) if e.name == layer_name)
-    if entries[i].layer.kind == "input":
+    model_names = {l.name for l in spec.layers}
+    # model-layer entries, deepest first, the input dropped
+    vis = [j for j, e in enumerate(entries) if e.name in model_names][::-1][:-1]
+    if not vis:
         raise ValueError(
             f"layer {layer_name!r} has no projectable output (it is the input layer)"
         )
+    if not sweep:
+        vis = vis[:1]
     bwd_dtype = _DTYPES[backward_dtype] if backward_dtype else None
     dev = resolve_device(device)
 
@@ -225,21 +351,12 @@ def get_visualizer(
         images = torch.as_tensor(images).to(dev)
         switches: dict = {}
         ups = _forward_chain(entries, params, images, switches)
-        output = ups[i]
-        top_idx, top_sums, valid = _select_top(output, top_k)
-        x = _seed_fmaps(output, top_idx, mode)
-        if bwd_dtype is not None:
-            x = x.to(bwd_dtype)
-        x = _down_chain(entries, params, ups, switches, x, i, bug_compat, fused_unpool)
-        b, k = top_idx.shape
-        images_out = x.to(output.dtype).reshape(b, k, *x.shape[1:])
         return {
-            layer_name: {
-                "images": images_out,
-                "indices": top_idx,
-                "sums": top_sums,
-                "valid": valid,
-            }
+            entries[i].name: _visualize_entry(
+                entries, params, ups, switches, i, top_k, mode, bug_compat,
+                bwd_dtype, kpack_chan, fused_unpool,
+            )
+            for i in vis
         }
 
     return fn

@@ -31,6 +31,11 @@ class UnknownLayer(DeconvError):
     code = "unknown_layer"
 
 
+class IllegalMode(DeconvError):
+    status = 422
+    code = "illegal_visualize_mode"
+
+
 class NoActiveFilters(DeconvError):
     """No filter fired for the requested layer."""
 

@@ -5,7 +5,12 @@ their first launch (``ops/_build.py``)."""
 
 from deconv_api_tpu_torch.ops import cuda_deconv, cuda_pool
 from deconv_api_tpu_torch.ops.activations import apply_activation
-from deconv_api_tpu_torch.ops.conv import conv2d, conv2d_input_backward, flip_kernel
+from deconv_api_tpu_torch.ops.conv import (
+    conv2d,
+    conv2d_input_backward,
+    conv2d_input_backward_grouped,
+    flip_kernel,
+)
 from deconv_api_tpu_torch.ops.cuda_deconv import fused_unpool_backward
 from deconv_api_tpu_torch.ops.linear import (
     dense,
@@ -31,6 +36,7 @@ __all__ = [
     "apply_activation",
     "conv2d",
     "conv2d_input_backward",
+    "conv2d_input_backward_grouped",
     "dense",
     "dense_input_backward",
     "flatten",

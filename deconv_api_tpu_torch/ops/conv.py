@@ -4,7 +4,9 @@ Counterpart of ``deconv_api_tpu/ops/conv.py``.  A contiguous NHWC tensor
 permuted to (N, C, H, W) is an NCHW tensor in ``channels_last`` memory
 format, so ``F.conv2d`` runs on it without a copy and the output permutes
 back to contiguous NHWC.  Only the stride-1 path exists in this slice;
-strided convs arrive with the DAG models.
+strided convs arrive with the DAG models.  The grouped backward projection
+is the channel-packed ("kpack") tail's: cuDNN runs it on the card, as XLA
+ran it outside any Pallas kernel in the reference.
 """
 
 from __future__ import annotations
@@ -34,15 +36,18 @@ def conv2d(
     *,
     strides: Sequence[int] = (1, 1),
     padding: str = "SAME",
+    groups: int = 1,
 ) -> torch.Tensor:
-    """Forward convolution: NHWC input, HWIO kernel, optional bias."""
+    """Forward convolution: NHWC input, HWIO kernel (input channels per
+    group), optional bias; ``groups`` splits the channels into contiguous
+    blocks, as XLA's ``feature_group_count`` does."""
     if tuple(strides) != (1, 1):
         raise NotImplementedError(
             f"strided conv {tuple(strides)} is not ported yet"
         )
     y = F.conv2d(
         x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b,
-        padding=_padding(w, padding),
+        padding=_padding(w, padding), groups=groups,
     )
     return y.permute(0, 2, 3, 1).contiguous()
 
@@ -51,6 +56,32 @@ def flip_kernel(w: torch.Tensor) -> torch.Tensor:
     """Swap an HWIO kernel's in/out channels and flip both spatial axes:
     the Zeiler–Fergus backward kernel ``W' = flip_hw(W^T)``."""
     return w.permute(0, 1, 3, 2).flip(0, 1)
+
+
+def tile_kernel_groups(w: torch.Tensor, groups: int) -> torch.Tensor:
+    """Tile an HWIO kernel ``groups`` times along its output channels: the
+    kernel of a grouped conv in which every group applies the same
+    weights (output block g reads input block g)."""
+    if groups <= 1:
+        return w
+    return torch.cat([w] * groups, dim=3)
+
+
+def conv2d_input_backward_grouped(
+    y: torch.Tensor, w: torch.Tensor, groups: int
+) -> torch.Tensor:
+    """Deconvnet backward projection of ``groups`` signals packed
+    group-major into the channels: ``y`` (B, H, W, groups*Cout), signal g
+    at channels ``[g*Cout, (g+1)*Cout)``, ``w`` the unflipped forward HWIO
+    kernel (kh, kw, Cin, Cout) that every group shares -> (B, H, W,
+    groups*Cin).  Stride-1 SAME odd kernels only (the kpack
+    certification)."""
+    kh, kw = int(w.shape[0]), int(w.shape[1])
+    assert kh % 2 == 1 and kw % 2 == 1, (
+        "grouped backward projection is only defined for odd SAME "
+        "stride-1 kernels (the kpack certification)"
+    )
+    return conv2d(y, tile_kernel_groups(flip_kernel(w), groups), groups=groups)
 
 
 def conv2d_input_backward(

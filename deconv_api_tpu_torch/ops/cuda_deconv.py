@@ -16,6 +16,11 @@ Policy vocabulary (the reference's): ``off`` never fuses, ``auto`` fuses on
 CUDA, ``forced`` fuses on every device.  TPU measurements set the
 reference's default to off; they decide nothing here, and the port's
 default is ``auto``.
+
+``groups > 1`` is the channel-packed ("kpack") form: ``y`` carries
+``groups`` projections group-major in its channels, ``idx`` the switches of
+one, and every group goes through the same flipped kernel.  Its launches
+count under ``fused_unpool_conv_grouped``.
 """
 
 from __future__ import annotations
@@ -26,7 +31,11 @@ from typing import Sequence
 import torch
 
 from deconv_api_tpu_torch.ops import _build
-from deconv_api_tpu_torch.ops.conv import conv2d_input_backward, flip_kernel
+from deconv_api_tpu_torch.ops.conv import (
+    conv2d_input_backward,
+    conv2d_input_backward_grouped,
+    flip_kernel,
+)
 from deconv_api_tpu_torch.ops.cuda_pool import _SUFFIX, _stream, check_nhwc
 from deconv_api_tpu_torch.ops.pool import (
     switch_rep,
@@ -35,10 +44,10 @@ from deconv_api_tpu_torch.ops.pool import (
 )
 
 FUSED_MODES = ("off", "auto", "forced")
-launches = {"fused_unpool_conv": 0}
+launches = {"fused_unpool_conv": 0, "fused_unpool_conv_grouped": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIG = [_P, _P, _P, _P] + [_I] * 11 + [_P]
+_SIG = [_P, _P, _P, _P] + [_I] * 12 + [_P]
 
 
 def resolve_fused_unpool(policy) -> str:
@@ -61,58 +70,67 @@ def fused_engaged(mode: str, device: torch.device) -> bool:
     return mode == "forced" or (mode == "auto" and device.type == "cuda")
 
 
-def fused_supported(y_shape, idx_shape, w_shape, pool_size, out_hw) -> bool:
+def fused_supported(y_shape, idx_shape, w_shape, pool_size, out_hw, groups: int = 1) -> bool:
     """Static certification of a site for the fused kernel: 4-D NHWC, an
     odd kernel (the caller asserts stride 1 and SAME), switch batch
-    dividing the signal batch, ``Cy == Cout`` of the kernel, an unpooled
-    extent of exactly ``(ho*ph, wo*pw)``, and every tensor within 32-bit
-    indexing."""
+    dividing the signal batch, the packed channel contract ``Cy == groups
+    * Ci`` with ``Ci == Cout`` of the kernel, an unpooled extent of exactly
+    ``(ho*ph, wo*pw)``, and every tensor within 32-bit indexing."""
     if len(y_shape) != 4 or len(idx_shape) != 4 or len(w_shape) != 4:
         return False
     b, ho, wo, cy = y_shape
     bi, hi, wi, ci = idx_shape
     kh, kw, cin, cout = w_shape
     ph, pw = int(pool_size[0]), int(pool_size[1])
-    if (hi, wi, ci) != (ho, wo, cy) or bi <= 0 or b % bi:
+    if (hi, wi) != (ho, wo) or bi <= 0 or b % bi:
         return False
-    if kh % 2 == 0 or kw % 2 == 0 or cy != cout:
+    if kh % 2 == 0 or kw % 2 == 0:
+        return False
+    if groups < 1 or cy != groups * ci or ci != cout:
         return False
     if out_hw is not None and tuple(out_hw) != (ho * ph, wo * pw):
         return False
-    return max(b * ho * wo * cy, b * ho * ph * wo * pw * cin) < 2**31
+    return max(b * ho * wo * cy, b * ho * ph * wo * pw * groups * cin) < 2**31
+
+
+def _conv_back(up: torch.Tensor, w: torch.Tensor, groups: int) -> torch.Tensor:
+    if groups > 1:
+        return conv2d_input_backward_grouped(up, w, groups)
+    return conv2d_input_backward(up, w)
 
 
 def fused_plain(
     y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-    pool_size: Sequence[int] = (2, 2), fuse_relu: bool = False,
+    pool_size: Sequence[int] = (2, 2), fuse_relu: bool = False, groups: int = 1,
 ) -> torch.Tensor:
-    """The plain version of the fused kernel: the unfused pair."""
-    up = unpool_argmax_plain(y, idx, pool_size, None, fuse_relu)
-    return conv2d_input_backward(up, w)
+    """The plain version of the fused kernel: the unfused pair (grouped
+    for ``groups > 1``)."""
+    return _conv_back(unpool_argmax_plain(y, idx, pool_size, None, fuse_relu, groups), w, groups)
 
 
 def fused_unpool_conv(
     y: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
-    pool_size: tuple[int, int] = (2, 2), relu: bool = False,
+    pool_size: tuple[int, int] = (2, 2), relu: bool = False, groups: int = 1,
 ) -> torch.Tensor:
-    """The kernel on a certified site: ``y`` (N, ho, wo, Cout), ``idx``
-    (N/rep, ho, wo, Cout) int8, ``w`` the UNFLIPPED forward HWIO kernel
-    (kh, kw, Cin, Cout) in y's dtype -> (N, ho*ph, wo*pw, Cin)."""
+    """The kernel on a certified site: ``y`` (N, ho, wo, groups*Cout),
+    ``idx`` (N/rep, ho, wo, Cout) int8, ``w`` the UNFLIPPED forward HWIO
+    kernel (kh, kw, Cin, Cout) in y's dtype -> (N, ho*ph, wo*pw,
+    groups*Cin)."""
     check_nhwc(y, "fused_unpool_conv y")
     check_nhwc(idx, "fused_unpool_conv idx", (torch.int8,))
     if not w.is_cuda or w.dtype != y.dtype or w.dim() != 4:
         raise TypeError(f"fused_unpool_conv w: expected a 4-D CUDA {y.dtype} kernel")
     ph, pw = pool_size
-    if not fused_supported(y.shape, idx.shape, w.shape, pool_size, None):
+    if not fused_supported(y.shape, idx.shape, w.shape, pool_size, None, groups):
         raise ValueError(
             f"fused_unpool_conv: uncertified site y={tuple(y.shape)} "
-            f"idx={tuple(idx.shape)} w={tuple(w.shape)}"
+            f"idx={tuple(idx.shape)} w={tuple(w.shape)} groups={groups}"
         )
-    n, ho, wo, cout = y.shape
-    kh, kw, cin, _ = w.shape
+    n, ho, wo, _ = y.shape
+    kh, kw, cin, cout = w.shape
     rep = switch_rep(n, idx.shape[0])
     fk = flip_kernel(w).contiguous()  # (kh, kw, Cout, Cin)
-    out = torch.empty((n, ho * ph, wo * pw, cin), dtype=y.dtype, device=y.device)
+    out = torch.empty((n, ho * ph, wo * pw, groups * cin), dtype=y.dtype, device=y.device)
     if out.numel():
         lib = _build.load(
             "fused_unpool_conv",
@@ -121,10 +139,10 @@ def fused_unpool_conv(
         fn = getattr(lib, f"fused_unpool_conv_{_SUFFIX[y.dtype]}")
         rc = fn(
             y.data_ptr(), idx.data_ptr(), fk.data_ptr(), out.data_ptr(),
-            n, ho, wo, cout, cin, ph, pw, kh, kw, rep, int(relu), _stream(y),
+            n, ho, wo, cout, cin, ph, pw, kh, kw, rep, groups, int(relu), _stream(y),
         )
         _build.check(rc, "fused_unpool_conv")
-        launches["fused_unpool_conv"] += 1
+        launches["fused_unpool_conv_grouped" if groups > 1 else "fused_unpool_conv"] += 1
     return out
 
 
@@ -135,6 +153,7 @@ def fused_unpool_backward(
     pool_size: Sequence[int] = (2, 2),
     out_hw: tuple[int, int] | None = None,
     fuse_relu: bool = False,
+    groups: int = 1,
     mode: str = "auto",
 ) -> torch.Tensor:
     """Switch-unpool ``y`` through ``idx`` and project it through the
@@ -143,10 +162,12 @@ def fused_unpool_backward(
     pool_size = (int(pool_size[0]), int(pool_size[1]))
     mode = resolve_fused_unpool(mode)
     if fused_engaged(mode, y.device) and fused_supported(
-        y.shape, idx.shape, w.shape, pool_size, out_hw
+        y.shape, idx.shape, w.shape, pool_size, out_hw, groups
     ):
         if y.is_cuda:
-            return fused_unpool_conv(y.contiguous(), idx.contiguous(), w, pool_size, fuse_relu)
-        return fused_plain(y, idx, w, pool_size, fuse_relu)
-    up = unpool_with_argmax(y, idx, pool_size, out_hw, fuse_relu=fuse_relu)
-    return conv2d_input_backward(up, w)
+            return fused_unpool_conv(
+                y.contiguous(), idx.contiguous(), w, pool_size, fuse_relu, groups
+            )
+        return fused_plain(y, idx, w, pool_size, fuse_relu, groups)
+    up = unpool_with_argmax(y, idx, pool_size, out_hw, fuse_relu, groups)
+    return _conv_back(up, w, groups)

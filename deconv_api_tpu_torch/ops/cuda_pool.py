@@ -4,7 +4,8 @@
 Each wrapper takes contiguous NHWC CUDA tensors only and raises on anything
 its kernel does not take; ``ops/pool.py`` routes CPU tensors to the plain
 versions.  ``launches`` counts kernel launches per wrapper, so a run can
-show that its path went through the kernels.
+show that its path went through the kernels; a grouped (channel-packed)
+unpool counts under its own name.
 """
 
 from __future__ import annotations
@@ -14,13 +15,13 @@ import ctypes
 import torch
 
 from deconv_api_tpu_torch.ops import _build
-from deconv_api_tpu_torch.ops.pool import switch_rep
+from deconv_api_tpu_torch.ops.pool import check_groups, switch_rep
 
-launches = {"pool_argmax": 0, "unpool_argmax": 0}
+launches = {"pool_argmax": 0, "unpool_argmax": 0, "unpool_argmax_grouped": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _POOL_SIG = [_P, _P, _P, _L, _I, _I, _I, _I, _I, _P]
-_UNPOOL_SIG = [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_UNPOOL_SIG = [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -67,15 +68,19 @@ def unpool_argmax(
     pool_size: tuple[int, int] = (2, 2),
     out_hw: tuple[int, int] | None = None,
     relu: bool = False,
+    groups: int = 1,
 ) -> torch.Tensor:
     """Switch unpool by ``csrc/unpool_argmax.cu``; ``idx`` may carry a
-    batch that divides y's (each switch block serves ``rep`` rows)."""
+    batch that divides y's (each switch block serves ``rep`` rows) and
+    1/``groups`` of its channels (every packed group reads the same
+    switches)."""
     check_nhwc(y, "unpool_argmax y")
     check_nhwc(idx, "unpool_argmax idx", (torch.int8,))
     ph, pw = pool_size
     n, ho, wo, c = y.shape
-    if tuple(idx.shape[1:]) != (ho, wo, c):
+    if tuple(idx.shape[1:3]) != (ho, wo):
         raise ValueError(f"switches {tuple(idx.shape)} do not match signal {tuple(y.shape)}")
+    check_groups(c, idx.shape[3], groups)
     rep = switch_rep(n, idx.shape[0])
     hout, wout = out_hw if out_hw is not None else (ho * ph, wo * pw)
     if not (ho * ph <= hout < (ho + 1) * ph and wo * pw <= wout < (wo + 1) * pw):
@@ -89,8 +94,8 @@ def unpool_argmax(
         fn = getattr(lib, f"unpool_argmax_{_SUFFIX[y.dtype]}")
         rc = fn(
             y.data_ptr(), idx.data_ptr(), out.data_ptr(), n, ho, wo, c, hout, wout,
-            ph, pw, rep, int(relu), _stream(y),
+            ph, pw, rep, groups, int(relu), _stream(y),
         )
         _build.check(rc, "unpool_argmax")
-        launches["unpool_argmax"] += 1
+        launches["unpool_argmax_grouped" if groups > 1 else "unpool_argmax"] += 1
     return out

@@ -8,7 +8,10 @@ what the kernels are held against on the card.
 
 Batches: the backward signal carries B·K rows, image-major (row ``b*K + k``),
 while the switches keep the forward batch B, so signal row ``i`` reads
-switch block ``i // rep`` with ``rep = K``.
+switch block ``i // rep`` with ``rep = K``.  Groups: in the channel-packed
+("kpack") tail the signal carries ``groups`` projections group-major in its
+channels (C_y = groups * C_idx) and every group reads the same switch
+channel ``ch % C_idx``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,16 @@ def switch_rep(y_batch: int, idx_batch: int) -> int:
             f"signal batch {y_batch} is not a multiple of switch batch {idx_batch}"
         )
     return y_batch // idx_batch
+
+
+def check_groups(cy: int, ci: int, groups: int) -> None:
+    """Raise unless the signal's ``cy`` channels are ``groups`` blocks of
+    the switches' ``ci``."""
+    if groups < 1 or cy != groups * ci:
+        raise ValueError(
+            f"packed unpool: {cy} signal channels are not {groups} groups "
+            f"of the {ci}-channel switch index"
+        )
 
 
 def maxpool_argmax_plain(
@@ -62,13 +75,16 @@ def unpool_argmax_plain(
     pool_size: Sequence[int] = (2, 2),
     out_hw: tuple[int, int] | None = None,
     fuse_relu: bool = False,
+    groups: int = 1,
 ) -> torch.Tensor:
     """Scatter each pooled value to its window's argmax slot, zeros
-    elsewhere; ``out_hw`` zero-pads back the floor-dropped rows/cols and
-    ``fuse_relu`` applies the deconvnet backward ReLU first."""
+    elsewhere; ``out_hw`` zero-pads back the floor-dropped rows/cols,
+    ``fuse_relu`` applies the deconvnet backward ReLU first, and the
+    switch mask broadcasts across ``groups`` packed signals."""
     ph, pw = _pool_hw(pool_size)
     b, ho, wo, c = y.shape
     rep = switch_rep(b, idx.shape[0])
+    check_groups(c, idx.shape[-1], groups)
     if fuse_relu:
         y = torch.relu(y)
     if rep > 1:
@@ -77,8 +93,10 @@ def unpool_argmax_plain(
         torch.arange(ph, device=y.device)[:, None] * pw
         + torch.arange(pw, device=y.device)[None, :]
     ).to(idx.dtype)
-    mask = idx[:, :, None, :, None, :] == pos[None, None, :, None, :, None]
-    up = (y[:, :, None, :, None, :] * mask.to(y.dtype)).reshape(
+    # (B, Ho, ph, Wo, pw, 1, Ci): the group axis rides the broadcast
+    mask = idx[:, :, None, :, None, None, :] == pos[None, None, :, None, :, None, None]
+    yg = y.reshape(b, ho, wo, groups, c // groups)
+    up = (yg[:, :, None, :, None] * mask.to(y.dtype)).reshape(
         b, ho * ph, wo * pw, c
     )
     if out_hw is not None and tuple(out_hw) != (ho * ph, wo * pw):
@@ -105,6 +123,7 @@ def unpool_with_argmax(
     pool_size: Sequence[int] = (2, 2),
     out_hw: tuple[int, int] | None = None,
     fuse_relu: bool = False,
+    groups: int = 1,
 ) -> torch.Tensor:
     """Switch unpool: the kernel on CUDA, the plain version on CPU."""
     if y.is_cuda:
@@ -112,6 +131,6 @@ def unpool_with_argmax(
 
         return cuda_pool.unpool_argmax(
             y.contiguous(), idx.contiguous(), _pool_hw(pool_size), out_hw,
-            fuse_relu,
+            fuse_relu, groups,
         )
-    return unpool_argmax_plain(y, idx, pool_size, out_hw, fuse_relu)
+    return unpool_argmax_plain(y, idx, pool_size, out_hw, fuse_relu, groups)

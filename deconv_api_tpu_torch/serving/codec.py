@@ -14,7 +14,8 @@ from cv2's.
 
 Device side: ``stitch_grid`` zeroes the tiles that did not fire, stitches
 the top 4 into a 2x2 grid and deprocesses the whole grid to uint8 (the
-reference's order).
+reference's order); ``deprocess_tiles`` deprocesses each projection alone
+(the ``/v1/deconv`` presentation).
 """
 
 from __future__ import annotations
@@ -438,6 +439,18 @@ def deprocess(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     x = x - x.mean()
     x = x / (x.std(correction=0) + EPSILON)
+    x = x * 0.1 + 0.5
+    x = torch.clamp(x, 0.0, 1.0) * 255.0
+    return torch.clamp(x, 0.0, 255.0).to(torch.uint8)
+
+
+def deprocess_tiles(images: torch.Tensor) -> torch.Tensor:
+    """(B, K, H, W, C) projections -> uint8, each (b, k) tile normalised
+    alone with ``deprocess``'s arithmetic."""
+    x = images.float()
+    dims = tuple(range(2, x.dim()))
+    x = x - x.mean(dim=dims, keepdim=True)
+    x = x / (x.std(dim=dims, correction=0, keepdim=True) + EPSILON)
     x = x * 0.1 + 0.5
     x = torch.clamp(x, 0.0, 1.0) * 255.0
     return torch.clamp(x, 0.0, 255.0).to(torch.uint8)

@@ -62,6 +62,33 @@ def test_fused_kernel_matches_pair(dev, dtype, tol, rep, relu, k, cin, cout):
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,rep,relu,out_hw", [(8, 1, True, None), (3, 2, False, (9, 11))])
+def test_grouped_unpool_kernel_is_exact(dev, dtype, groups, rep, relu, out_hw):
+    g = torch.Generator(device=dev).manual_seed(3)
+    y = torch.randn((2 * rep, 4, 5, groups * 6), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (2, 4, 5, 6), generator=g, device=dev, dtype=torch.int8)
+    before = cuda_pool.launches["unpool_argmax_grouped"]
+    got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu, groups)
+    assert torch.equal(got, pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu, groups))
+    assert cuda_pool.launches["unpool_argmax_grouped"] == before + 1
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
+@pytest.mark.parametrize("groups,rep,relu,k,cin,cout", [(8, 1, True, 3, 64, 64), (3, 2, False, 5, 3, 17)])
+def test_grouped_fused_kernel_matches_grouped_pair(dev, dtype, tol, groups, rep, relu, k, cin, cout):
+    g = torch.Generator(device=dev).manual_seed(4)
+    y = torch.randn((2 * rep, 5, 7, groups * cout), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (2, 5, 7, cout), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randn((k, k, cin, cout), generator=g, device=dev).to(dtype)
+    before = cuda_deconv.launches["fused_unpool_conv_grouped"]
+    got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), relu, groups).float()
+    want = cuda_deconv.fused_plain(y, idx, w, (2, 2), relu, groups).float()
+    assert got.shape == (2 * rep, 10, 14, groups * cin)
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+    assert cuda_deconv.launches["fused_unpool_conv_grouped"] == before + 1
+
+
 def test_engine_on_the_card_goes_through_the_kernels(dev):
     params = init_params(VGG_TINY_SPEC, torch.Generator().manual_seed(0))
     x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1)) * 50
@@ -76,3 +103,23 @@ def test_engine_on_the_card_goes_through_the_kernels(dev):
         assert float((got["images"].cpu() - want["images"]).abs().max()) <= 1e-4 * scale
         assert ops.launch_counts()[kernel] > 0
     assert ops.launch_counts()["pool_argmax"] == 4  # 2 pools below block3_conv1, 2 runs
+
+
+def test_packed_tail_on_the_card_goes_through_the_grouped_kernels(dev):
+    params = init_params(VGG_TINY_SPEC, torch.Generator().manual_seed(0))
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1)) * 50
+    want = get_visualizer(VGG_TINY_SPEC, "block3_conv1", 4, device="cpu", sweep=True)(params, x)
+    gparams = {l: {k: t.to(dev) for k, t in v.items()} for l, v in params.items()}
+    ops.reset_launch_counts()
+    for policy, kernel in (("auto", "fused_unpool_conv_grouped"), ("off", "unpool_argmax_grouped")):
+        fn = get_visualizer(
+            VGG_TINY_SPEC, "block3_conv1", 4, fused_unpool=policy, device=dev, sweep=True,
+            kpack_chan=128,
+        )
+        got = fn(gparams, x)
+        assert list(got) == list(want)
+        for name, entry in got.items():
+            assert torch.equal(entry["indices"].cpu(), want[name]["indices"])
+            scale = float(want[name]["images"].abs().max())
+            assert float((entry["images"].cpu() - want[name]["images"]).abs().max()) <= 1e-4 * scale
+        assert ops.launch_counts()[kernel] > 0

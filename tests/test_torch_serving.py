@@ -1,7 +1,7 @@
 """The port's service (deconv_api_tpu_torch/serving) in-process on the CPU
-with vgg_tiny: the reference's routes and error codes, batching, the grid
-against the JAX package's serving program, and the host codec's numpy
-fallbacks against cv2."""
+with vgg_tiny: the reference's routes and error codes, ``/v1/deconv`` with
+the packed tail, batching, the grid and the tiles against the JAX package's
+serving programs, and the host codec's numpy fallbacks against cv2."""
 
 import base64
 import http.client
@@ -24,7 +24,8 @@ from deconv_api_tpu_torch import errors
 from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
 from deconv_api_tpu_torch.models.weights import params_from_jax
 from deconv_api_tpu_torch.serving import codec
-from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
+from deconv_api_tpu_torch.__main__ import build_server
+from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService, Program
 from deconv_api_tpu_torch.serving.models import ModelBundle
 
 LAYER = "block3_conv1"
@@ -72,8 +73,8 @@ class _Served:
         except urllib.error.HTTPError as e:
             return e.code, json.loads(e.read())
 
-    def post(self, form):
-        return self.request("/", urllib.parse.urlencode(form).encode())
+    def post(self, form, path="/"):
+        return self.request(path, urllib.parse.urlencode(form).encode())
 
 
 @pytest.fixture(scope="module")
@@ -184,6 +185,88 @@ def test_no_active_filters_and_not_ready(jax_params):
             service.compat(form)
     finally:
         service.close()
+
+
+# --- POST /v1/deconv, with the packed tail -----------------------------------------
+
+
+@pytest.fixture(scope="module")
+def served_kpack(jax_params):
+    s = DeconvService(_bundle(jax_params), lowc_kpack="auto")
+    s.warmup()
+    srv = _Served(s)
+    yield srv
+    srv.close()
+
+
+def test_v1_deconv_tiles_match_jax_serving_program(served_kpack, jax_params):
+    uri = _image_uri(10)
+    status, body = served_kpack.post({"file": uri, "layer": LAYER}, "/v1/deconv")
+    assert status == 200
+    assert (body["layer"], body["mode"]) == (LAYER, "all")
+    x = served_kpack.service.decode_preprocess(uri)[None]
+    port = served_kpack.service.run_program(Program(LAYER, "all", 8, "tiles"), x)[LAYER]
+    jbundle = j_spec_bundle(J_TINY_SPEC, jax_params)
+    fn = jbundle.batched_visualizer(LAYER, "all", 8, True, "bfloat16", post="tiles")
+    want = {k: np.asarray(v) for k, v in fn(jax_params, jnp.asarray(x))[LAYER].items()}
+    np.testing.assert_array_equal(port["indices"], want["indices"])
+    np.testing.assert_array_equal(port["valid"], want["valid"])
+    n_valid = int(want["valid"][0].sum())
+    assert body["filters"] == [int(i) for i in want["indices"][0][:n_valid]]
+    assert len(body["images"]) == n_valid > 0
+    for k in range(n_valid):
+        assert _psnr(port["tiles"][0, k], want["tiles"][0, k]) >= 52.0
+        assert body["images"][k] == codec.encode_data_url(port["tiles"][0, k])  # the served bytes
+        assert _decode_response(body["images"][k]).shape == (32, 32, 3)
+
+
+def test_v1_deconv_sweep_response_shape(served_kpack):
+    form = {"file": _image_uri(11), "layer": "block2_pool", "mode": "max", "top_k": "3", "sweep": "on"}
+    status, body = served_kpack.post(form, "/v1/deconv")
+    assert status == 200
+    assert {k: body[k] for k in ("layer", "mode", "sweep")} == {"layer": "block2_pool", "mode": "max", "sweep": True}
+    assert list(body["layers"]) == list(served_kpack.service.bundle.sweep_layers("block2_pool"))
+    assert list(body["layers"])[0] == "block2_pool" and list(body["layers"])[-1] == "block1_conv1"
+    for entry in body["layers"].values():
+        assert set(entry) == {"filters", "images"}
+        assert len(entry["filters"]) == len(entry["images"]) <= 3
+
+
+def test_v1_deconv_error_codes(served_kpack):
+    uri = _image_uri(12)
+    for form, want in (
+        ({"file": uri, "layer": LAYER, "mode": "bogus"}, (422, "illegal_visualize_mode")),
+        ({"file": uri, "layer": LAYER, "top_k": "0"}, (400, "bad_request")),
+        ({"file": uri, "layer": LAYER, "top_k": "65"}, (400, "bad_request")),
+        ({"file": uri, "layer": LAYER, "top_k": "many"}, (400, "bad_request")),
+        ({"file": uri, "layer": "block9_conv9"}, (422, "unknown_layer")),
+        ({"layer": LAYER}, (400, "bad_request")),
+    ):
+        status, payload = served_kpack.post(form, "/v1/deconv")
+        assert (status, payload["error"]) == want, form
+
+
+def test_programs_with_different_top_k_never_share_a_batch(jax_params):
+    service = DeconvService(_bundle(jax_params), max_batch=2, batch_window_ms=50.0)
+    xs = [service.decode_preprocess(_image_uri(s)) for s in (13, 14, 15)]
+    futures = [
+        service.submit(Program(LAYER, "all", k, "tiles"), x) for k, x in zip((2, 3, 2), xs)
+    ]
+    service.start()
+    try:
+        results = [f.result(timeout=60) for f in futures]
+    finally:
+        service.close()
+    assert list(service.batch_sizes) == [2, 1]
+    assert [r[LAYER]["tiles"].shape[0] for r in results] == [2, 3, 2]
+
+
+def test_a_bad_lowc_kpack_policy_is_refused_at_boot(jax_params, capsys):
+    with pytest.raises(SystemExit):
+        build_server(["serve", "--model", "vgg_tiny", "--device", "cpu", "--lowc-kpack", "sometimes"])
+    assert "--lowc-kpack" in capsys.readouterr().err
+    with pytest.raises(ValueError, match="lowc_kpack"):
+        DeconvService(_bundle(jax_params), lowc_kpack="sometimes")
 
 
 # --- host codec fallbacks, held against cv2 ---------------------------------------
