@@ -9,12 +9,13 @@ Phases, each printing JSON lines:
 1. environment: torch, CUDA, nvcc, triton, the TF32 flags, the codec
    backend, and the card's name and power limit;
 2. build: the three kernels from ``deconv_api_tpu_torch/csrc``, one nvcc each,
-   all started together;
+   all started together, with each instantiation's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' VGG16 shapes (``POST /``: batch 8, top-4; the grouped
    forms at the packed sites of ``/v1/deconv``: batch 8, top-8, 8 groups),
    with times by CUDA events beside the plain version's, a library call's
-   and the bound;
+   and the bound; for K3 also each site's time, rate and share of its
+   bound, and the fp32 kernel's time;
 4. main path ``POST /``: ``serve`` with VGG16 at full width on a free port,
    8 concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one
    at fc1, then one batch repeated with ``fused_unpool=off``;
@@ -150,11 +151,30 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     seconds = _build.build()
     wall = time.perf_counter() - t0
-    ptxas = {
-        name: [l.strip() for l in log.splitlines() if "registers" in l or "spill" in l]
-        for name, log in _build.build_logs.items()
-    }
+    filt = os.path.join(os.path.dirname(_build.nvcc()), "cu++filt")
+    ptxas = {name: ptxas_usage(log, filt) for name, log in _build.build_logs.items()}
     emit({"phase": "build", "wall_s": wall, "per_kernel_s": seconds, "ptxas": ptxas})
+
+
+def ptxas_usage(log: str, filt: str) -> dict:
+    """Registers and spill bytes of each kernel instantiation in an
+    ``nvcc -Xptxas=-v`` log, by name as the demangler ``filt`` gives it
+    where it exists."""
+    import re
+
+    usage, fn = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            fn = m.group(1)
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            usage.setdefault(fn, {}).update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            usage.setdefault(fn, {})["registers"] = int(m.group(1))
+    if usage and os.path.exists(filt):
+        names = subprocess.run([filt], input="\n".join(usage), capture_output=True, text=True).stdout.split("\n")
+        if len(names) >= len(usage):
+            usage = {name: v for name, v in zip(names, usage.values())}
+    return usage
 
 
 # --- phase 3 -------------------------------------------------------------------
@@ -229,9 +249,10 @@ def phase_kernels(torch) -> dict:
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": lib,
     }
 
-    # K3: every pool -> ReLU -> conv step of the backward, bf16; fp32 checked too
-    err, ms, plain, lib, flops, nbytes = 0.0, 0.0, 0.0, 0.0, 0, 0
-    checks = []
+    # K3: every pool -> ReLU -> conv step of the backward, bf16; fp32 checked
+    # and timed too (fp32 runs the CUDA-core kernel, bf16 the tensor cores)
+    err, ms, plain, lib, flops, nbytes, fp32_ms = 0.0, 0.0, 0.0, 0.0, 0, 0, 0.0
+    checks, per_site = [], []
     for ho, wo, cout, cin in FUSED_SITES:
         idx = torch.randint(0, 4, (B, ho, wo, cout), generator=gen, device=dev, dtype=torch.int8)
         y32 = torch.randn((B * K, ho, wo, cout), generator=gen, device=dev)
@@ -247,21 +268,28 @@ def phase_kernels(torch) -> dict:
                 raise AssertionError(f"fused_unpool_conv off by {rel:.3g} (tol {tol}) at {checks[-1]}")
             if dtype == torch.bfloat16:
                 err = max(err, e)
+        site_fp32_ms = time_ms(lambda: cuda_deconv.fused_unpool_conv(y32, idx, w32, (2, 2), True), reps=5)
         y, w = y32.to(torch.bfloat16), w32.to(torch.bfloat16)
-        ms += time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True))
+        site_ms = time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True))
+        site_lib = time_ms(lambda: conv.conv2d_input_backward(cuda_pool.unpool_argmax(y, idx, (2, 2), None, True), w))
         plain += time_ms(lambda: cuda_deconv.fused_plain(y, idx, w, (2, 2), True))
-        lib += time_ms(lambda: conv.conv2d_input_backward(cuda_pool.unpool_argmax(y, idx, (2, 2), None, True), w))
         m = B * K * ho * 2 * wo * 2
-        flops += 2 * m * cin * 9 * cout
-        nbytes += y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2
-    emit({"phase": "kernels", "fused_unpool_conv_checks": checks})
+        plan = cuda_deconv.tile_plan(B * K, 2 * ho, 2 * wo, 1, cin, cout, 3, 3)
+        per_site.append(k3_site([B * K, ho, wo, cout, cin], plan, site_ms, site_lib, 2 * m * cin * 9 * cout,
+                                y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2, site_fp32_ms))
+        ms, lib, fp32_ms = ms + site_ms, lib + site_lib, fp32_ms + site_fp32_ms
+        flops += per_site[-1]["flops"]
+        nbytes += per_site[-1]["bytes"]
+    emit({"phase": "kernels", "fused_unpool_conv_checks": checks, "fused_unpool_conv_sites": per_site})
+    bound_s = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
     rows["fused_unpool_conv"] = {
         "source": "deconv_api_tpu_torch/csrc/fused_unpool_conv.cu",
         "replaces": "deconv_api_tpu/ops/pallas_deconv.py:270",
         "max_abs_err": err, "ms": ms, "plain_ms": plain,
-        "bound_ms": max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3,
+        "bound_ms": bound_s * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": lib,
+        "tflops": flops / ms / 1e9, "bound_share": bound_s * 1e3 / ms, "fp32_ms": fp32_ms,
     }
     rows.update(grouped_kernels(torch, gen))
     emit({"phase": "kernels", "checked": sorted(rows),
@@ -332,6 +360,9 @@ def grouped_kernels(torch, gen) -> dict:
                 "max_abs_err": err,
             },
         }
+        k3 = sites[site]["fused_unpool_conv_grouped"]
+        k3.update(k3_site(site, cuda_deconv.tile_plan(B, 2 * ho, 2 * wo, KG, cin, cout, 3, 3),
+                          k3["ms"], k3["library_ms"], k3["flops"], k3["bytes"]))
         del ind, sw, yn
     emit({"phase": "kernels", "grouped_sites": sites, "fused_unpool_conv_grouped_checks": checks})
     main = sites["pool1_auto"]
@@ -352,8 +383,20 @@ def grouped_kernels(torch, gen) -> dict:
         "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": k3["library_ms"],
         "library": "K2 grouped + F.conv2d(groups=8)",
+        "tflops": k3["tflops"], "bound_share": k3["bound_share"],
     }
     return rows
+
+
+def k3_site(site, plan, ms, lib_ms, flops, nbytes, fp32_ms=None) -> dict:
+    """One K3 site's bf16 time beside its achieved rate, its share of the
+    bound and the tensor-core kernel's launch plan."""
+    bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+    out = {"site": site, "plan": plan.__dict__, "ms": ms, "library_ms": lib_ms, "flops": flops,
+           "bytes": nbytes, "tflops": flops / ms / 1e9, "bound_ms": bound_ms, "bound_share": bound_ms / ms}
+    if fp32_ms is not None:
+        out["fp32_ms"] = fp32_ms
+    return out
 
 
 # --- phase 4 -------------------------------------------------------------------

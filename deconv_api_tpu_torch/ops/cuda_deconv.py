@@ -21,11 +21,16 @@ default is ``auto``.
 ``groups`` projections group-major in its channels, ``idx`` the switches of
 one, and every group goes through the same flipped kernel.  Its launches
 count under ``fused_unpool_conv_grouped``.
+
+bf16 runs on the tensor cores with the launch plan of ``tile_plan``; fp32,
+and a bf16 site too wide for that kernel's tiles, run on the CUDA cores.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -36,7 +41,7 @@ from deconv_api_tpu_torch.ops.conv import (
     conv2d_input_backward_grouped,
     flip_kernel,
 )
-from deconv_api_tpu_torch.ops.cuda_pool import _SUFFIX, _stream, check_nhwc
+from deconv_api_tpu_torch.ops.cuda_pool import _stream, check_nhwc
 from deconv_api_tpu_torch.ops.pool import (
     switch_rep,
     unpool_argmax_plain,
@@ -48,6 +53,67 @@ launches = {"fused_unpool_conv": 0, "fused_unpool_conv_grouped": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIG = [_P, _P, _P, _P] + [_I] * 12 + [_P]
+_SIG_BF16 = _SIG + [_I] * 3  # + the launch plan: tile_r, tile_c, bn
+
+# The bf16 tensor-core kernel's tiling (csrc/fused_unpool_conv.cu, namespace
+# tcore): 256 GEMM rows per block in 8 x 8 pixel sub-patches, 64-wide Cout
+# chunks of 8 k-planes, a B ring of TC_STAGES steps.
+TC_ROWS, TC_BK, TC_STAGES, TC_SUB = 256, 64, 4, 8
+TC_PATCHES = ((16, 16), (8, 32), (32, 8))  # (tile_r, tile_c)
+SMEM_LIMIT = 232_448  # bytes of shared memory one block may use on the H100
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """A launch of the bf16 tensor-core kernel: a patch of ``tile_r`` x
+    ``tile_c`` output pixels of one group by ``bn`` input channels per
+    block."""
+
+    tile_r: int
+    tile_c: int
+    bn: int
+    blocks: int
+    smem_bytes: int
+
+
+def _smem_bytes(bn, hrows, pooled_px, halo_bufs) -> int:
+    """csrc/fused_unpool_conv.cu:tcore::layout: the B ring, the halo tiles,
+    the pooled rectangle (signal and switches) and the halo pixels'
+    metadata, each tile as 8 k-planes padded by 16 bytes; or the epilogue's
+    output tile if larger."""
+    planes = TC_BK // 8
+    b_ring = TC_STAGES * planes * (bn * 16 + 16)
+    halo = halo_bufs * planes * (hrows * 16 + 16)
+    pooled = planes * (pooled_px * 16 + 16) + planes * (-(-pooled_px * 8 // 16) * 16 + 16)
+    meta = -(-hrows * 4 // 16) * 16
+    return max(b_ring + halo + pooled + meta, TC_ROWS * bn * 2)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(n, h, w, groups, cin, cout, kh, kw, ph=2, pw=2) -> TilePlan | None:
+    """The tensor-core kernel's tiling of an unpooled (n, h, w) extent with
+    ``groups`` packed groups, ``cin`` output and ``cout`` signal channels
+    (two halo tiles when ``cout`` spans more than one chunk), a kh x kw
+    kernel and a ph x pw pool: BN 64 for ``cin <= 64`` else 128, and among
+    the patches whose tiles fit in shared memory the one that wastes the
+    fewest rows past the image edge, then the one with the smallest halo
+    tile, then the widest.  None when none fits; the CUDA-core kernel then
+    takes the site."""
+    bn = 64 if cin <= 64 else 128
+    best = None
+    for tr, tc in TC_PATCHES:
+        hrows = (tr + kh - 1) * (tc + kw - 1)
+        pooled_px = ((tr + kh - 2 + ph - 1) // ph + 1) * ((tc + kw - 2 + pw - 1) // pw + 1)
+        smem = _smem_bytes(bn, hrows, pooled_px, 2 if cout > TC_BK else 1)
+        covered = -(-h // tr) * tr * -(-w // tc) * tc
+        key = (covered, hrows, -tc)
+        if smem <= SMEM_LIMIT and (best is None or key < best[0]):
+            best = (key, tr, tc, smem)
+    if best is None:
+        return None
+    _, tr, tc, smem = best
+    blocks = n * groups * -(-h // tr) * -(-w // tc) * -(-cin // bn)
+    return TilePlan(tr, tc, bn, blocks, smem)
 
 
 def resolve_fused_unpool(policy) -> str:
@@ -129,18 +195,27 @@ def fused_unpool_conv(
     n, ho, wo, _ = y.shape
     kh, kw, cin, cout = w.shape
     rep = switch_rep(n, idx.shape[0])
-    fk = flip_kernel(w).contiguous()  # (kh, kw, Cout, Cin)
     out = torch.empty((n, ho * ph, wo * pw, groups * cin), dtype=y.dtype, device=y.device)
     if out.numel():
         lib = _build.load(
             "fused_unpool_conv",
-            {"fused_unpool_conv_f32": _SIG, "fused_unpool_conv_bf16": _SIG},
+            {"fused_unpool_conv_f32": _SIG, "fused_unpool_conv_bf16": _SIG_BF16},
         )
-        fn = getattr(lib, f"fused_unpool_conv_{_SUFFIX[y.dtype]}")
-        rc = fn(
-            y.data_ptr(), idx.data_ptr(), fk.data_ptr(), out.data_ptr(),
+        plan = None
+        if y.dtype == torch.bfloat16:
+            plan = tile_plan(n, ho * ph, wo * pw, groups, cin, cout, kh, kw, ph, pw)
+        # the CUDA-core kernel reads the flipped kernel (kh, kw, Cout, Cin),
+        # the tensor-core kernel w itself (K-major, taps reversed)
+        wk = (w if plan else flip_kernel(w)).contiguous()
+        args = (
+            y.data_ptr(), idx.data_ptr(), wk.data_ptr(), out.data_ptr(),
             n, ho, wo, cout, cin, ph, pw, kh, kw, rep, groups, int(relu), _stream(y),
         )
+        if y.dtype == torch.bfloat16:
+            tiles = (plan.tile_r, plan.tile_c, plan.bn) if plan else (0, 0, 0)
+            rc = lib.fused_unpool_conv_bf16(*args, *tiles)
+        else:
+            rc = lib.fused_unpool_conv_f32(*args)
         _build.check(rc, "fused_unpool_conv")
         launches["fused_unpool_conv_grouped" if groups > 1 else "fused_unpool_conv"] += 1
     return out

@@ -62,6 +62,51 @@ def test_fused_kernel_matches_pair(dev, dtype, tol, rep, relu, k, cin, cout):
     assert float((got - want).abs().max()) <= tol * float(want.abs().max())
 
 
+# (switch batch, rep, pooled ho, wo, Cout, Cin, k, groups, relu): extents the
+# 256-row patch does not divide, ragged Cout and Cin (the masked scalar
+# path), 1x1 and 5x5 kernels, a second partial N tile, packed groups (also
+# on a 4x4 extent, mostly past the patch's edge), and a kernel too wide for
+# the tensor-core tiles (the CUDA-core kernel)
+TILING_CASES = [
+    (2, 1, 14, 14, 64, 64, 3, 1, True),
+    (2, 2, 14, 14, 70, 70, 3, 1, True),
+    (3, 1, 5, 7, 17, 3, 5, 1, False),
+    (1, 4, 5, 7, 20, 5, 3, 1, True),
+    (1, 1, 14, 14, 128, 136, 3, 1, True),
+    (2, 1, 5, 7, 32, 32, 1, 1, True),
+    (2, 1, 5, 7, 16, 24, 3, 8, True),
+    (2, 1, 2, 2, 16, 24, 3, 8, True),
+    (2, 2, 7, 9, 24, 16, 5, 3, False),
+    (1, 1, 3, 3, 8, 8, 19, 1, True),
+]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
+@pytest.mark.parametrize("case", TILING_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_fused_kernel_tiling_matches_pair(dev, dtype, tol, case):
+    bi, rep, ho, wo, cout, cin, k, groups, relu = case
+    g = torch.Generator(device=dev).manual_seed(5)
+    y = torch.randn((bi * rep, ho, wo, groups * cout), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (bi, ho, wo, cout), generator=g, device=dev, dtype=torch.int8)
+    w = torch.randn((k, k, cin, cout), generator=g, device=dev).to(dtype)
+    got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), relu, groups).float()
+    want = cuda_deconv.fused_plain(y, idx, w, (2, 2), relu, groups).float()
+    assert got.shape == (bi * rep, 2 * ho, 2 * wo, groups * cin)
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
+def test_fused_kernel_at_a_full_width_vgg16_site(dev, dtype, tol):
+    """The block5 site of a batch-8 top-4 POST /: y (32,14,14,512), w (3,3,512,512)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    y = torch.randn((32, 14, 14, 512), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (8, 14, 14, 512), generator=g, device=dev, dtype=torch.int8)
+    w = (torch.randn((3, 3, 512, 512), generator=g, device=dev) * (2.0 / (9 * 512)) ** 0.5).to(dtype)
+    got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True).float()
+    want = cuda_deconv.fused_plain(y, idx, w, (2, 2), True).float()
+    assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups,rep,relu,out_hw", [(8, 1, True, None), (3, 2, False, (9, 11))])
 def test_grouped_unpool_kernel_is_exact(dev, dtype, groups, rep, relu, out_hw):

@@ -112,3 +112,57 @@ def test_fused_kernel_wrapper_refuses_cpu_tensors():
     y, idx, w = _inputs(1, 1, 2, 2, 4, 3, 3, seed=1)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_deconv.fused_unpool_conv(torch.from_numpy(y), torch.from_numpy(idx), torch.from_numpy(w))
+
+
+def _main_path_sites():
+    """The fused sites of chip_smoke.py: the four of a batch-8 top-4
+    ``POST /`` and the two packed ones of ``/v1/deconv`` (top-8, 8 groups)."""
+    import chip_smoke
+
+    b, k, kg = chip_smoke.B, chip_smoke.K, chip_smoke.KG
+    for ho, wo, cout, cin in chip_smoke.FUSED_SITES:
+        yield f"POST / {ho}x{wo}", (b * k, ho, wo, cout), (b, ho, wo, cout), (3, 3, cin, cout), 1
+    for name, (ho, wo, cout, cin) in chip_smoke.PACKED_SITES.items():
+        yield name, (b, ho, wo, kg * cout), (b, ho, wo, cout), (3, 3, cin, cout), kg
+
+
+@pytest.mark.parametrize("site", list(_main_path_sites()), ids=lambda s: s[0])
+def test_main_path_sites_are_certified_and_tiled(site):
+    """Every main-path site stays certified, and the tensor-core kernel's
+    launch plan covers its GEMM (M rows, N = Cin) within shared memory."""
+    _, y_shape, idx_shape, w_shape, groups = site
+    assert cuda_deconv.fused_supported(y_shape, idx_shape, w_shape, (2, 2), None, groups)
+    n, ho, wo, _ = y_shape
+    kh, kw, cin, _ = w_shape
+    h, w = 2 * ho, 2 * wo
+    plan = cuda_deconv.tile_plan(n, h, w, groups, cin, w_shape[3], kh, kw)
+    assert plan is not None
+    assert plan.tile_r * plan.tile_c == cuda_deconv.TC_ROWS and plan.bn in (64, 128)
+    assert plan.tile_r % cuda_deconv.TC_SUB == 0 and plan.tile_c % cuda_deconv.TC_SUB == 0
+    tiles = (-(-h // plan.tile_r), -(-w // plan.tile_c), -(-cin // plan.bn))
+    assert tiles[0] * plan.tile_r >= h and tiles[1] * plan.tile_c >= w and tiles[2] * plan.bn >= cin
+    assert plan.blocks == n * groups * tiles[0] * tiles[1] * tiles[2] < 2**31
+    assert plan.blocks * plan.tile_r * plan.tile_c * plan.bn >= n * h * w * groups * cin
+    assert plan.smem_bytes <= 227 * 1024
+
+
+def test_tile_plan_falls_back_when_the_halo_does_not_fit():
+    """A kernel too wide for the halo tiles gets no tensor-core plan (the
+    wrapper then launches the CUDA-core kernel); a 7-tap one still fits."""
+    assert cuda_deconv.tile_plan(2, 28, 28, 1, 512, 512, 9, 9) is None
+    assert cuda_deconv.tile_plan(1, 6, 6, 1, 8, 8, 19, 19) is None
+    plan = cuda_deconv.tile_plan(2, 28, 28, 1, 512, 512, 7, 7)
+    assert plan is not None and plan.smem_bytes <= cuda_deconv.SMEM_LIMIT
+
+
+def test_tile_plan_prefers_the_patch_that_fits_the_extent():
+    """Of the 256-row patches, the one that wastes the fewest rows past the
+    edge (56 = 7 x 8 columns), then the one with the smallest halo."""
+
+    def patch(*site):
+        plan = cuda_deconv.tile_plan(*site)
+        return plan.tile_r, plan.tile_c, plan.bn
+
+    assert patch(8, 224, 224, 8, 64, 64, 3, 3) == (16, 16, 64)
+    assert patch(32, 56, 56, 1, 256, 256, 3, 3) == (8, 32, 128)
+    assert patch(32, 28, 28, 1, 512, 512, 3, 3) == (16, 16, 128)
