@@ -13,18 +13,24 @@ Phases, each printing JSON lines:
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' VGG16 shapes (``POST /``: batch 8, top-4; the grouped
    forms at the packed sites of ``/v1/deconv``: batch 8, top-8, 8 groups),
-   with times by CUDA events beside the plain version's, a library call's
-   and the bound; for K3 also each site's time, rate and share of its
-   bound, and the fp32 kernel's time;
+   with single-call times by CUDA events (as the earlier slices took them)
+   beside the plain version's, a library call's and the bound; for K1 and
+   K2 also the time of one call with the L2 evicted before it, and each
+   site's time, launch plan and share of its bound (for K3 its rate, the
+   port's unfused pair's time and the fp32 kernel's time);
 4. main path ``POST /``: ``serve`` with VGG16 at full width on a free port,
    8 concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one
-   at fc1, then one batch repeated with ``fused_unpool=off``;
+   at fc1, then one batch repeated at the other ``fused_unpool`` setting
+   than the default (so K2 and K3 both run);
 5. main path ``POST /v1/deconv``: ``serve --lowc-kpack auto`` likewise, 8
    concurrent tile requests at block5_conv1 plus one ``mode=max``, one
    ``top_k=1`` and one ``sweep`` from block3_conv1, then one batch repeated
-   with ``lowc_kpack=off`` and with ``fused_unpool=off``;
-6. throughput of the batch-8 block5_conv1 programs (grid; tiles at each
-   ``lowc_kpack`` policy) and of one batch-8 sweep from block5_conv1.
+   with ``lowc_kpack=off`` and at the other ``fused_unpool`` setting;
+6. throughput of the batch-8 block5_conv1 programs (grid at
+   ``fused_unpool`` auto and off in turns; tiles at each ``lowc_kpack``
+   policy at the default ``fused_unpool``, and at ``lowc_kpack=off`` with
+   ``fused_unpool`` auto and off in turns) and of one batch-8 sweep from
+   block5_conv1 at each setting.
 Each main path zeroes the launch counters just before it and reads them
 just after.  The line before the last is the kernels line, the last the
 result line.
@@ -50,6 +56,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, K = 8, 4  # batch and top-k of the main path (POST / serves the top 4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 # (H, W, C) entering each forward pool of a block5_conv1 request
 POOL_SITES = ((224, 224, 64), (112, 112, 128), (56, 56, 256), (28, 28, 512))
 # (pooled ho, wo, Cout) -> Cin of the conv the fused kernel projects through
@@ -66,7 +73,9 @@ def emit(obj) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn`` after ``warmup`` calls."""
+    """Median of ``reps`` CUDA-event timings of one call of ``fn`` after
+    ``warmup`` calls: the device's time from the call's start to its last
+    kernel's end, so the host's work before each launch counts too."""
     import torch
 
     for _ in range(warmup):
@@ -80,6 +89,59 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def cold_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median of ``reps`` CUDA-event timings of one call of ``fn``, each
+    queued behind a write of L2_FLUSH_BYTES.  The write evicts the L2, so
+    the call reads its inputs from device memory as the byte bound counts
+    them, and it runs while the host queues the call, so the host's work
+    counts only where it outlasts the write (some 0.1 ms).  Outputs may
+    still sit in the L2 when the call ends."""
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host time per call of ``fn`` while its launches queue: what the
+    wrapper costs the CPU, beside what its kernel costs the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def kernel_times(kernel, plain, library) -> dict:
+    """A byte-bound kernel's single-call time beside its plain version's
+    and its library call's (``time_ms``, the method of the earlier slices'
+    tables), the kernel's and the library call's time with the L2 evicted
+    (``cold_ms``), and their host time per call."""
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            "cold_ms": cold_ms(kernel), "library_cold_ms": cold_ms(library),
+            "host_us": host_us(kernel), "library_host_us": host_us(library)}
 
 
 def png_bytes(img) -> bytes:
@@ -191,9 +253,8 @@ def phase_kernels(torch) -> dict:
     rows = {}
 
     # K1: every forward pool, fp32 on the main path; bf16 checked too
-    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     ties_values = torch.tensor([-0.0, 0.0, 1.0], device=dev)
-    ms, plain, lib, nbytes = 0.0, 0.0, 0.0, 0
+    pool_sites = []
     for h, w, c in POOL_SITES:
         for dtype in (torch.float32, torch.bfloat16):
             for ties in (False, True):
@@ -204,54 +265,54 @@ def phase_kernels(torch) -> dict:
                 x = x.to(dtype)
                 got, want = cuda_pool.pool_argmax(x), pool.maxpool_argmax_plain(x)
                 # bit for bit: both keep the first maximum's own bits
-                if not (torch.equal(got[0].view(bits[dtype]), want[0].view(bits[dtype]))
-                        and torch.equal(got[1], want[1])):
+                if not (torch.equal(bits(torch, got[0]), bits(torch, want[0])) and torch.equal(got[1], want[1])):
                     raise AssertionError(f"pool_argmax differs from plain at {(B, h, w, c)} {dtype} ties={ties}")
         x = torch.randn((B, h, w, c), generator=gen, device=dev)
-        ms += time_ms(lambda: cuda_pool.pool_argmax(x))
-        plain += time_ms(lambda: pool.maxpool_argmax_plain(x))
         xn = x.permute(0, 3, 1, 2)
-        lib += time_ms(lambda: F.max_pool2d(xn, 2, return_indices=True))
-        nbytes += x.numel() * 4 + x.numel() // 4 * (4 + 1)
-    rows["pool_argmax"] = {
-        "source": "deconv_api_tpu_torch/csrc/pool_argmax.cu",
-        "replaces": "deconv_api_tpu/ops/pallas_pool.py:74",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": lib,
-    }
+        pool_sites.append(byte_bound({
+            "site": [B, h, w, c], "plan": cuda_pool.pool_plan(x.shape, 4, (2, 2), x.data_ptr()).__dict__,
+            **kernel_times(lambda: cuda_pool.pool_argmax(x), lambda: pool.maxpool_argmax_plain(x),
+                           lambda: F.max_pool2d(xn, 2, return_indices=True)),
+            "bytes": x.numel() * 4 + x.numel() // 4 * (4 + 1),
+        }))
+    rows["pool_argmax"] = summed_row(pool_sites, "deconv_api_tpu_torch/csrc/pool_argmax.cu",
+                                     "deconv_api_tpu/ops/pallas_pool.py:74")
 
-    # K2: every unpool+ReLU of the backward when fusion is off, bf16
-    ms, plain, lib, nbytes = 0.0, 0.0, 0.0, 0
+    # K2: every unpool+ReLU of the backward when fusion is off, bf16; fp32,
+    # the ReLU off and an odd extent checked too, bit for bit (-0.0 included)
+    unpool_sites = []
     for ho, wo, c, _ in FUSED_SITES:
         idx = torch.randint(0, 4, (B, ho, wo, c), generator=gen, device=dev, dtype=torch.int8)
         for dtype in (torch.float32, torch.bfloat16):
             y = torch.randn((B * K, ho, wo, c), generator=gen, device=dev).to(dtype)
             for relu in (False, True):
-                got = cuda_pool.unpool_argmax(y, idx, (2, 2), None, relu)
-                want = pool.unpool_argmax_plain(y, idx, (2, 2), None, relu)
-                if not torch.equal(got, want):
-                    raise AssertionError(f"unpool_argmax differs from plain at {tuple(y.shape)} {dtype} relu={relu}")
-        # odd extent: out_hw one row and col past the pooled extent
-        got = cuda_pool.unpool_argmax(y, idx, (2, 2), (2 * ho + 1, 2 * wo + 1), True)
-        want = pool.unpool_argmax_plain(y, idx, (2, 2), (2 * ho + 1, 2 * wo + 1), True)
-        if not torch.equal(got, want):
-            raise AssertionError(f"unpool_argmax out_hw differs from plain at {tuple(y.shape)}")
-        ms += time_ms(lambda: cuda_pool.unpool_argmax(y, idx, (2, 2), None, True))
-        plain += time_ms(lambda: pool.unpool_argmax_plain(y, idx, (2, 2), None, True))
-        ind = F.max_pool2d(torch.randn((B * K, c, 2 * ho, 2 * wo), generator=gen, device=dev), 2, return_indices=True)[1]
+                for out_hw in (None, (2 * ho + 1, 2 * wo + 1)):
+                    got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu)
+                    want = pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu)
+                    if not torch.equal(bits(torch, got), bits(torch, want)):
+                        raise AssertionError(f"unpool_argmax differs from plain at {tuple(y.shape)} {dtype} "
+                                             f"relu={relu} out_hw={out_hw}")
+        # the library's unpool on the same switches gives the same values
+        ind = nchw_switch_indices(torch, idx, K, 1)
         yn = y.permute(0, 3, 1, 2)
-        lib += time_ms(lambda: F.max_unpool2d(yn, ind, 2))
-        nbytes += y.numel() * 2 + idx.numel() + y.numel() * 4 * 2
-    rows["unpool_argmax"] = {
-        "source": "deconv_api_tpu_torch/csrc/unpool_argmax.cu",
-        "replaces": "deconv_api_tpu/ops/pallas_pool.py:105",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": lib,
-    }
+        if not torch.equal(F.max_unpool2d(yn, ind, 2).permute(0, 2, 3, 1), cuda_pool.unpool_argmax(y, idx)):
+            raise AssertionError(f"F.max_unpool2d's indices do not match the switches at {tuple(y.shape)}")
+        unpool_sites.append(byte_bound({
+            "site": [B * K, ho, wo, c],
+            "plan": cuda_pool.unpool_plan(y.shape, c, 2, (2, 2), (2 * ho, 2 * wo), y.data_ptr(), idx.data_ptr()).__dict__,
+            **kernel_times(lambda: cuda_pool.unpool_argmax(y, idx, (2, 2), None, True),
+                           lambda: pool.unpool_argmax_plain(y, idx, (2, 2), None, True),
+                           lambda: F.max_unpool2d(yn, ind, 2)),
+            "bytes": y.numel() * 2 + idx.numel() + y.numel() * 4 * 2,
+        }))
+        del ind, yn
+    rows["unpool_argmax"] = summed_row(unpool_sites, "deconv_api_tpu_torch/csrc/unpool_argmax.cu",
+                                       "deconv_api_tpu/ops/pallas_pool.py:105")
+    emit({"phase": "kernels", "pool_argmax_sites": pool_sites, "unpool_argmax_sites": unpool_sites})
 
     # K3: every pool -> ReLU -> conv step of the backward, bf16; fp32 checked
     # and timed too (fp32 runs the CUDA-core kernel, bf16 the tensor cores)
-    err, ms, plain, lib, flops, nbytes, fp32_ms = 0.0, 0.0, 0.0, 0.0, 0, 0, 0.0
+    err, ms, plain, lib, unfused, flops, nbytes, fp32_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0, 0.0
     checks, per_site = [], []
     for ho, wo, cout, cin in FUSED_SITES:
         idx = torch.randint(0, 4, (B, ho, wo, cout), generator=gen, device=dev, dtype=torch.int8)
@@ -271,13 +332,20 @@ def phase_kernels(torch) -> dict:
         site_fp32_ms = time_ms(lambda: cuda_deconv.fused_unpool_conv(y32, idx, w32, (2, 2), True), reps=5)
         y, w = y32.to(torch.bfloat16), w32.to(torch.bfloat16)
         site_ms = time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True))
-        site_lib = time_ms(lambda: conv.conv2d_input_backward(cuda_pool.unpool_argmax(y, idx, (2, 2), None, True), w))
+        # the library: ReLU, F.max_unpool2d and F.conv2d in NCHW; the port's
+        # unfused pair: K2 and F.conv2d (what fused_unpool=off runs)
+        ind, yn = nchw_switch_indices(torch, idx, K, 1), y.permute(0, 3, 1, 2)
+        wt = conv.flip_kernel(w).permute(3, 2, 0, 1).contiguous()
+        site_lib = time_ms(lambda: F.conv2d(F.max_unpool2d(F.relu(yn), ind, 2), wt, padding=1))
+        site_unfused = time_ms(lambda: conv.conv2d_input_backward(cuda_pool.unpool_argmax(y, idx, (2, 2), None, True), w))
         plain += time_ms(lambda: cuda_deconv.fused_plain(y, idx, w, (2, 2), True))
+        del ind, yn
         m = B * K * ho * 2 * wo * 2
         plan = cuda_deconv.tile_plan(B * K, 2 * ho, 2 * wo, 1, cin, cout, 3, 3)
-        per_site.append(k3_site([B * K, ho, wo, cout, cin], plan, site_ms, site_lib, 2 * m * cin * 9 * cout,
-                                y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2, site_fp32_ms))
-        ms, lib, fp32_ms = ms + site_ms, lib + site_lib, fp32_ms + site_fp32_ms
+        per_site.append(k3_site([B * K, ho, wo, cout, cin], plan, site_ms, site_lib, site_unfused,
+                                2 * m * cin * 9 * cout, y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2,
+                                site_fp32_ms))
+        ms, lib, unfused, fp32_ms = ms + site_ms, lib + site_lib, unfused + site_unfused, fp32_ms + site_fp32_ms
         flops += per_site[-1]["flops"]
         nbytes += per_site[-1]["bytes"]
     emit({"phase": "kernels", "fused_unpool_conv_checks": checks, "fused_unpool_conv_sites": per_site})
@@ -288,7 +356,8 @@ def phase_kernels(torch) -> dict:
         "max_abs_err": err, "ms": ms, "plain_ms": plain,
         "bound_ms": bound_s * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
-        "library_ms": lib,
+        "library_ms": lib, "library": "F.relu + F.max_unpool2d + F.conv2d (NCHW)",
+        "unfused_ms": unfused,
         "tflops": flops / ms / 1e9, "bound_share": bound_s * 1e3 / ms, "fp32_ms": fp32_ms,
     }
     rows.update(grouped_kernels(torch, gen))
@@ -312,13 +381,17 @@ def grouped_kernels(torch, gen) -> dict:
         idx = torch.randint(0, 4, (B, ho, wo, cout), generator=gen, device=dev, dtype=torch.int8)
         y32 = torch.randn((B, ho, wo, KG * cout), generator=gen, device=dev)
         w32 = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (2.0 / (9 * cout)) ** 0.5
-        # K2 grouped: bit for bit, both dtypes, ReLU on and off, odd extent
+        # K2 grouped: bit for bit (-0.0 included), both dtypes, ReLU on and off, odd extent
         for dtype in (torch.float32, torch.bfloat16):
             y = y32.to(dtype)
-            for relu, out_hw in ((False, None), (True, None), (True, (2 * ho + 1, 2 * wo + 1))):
-                got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu, KG)
-                if not torch.equal(got, pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu, KG)):
-                    raise AssertionError(f"unpool_argmax grouped differs from plain at {site} {dtype} relu={relu} out_hw={out_hw}")
+            for relu in (False, True):
+                for out_hw in (None, (2 * ho + 1, 2 * wo + 1)):
+                    got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu, KG)
+                    want = pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu, KG)
+                    if not torch.equal(bits(torch, got), bits(torch, want)):
+                        raise AssertionError(f"unpool_argmax grouped differs from plain at {site} {dtype} "
+                                             f"relu={relu} out_hw={out_hw}")
+                    del got, want
         # K3 grouped against the grouped pair
         err = 0.0
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)):
@@ -338,22 +411,26 @@ def grouped_kernels(torch, gen) -> dict:
         del y32
         # the library's unpool: F.max_unpool2d with the switches repeated to
         # KG blocks as int64 flat indices of each output plane
-        sw = idx.repeat(1, 1, 1, KG).permute(0, 3, 1, 2).long()
-        rows_i = torch.arange(ho, device=dev)[:, None] * 2 + sw // 2
-        ind = rows_i * (2 * wo) + torch.arange(wo, device=dev)[None, :] * 2 + sw % 2
+        ind = nchw_switch_indices(torch, idx, 1, KG)
         yn = y.permute(0, 3, 1, 2).contiguous()
+        if not torch.equal(F.max_unpool2d(yn, ind, 2).permute(0, 2, 3, 1), cuda_pool.unpool_argmax(y, idx, groups=KG)):
+            raise AssertionError(f"F.max_unpool2d's indices do not match the switches at {site}")
+        wt = conv.tile_kernel_groups(conv.flip_kernel(w), KG).permute(3, 2, 0, 1).contiguous()
         m = B * 2 * ho * 2 * wo * KG
         sites[site] = {
-            "unpool_argmax_grouped": {
-                "ms": time_ms(lambda: cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, KG)),
-                "plain_ms": time_ms(lambda: pool.unpool_argmax_plain(y, idx, (2, 2), None, True, KG)),
-                "library_ms": time_ms(lambda: F.max_unpool2d(yn, ind, 2)),
+            "unpool_argmax_grouped": byte_bound({
+                "plan": cuda_pool.unpool_plan(y.shape, cout, 2, (2, 2), (2 * ho, 2 * wo), y.data_ptr(), idx.data_ptr()).__dict__,
+                **kernel_times(lambda: cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, KG),
+                               lambda: pool.unpool_argmax_plain(y, idx, (2, 2), None, True, KG),
+                               lambda: F.max_unpool2d(yn, ind, 2)),
                 "bytes": y.numel() * 2 + idx.numel() + y.numel() * 4 * 2,
-            },
+            }),
             "fused_unpool_conv_grouped": {
                 "ms": time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True, KG), reps=10),
                 "plain_ms": time_ms(lambda: cuda_deconv.fused_plain(y, idx, w, (2, 2), True, KG), reps=10),
-                "library_ms": time_ms(lambda: conv.conv2d_input_backward_grouped(
+                "library_ms": time_ms(lambda: F.conv2d(F.max_unpool2d(F.relu(yn), ind, 2), wt, padding=1,
+                                                       groups=KG), reps=10),
+                "unfused_ms": time_ms(lambda: conv.conv2d_input_backward_grouped(
                     cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, KG), w, KG), reps=10),
                 "flops": 2 * m * cin * 9 * cout,
                 "bytes": y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2,
@@ -362,17 +439,13 @@ def grouped_kernels(torch, gen) -> dict:
         }
         k3 = sites[site]["fused_unpool_conv_grouped"]
         k3.update(k3_site(site, cuda_deconv.tile_plan(B, 2 * ho, 2 * wo, KG, cin, cout, 3, 3),
-                          k3["ms"], k3["library_ms"], k3["flops"], k3["bytes"]))
-        del ind, sw, yn
+                          k3["ms"], k3["library_ms"], k3["unfused_ms"], k3["flops"], k3["bytes"]))
+        del ind, yn
     emit({"phase": "kernels", "grouped_sites": sites, "fused_unpool_conv_grouped_checks": checks})
     main = sites["pool1_auto"]
     k2, k3 = main["unpool_argmax_grouped"], main["fused_unpool_conv_grouped"]
     rows["unpool_argmax_grouped"] = {
-        "source": "deconv_api_tpu_torch/csrc/unpool_argmax.cu",
-        "replaces": "deconv_api_tpu/ops/pallas_pool.py:105",
-        "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": k2["library_ms"],
+        **summed_row([k2], "deconv_api_tpu_torch/csrc/unpool_argmax.cu", "deconv_api_tpu/ops/pallas_pool.py:105"),
         "library": "F.max_unpool2d on the switches repeated to 8 groups (int64 indices)",
     }
     t_ops, t_bytes = k3["flops"] / BF16_FLOPS, k3["bytes"] / HBM_BYTES_PER_S
@@ -382,21 +455,62 @@ def grouped_kernels(torch, gen) -> dict:
         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
         "bound_ms": max(t_ops, t_bytes) * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": k3["library_ms"],
-        "library": "K2 grouped + F.conv2d(groups=8)",
+        "library": "F.relu + F.max_unpool2d + F.conv2d(groups=8) (NCHW)",
+        "unfused_ms": k3["unfused_ms"],
         "tflops": k3["tflops"], "bound_share": k3["bound_share"],
     }
     return rows
 
 
-def k3_site(site, plan, ms, lib_ms, flops, nbytes, fp32_ms=None) -> dict:
+def k3_site(site, plan, ms, lib_ms, unfused_ms, flops, nbytes, fp32_ms=None) -> dict:
     """One K3 site's bf16 time beside its achieved rate, its share of the
-    bound and the tensor-core kernel's launch plan."""
+    bound, the tensor-core kernel's launch plan, the library's time and
+    the port's unfused pair's."""
     bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-    out = {"site": site, "plan": plan.__dict__, "ms": ms, "library_ms": lib_ms, "flops": flops,
-           "bytes": nbytes, "tflops": flops / ms / 1e9, "bound_ms": bound_ms, "bound_share": bound_ms / ms}
+    out = {"site": site, "plan": plan.__dict__, "ms": ms, "library_ms": lib_ms, "unfused_ms": unfused_ms,
+           "flops": flops, "bytes": nbytes, "tflops": flops / ms / 1e9, "bound_ms": bound_ms,
+           "bound_share": bound_ms / ms}
     if fp32_ms is not None:
         out["fp32_ms"] = fp32_ms
     return out
+
+
+def bits(torch, t):
+    """A float tensor's bits as integers: torch.equal on them compares
+    bits, so -0.0 and +0.0 differ."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}[t.dtype])
+
+
+def nchw_switch_indices(torch, idx, rep: int, groups: int):
+    """The int64 flat index into each (2ho, 2wo) output plane that
+    F.max_unpool2d takes, from int8 NHWC 2x2 switches: slot s of pooled
+    pixel (i, j) is output pixel (2i + s // 2, 2j + s % 2).  Switch rows
+    repeat ``rep`` times and channels ``groups`` times, as the kernels read
+    them."""
+    _, ho, wo, _ = idx.shape
+    sw = idx.repeat_interleave(rep, 0).repeat(1, 1, 1, groups).permute(0, 3, 1, 2).long()
+    rows_i = torch.arange(ho, device=idx.device)[:, None] * 2 + sw // 2
+    return rows_i * (2 * wo) + torch.arange(wo, device=idx.device)[None, :] * 2 + sw % 2
+
+
+def byte_bound(site: dict) -> dict:
+    """A byte-bound kernel's site with its bound (each byte read or written
+    once at the card's memory rate) and its share of it, by the single-call
+    time and by the time with the L2 evicted."""
+    site["bound_ms"] = site["bytes"] / HBM_BYTES_PER_S * 1e3
+    site["bound_share"] = site["bound_ms"] / site["ms"]
+    site["cold_bound_share"] = site["bound_ms"] / site["cold_ms"]
+    return site
+
+
+def summed_row(sites: list, source: str, replaces: str) -> dict:
+    """The kernels-line row of a bit-exact, byte-bound kernel: its sites' times summed."""
+    total = {k: sum(s[k] for s in sites) for k in ("ms", "plain_ms", "library_ms", "bound_ms", "cold_ms",
+                                                     "library_cold_ms", "host_us")}
+    return {
+        "source": source, "replaces": replaces, "max_abs_err": 0.0, **total, "bound_by": "bytes",
+        "bound_share": total["bound_ms"] / total["ms"], "cold_bound_share": total["bound_ms"] / total["cold_ms"],
+    }
 
 
 # --- phase 4 -------------------------------------------------------------------
@@ -418,6 +532,7 @@ def phase_main_path(torch) -> dict:
 
     from deconv_api_tpu_torch import ops
     from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
     from deconv_api_tpu_torch.serving import codec
 
     # what `python -m deconv_api_tpu_torch serve ...` runs, on a free port
@@ -473,18 +588,20 @@ def phase_main_path(torch) -> dict:
             responses.append({"layer": layer, "status": status, "seconds": secs, "jpeg_hw": list(size)})
         batch_sizes = list(service.batch_sizes)
 
-        # the same block5_conv1 batch with the fused kernel off: K2 carries
-        # every unpool, F.conv2d every conv; the grids must agree
+        # the same block5_conv1 batch at the other fused_unpool setting, so
+        # that both K3 (auto) and K2 + F.conv2d (off) run; the grids must agree
         xs = np.stack([service.decode_preprocess(u) for u in uris[:B]])
-        fused = service.visualize_batch("block5_conv1", xs)
-        unfused = service.visualize_batch("block5_conv1", xs, fused_unpool="off")
+        other = "off" if FUSED_DEFAULT == "auto" else "auto"
+        grids = {FUSED_DEFAULT: service.visualize_batch("block5_conv1", xs),
+                 other: service.visualize_batch("block5_conv1", xs, fused_unpool=other)}
+        fused, unfused = grids["auto"], grids["off"]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
 
         psnr = min(psnr_db(a, b) for a, b in zip(fused["grid"], unfused["grid"]))
         same_idx = bool((fused["indices"] == unfused["indices"]).all())
         out = {
-            "phase": "main_path", "model": "vgg16", "boot_s": warm_s,
+            "phase": "main_path", "model": "vgg16", "boot_s": warm_s, "fused_unpool": FUSED_DEFAULT,
             "responses": responses, "batch_sizes": batch_sizes,
             "launches": counts,
             "fused_vs_off_min_psnr_db": psnr if np.isfinite(psnr) else "identical",
@@ -533,6 +650,7 @@ def phase_v1_deconv(torch, uris: list) -> dict:
 
     from deconv_api_tpu_torch import ops
     from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
     from deconv_api_tpu_torch.serving.app import Program
 
     t0 = time.perf_counter()
@@ -579,13 +697,14 @@ def phase_v1_deconv(torch, uris: list) -> dict:
         batch_sizes = list(service.batch_sizes)
 
         # the same block5_conv1 batch through the engine: packed (the
-        # service's policy), unpacked, and packed with fused_unpool=off,
-        # where the grouped K2 carries the packed unpools
+        # service's policy), unpacked, and packed at the other fused_unpool
+        # setting, so that both K3g (auto) and K2g (off) carry the packed unpools
         xs = np.stack([service.decode_preprocess(u) for u in uris[:B]])
         prog = Program(V1_LAYER, "all", 8, "tiles")
+        other = "off" if FUSED_DEFAULT == "auto" else "auto"
         packed = service.run_program(prog, xs)[V1_LAYER]
         unpacked = service.run_program(prog, xs, lowc_kpack="off")[V1_LAYER]
-        packed_unfused = service.run_program(prog, xs, fused_unpool="off")[V1_LAYER]
+        packed_other = service.run_program(prog, xs, fused_unpool=other)[V1_LAYER]
         torch.cuda.synchronize()
         counts = ops.launch_counts()
 
@@ -594,15 +713,16 @@ def phase_v1_deconv(torch, uris: list) -> dict:
             for b, r in enumerate(results[:B])
         )
         compare = {}
-        for name, other in (("unpacked", unpacked), ("packed_unfused", packed_unfused)):
+        for name, run in (("unpacked", unpacked), (f"packed_fused_unpool_{other}", packed_other)):
             psnr = min(psnr_db(a, o) for a, o in zip(packed["tiles"].reshape(-1, size, size, 3),
-                                                     other["tiles"].reshape(-1, size, size, 3)))
+                                                     run["tiles"].reshape(-1, size, size, 3)))
             compare[name] = {
                 "min_tile_psnr_db": psnr if np.isfinite(psnr) else "identical",
-                "indices_equal": bool((packed["indices"] == other["indices"]).all()
-                                      and (packed["valid"] == other["valid"]).all()),
+                "indices_equal": bool((packed["indices"] == run["indices"]).all()
+                                      and (packed["valid"] == run["valid"]).all()),
             }
-        out = {"phase": "v1_deconv", "model": service.bundle.name, "lowc_kpack": "auto", "boot_s": boot_s,
+        out = {"phase": "v1_deconv", "model": service.bundle.name, "lowc_kpack": "auto",
+               "fused_unpool": FUSED_DEFAULT, "boot_s": boot_s,
                "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
                "served_filters_match_engine": served_ok, "packed_vs": compare,
                "tiles_uint8": packed["tiles"].dtype == np.uint8 and packed["tiles"].shape == (B, 8, size, size, 3)}
@@ -633,9 +753,6 @@ def device_breakdown(torch, run) -> dict:
     the device's idle share of the host-clock window."""
     from torch.profiler import ProfilerActivity, profile
 
-    def device_us(e) -> float:
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -645,14 +762,14 @@ def device_breakdown(torch, run) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1e3
     except Exception as e:  # the trace is a reading, not a check of the port
         return {"device_busy_ms": "not measured", "profiler_error": repr(e)}
-    events = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and device_us(e) > 0]
-    busy_ms = sum(device_us(e) for e in events) / 1e3
+    events = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and _device_us(e) > 0]
+    busy_ms = sum(_device_us(e) for e in events) / 1e3
     if not busy_ms:
         return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
-    top = sorted(events, key=device_us, reverse=True)[:10]
+    top = sorted(events, key=_device_us, reverse=True)[:10]
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-        "top": [{"kernel": e.key[:90], "ms": device_us(e) / 1e3, "calls": e.count} for e in top],
+        "top": [{"kernel": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count} for e in top],
     }
 
 
@@ -671,34 +788,60 @@ def _timed(torch, run, reps: int = 10) -> dict:
             "max_ms": max(times) * 1e3, "profile": device_breakdown(torch, run)}
 
 
+def in_turns(torch, out: dict, runs: dict, key: str, reps: int = 20) -> None:
+    """Time each of the two ``runs`` (setting -> callable) twice, in turns
+    (a, b, b, a), ``reps`` calls each, into ``out[f"{key}_{setting}"]`` and
+    its ``_repeat``, and add by how much the second setting's slower p50
+    beats the first's faster one beside the spread between the repeats of
+    either."""
+    (a, run_a), (b, run_b) = runs.items()
+    for name, run in ((a, run_a), (b, run_b), (f"{b}_repeat", run_b), (f"{a}_repeat", run_a)):
+        out[f"{key}_{name}"] = _timed(torch, run, reps)
+    p50 = {s: [out[f"{key}_{s}"]["p50_ms"], out[f"{key}_{s}_repeat"]["p50_ms"]] for s in (a, b)}
+    out[f"{key}_{b}_faster_by_ms"] = min(p50[a]) - max(p50[b])
+    out[f"{key}_spread_ms"] = max(abs(p[0] - p[1]) for p in p50.values())
+
+
 def phase_throughput(torch, ctx: dict, label: str) -> dict:
+    """POST /: the grid program at fused_unpool auto and off, in turns."""
     bundle, xs = ctx["bundle"], ctx["xs"]
     batch = torch.from_numpy(xs).cuda()
     out = {"phase": "throughput", "card": label, "batch": B, "layer": "block5_conv1", "top_k": K,
            "forward": "float32", "backward": "bfloat16"}
+    runs = {}
     for policy in ("auto", "off"):
         fn = bundle.batched_visualizer("block5_conv1", "all", K, True, "bfloat16", post="grid", fused_unpool=policy)
-        out[f"fused_{policy}"] = _timed(torch, lambda: fn(bundle.params, batch)["block5_conv1"]["grid"].cpu())
+        runs[policy] = lambda fn=fn: fn(bundle.params, batch)["block5_conv1"]["grid"].cpu()
+    in_turns(torch, out, runs, "fused")
     emit(out)
     return out
 
 
 def phase_throughput_v1(torch, bundle, batch, label: str) -> dict:
     """/v1/deconv: the tiles program at top_k 8 under each lowc_kpack
-    policy, fused_unpool=auto, then one sweep from the same layer."""
+    policy at the default fused_unpool; at lowc_kpack=off, fused_unpool
+    auto and off in turns; then one sweep from the same layer at each."""
+    from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
+
     out = {"phase": "throughput", "card": label, "batch": B, "layer": V1_LAYER, "top_k": 8,
-           "post": "tiles", "fused_unpool": "auto", "forward": "float32", "backward": "bfloat16"}
-    for policy in ("off", "auto", "forced"):
+           "post": "tiles", "forward": "float32", "backward": "bfloat16"}
+
+    def tiles(lowc_kpack, fused_unpool):
         fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles",
-                                       lowc_kpack=policy)
-        out[f"lowc_kpack_{policy}"] = _timed(torch, lambda: fn(bundle.params, batch)[V1_LAYER]["tiles"].cpu())
-    fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles", sweep=True,
-                                   lowc_kpack="auto")
+                                       lowc_kpack=lowc_kpack, fused_unpool=fused_unpool)
+        return lambda: fn(bundle.params, batch)[V1_LAYER]["tiles"].cpu()
 
-    def sweep():
-        return [e["tiles"].cpu() for e in fn(bundle.params, batch).values()]
+    for policy in ("auto", "forced"):
+        out[f"lowc_kpack_{policy}_fused_{FUSED_DEFAULT}"] = _timed(torch, tiles(policy, FUSED_DEFAULT))
+    in_turns(torch, out, {"auto": tiles("off", "auto"), "off": tiles("off", "off")}, "lowc_kpack_off_fused")
+    for fused_unpool in ("auto", "off"):
+        fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles", sweep=True,
+                                       lowc_kpack="auto", fused_unpool=fused_unpool)
 
-    out["sweep_lowc_kpack_auto"] = {"layers": len(sweep()), **_timed(torch, sweep, reps=3)}
+        def sweep(fn=fn):
+            return [e["tiles"].cpu() for e in fn(bundle.params, batch).values()]
+
+        out[f"sweep_lowc_kpack_auto_fused_{fused_unpool}"] = {"layers": len(sweep()), **_timed(torch, sweep, reps=3)}
     emit(out)
     return out
 

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from deconv_api_tpu_torch import ops
 from deconv_api_tpu_torch._device import resolve_device
 from deconv_api_tpu_torch.models.spec import Entry, ModelSpec, entry_chain
-from deconv_api_tpu_torch.ops.cuda_deconv import resolve_fused_unpool
+from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT, resolve_fused_unpool
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -305,7 +305,7 @@ def get_visualizer(
     mode: str = "all",
     bug_compat: bool = True,
     backward_dtype: str | None = None,
-    fused_unpool: str = "auto",
+    fused_unpool: str = FUSED_DEFAULT,
     device=None,
     *,
     sweep: bool = False,

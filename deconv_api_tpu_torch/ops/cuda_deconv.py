@@ -14,8 +14,9 @@ show which branch ran.
 
 Policy vocabulary (the reference's): ``off`` never fuses, ``auto`` fuses on
 CUDA, ``forced`` fuses on every device.  TPU measurements set the
-reference's default to off; they decide nothing here, and the port's
-default is ``auto``.
+reference's default to off; they decide nothing here.  The port's default,
+``FUSED_DEFAULT``, is set by the measurement on the H100 that ``PERF.md``
+records.
 
 ``groups > 1`` is the channel-packed ("kpack") form: ``y`` carries
 ``groups`` projections group-major in its channels, ``idx`` the switches of
@@ -49,6 +50,7 @@ from deconv_api_tpu_torch.ops.pool import (
 )
 
 FUSED_MODES = ("off", "auto", "forced")
+FUSED_DEFAULT = "off"  # the engine's and the service's fused_unpool
 launches = {"fused_unpool_conv": 0, "fused_unpool_conv_grouped": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

@@ -38,6 +38,7 @@ import torch
 
 from deconv_api_tpu_torch import errors
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
+from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
 from deconv_api_tpu_torch.serving.models import ModelBundle
 
@@ -97,7 +98,7 @@ class DeconvService:
     # --- device work -----------------------------------------------------
 
     def run_program(
-        self, program: Program, xs: np.ndarray, fused_unpool: str = "auto",
+        self, program: Program, xs: np.ndarray, fused_unpool: str = FUSED_DEFAULT,
         lowc_kpack: str | None = None,
     ) -> dict[str, dict[str, np.ndarray]]:
         """Preprocessed images (B, H, W, 3) -> ``{layer: {post, "valid",
@@ -118,7 +119,7 @@ class DeconvService:
             for name, entry in out.items()
         }
 
-    def visualize_batch(self, layer: str, xs: np.ndarray, fused_unpool: str = "auto"):
+    def visualize_batch(self, layer: str, xs: np.ndarray, fused_unpool: str = FUSED_DEFAULT):
         """The ``POST /`` program on a batch: ``{"grid", "valid", "indices"}``."""
         return self.run_program(Program(layer), xs, fused_unpool)[layer]
 

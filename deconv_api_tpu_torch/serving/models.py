@@ -18,6 +18,7 @@ from deconv_api_tpu_torch.engine.deconv import get_visualizer, resolve_kpack_cha
 from deconv_api_tpu_torch.models.spec import ModelSpec, init_params
 from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
 from deconv_api_tpu_torch.models.vgg16 import VGG16_SPEC
+from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
 
 
@@ -61,7 +62,7 @@ class ModelBundle:
         bug_compat: bool = True,
         backward_dtype: str | None = None,
         post: str | None = None,
-        fused_unpool: str = "auto",
+        fused_unpool: str = FUSED_DEFAULT,
         sweep: bool = False,
         lowc_kpack: str = "off",
     ):

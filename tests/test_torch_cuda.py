@@ -25,29 +25,140 @@ def dev():
     return resolve_device("cuda")
 
 
+def _bits(t):
+    """The tensor's bits as integers: equal bits, not equal values, so
+    -0.0 and +0.0 differ."""
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(t.dtype, t.dtype))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data_ptr is off 16-byte alignment by
+    one element: a slice of a larger buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# (shape, pool_size, misaligned): the vector path (2x2, C a multiple of the
+# lanes), the scalar path (C 3/5/6/70, C 12 in bf16, windows 3x2 and 1x2, a
+# misaligned input), trailing rows and cols dropped, a full-width VGG16 site
+POOL_CASES = [
+    ((3, 9, 7, 5), (2, 2), False),
+    ((2, 12, 12, 33), (3, 2), False),
+    ((2, 6, 8, 3), (2, 2), False),
+    ((2, 6, 8, 6), (2, 2), False),
+    ((2, 6, 8, 12), (2, 2), False),
+    ((2, 6, 8, 70), (2, 2), False),
+    ((2, 9, 11, 16), (2, 2), False),
+    ((2, 9, 8, 16), (3, 2), False),
+    ((2, 5, 8, 16), (1, 2), False),
+    ((2, 8, 8, 64), (2, 2), True),
+    ((8, 224, 224, 64), (2, 2), False),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,pool_size", [((3, 9, 7, 5), (2, 2)), ((2, 12, 12, 33), (3, 2))])
-def test_pool_argmax_kernel_is_bit_exact(dev, dtype, shape, pool_size):
+@pytest.mark.parametrize("shape,pool_size,misaligned", POOL_CASES, ids=lambda c: str(c).replace(" ", ""))
+def test_pool_argmax_kernel_is_bit_exact(dev, dtype, shape, pool_size, misaligned):
     g = torch.Generator(device=dev).manual_seed(0)
     for x in (
         torch.randn(shape, generator=g, device=dev),
         torch.tensor([-0.0, 0.0, 1.0], device=dev)[torch.randint(0, 3, shape, generator=g, device=dev)],
     ):
         x = x.to(dtype)
+        if misaligned:
+            x = _misaligned(x)
+            assert cuda_pool.pool_plan(x.shape, x.element_size(), pool_size, x.data_ptr()).lanes == 1
         got, want = cuda_pool.pool_argmax(x, pool_size), pool.maxpool_argmax_plain(x, pool_size)
         assert torch.equal(got[1], want[1])
-        bits = torch.int32 if dtype == torch.float32 else torch.int16
-        assert torch.equal(got[0].view(bits), want[0].view(bits))
+        assert torch.equal(_bits(got[0]), _bits(want[0]))
+
+
+# (switch batch, rep, pooled ho, wo, switch channels, groups, pool_size,
+# out_hw padding (rows, cols), relu, misaligned tensor): the vector path and
+# the scalar path (C 3/5/6/70, C 12 in bf16, C/groups 6, windows 3x2 and
+# 1x2, a misaligned signal or switch tensor), rep 4, odd out_hw
+UNPOOL_CASES = [
+    (2, 1, 4, 5, 6, 1, (2, 2), (0, 0), False, None),
+    (2, 4, 4, 5, 16, 1, (2, 2), (0, 0), True, None),
+    (2, 2, 4, 5, 16, 1, (2, 2), (1, 1), True, None),
+    (2, 1, 3, 3, 3, 1, (2, 2), (1, 0), False, None),
+    (1, 2, 4, 3, 5, 1, (2, 2), (0, 1), True, None),
+    (2, 1, 4, 5, 12, 1, (2, 2), (1, 1), False, None),
+    (1, 4, 3, 4, 70, 1, (2, 2), (0, 0), True, None),
+    (2, 2, 4, 5, 6, 3, (2, 2), (1, 1), False, None),
+    (2, 1, 4, 5, 8, 3, (2, 2), (0, 0), True, None),
+    (2, 1, 4, 5, 64, 8, (2, 2), (1, 1), True, None),
+    (1, 4, 3, 5, 64, 8, (2, 2), (0, 0), False, None),
+    (2, 1, 3, 4, 16, 1, (3, 2), (2, 1), False, None),
+    (2, 2, 4, 3, 16, 1, (1, 2), (0, 1), True, None),
+    (2, 1, 4, 5, 16, 1, (2, 2), (0, 0), False, "y"),
+    (2, 1, 4, 5, 16, 2, (2, 2), (1, 1), True, "idx"),
+]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("relu,rep,out_hw", [(False, 1, None), (True, 4, None), (True, 2, (9, 11))])
-def test_unpool_argmax_kernel_is_exact(dev, dtype, relu, rep, out_hw):
+@pytest.mark.parametrize("case", UNPOOL_CASES, ids=lambda c: str(c).replace(" ", ""))
+def test_unpool_argmax_kernel_is_exact(dev, dtype, case):
+    """Bit for bit, -0.0 included, against the plain version."""
+    bi, rep, ho, wo, ci, groups, pool_size, (dh, dw), relu, misaligned = case
+    ph, pw = pool_size
     g = torch.Generator(device=dev).manual_seed(1)
-    y = torch.randn((2 * rep, 4, 5, 6), generator=g, device=dev).to(dtype)
-    idx = torch.randint(0, 4, (2, 4, 5, 6), generator=g, device=dev, dtype=torch.int8)
-    got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu)
-    assert torch.equal(got, pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu))
+    y = torch.randn((bi * rep, ho, wo, groups * ci), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, ph * pw, (bi, ho, wo, ci), generator=g, device=dev, dtype=torch.int8)
+    if misaligned == "y":
+        y = _misaligned(y)
+    elif misaligned == "idx":
+        idx = _misaligned(idx)
+    out_hw = (ho * ph + dh, wo * pw + dw)
+    kind = "unpool_argmax_grouped" if groups > 1 else "unpool_argmax"
+    before = cuda_pool.launches[kind]
+    got = cuda_pool.unpool_argmax(y, idx, pool_size, out_hw, relu, groups)
+    want = pool.unpool_argmax_plain(y, idx, pool_size, out_hw, relu, groups)
+    assert got.shape == want.shape == (bi * rep, *out_hw, groups * ci)
+    assert torch.equal(_bits(got), _bits(want))
+    assert cuda_pool.launches[kind] == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups,ci", [(1, 16), (8, 64), (1, 5)])
+def test_unpool_kernel_keeps_negative_zero(dev, dtype, groups, ci):
+    """Negative values, ReLU off: the slots that are not the argmax hold
+    -0.0 (the reference's multiply), not +0.0 (a select)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    y = (-torch.rand((4, 3, 5, groups * ci), generator=g, device=dev) - 0.5).to(dtype)
+    idx = torch.randint(0, 4, (2, 3, 5, ci), generator=g, device=dev, dtype=torch.int8)
+    got = cuda_pool.unpool_argmax(y, idx, (2, 2), None, False, groups)
+    want = pool.unpool_argmax_plain(y, idx, (2, 2), None, False, groups)
+    neg_zero = _bits(torch.tensor([-0.0], dtype=dtype))[0]
+    assert int((_bits(want) == neg_zero).sum()) == 3 * want.numel() // 4
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("site", ["block1", "packed_block1"])
+def test_unpool_kernel_at_a_full_width_vgg16_site(dev, dtype, site):
+    """The block1 site of a batch-8 top-4 POST / (y (32,112,112,64), rep 4)
+    and the packed block1 site of /v1/deconv (y (8,112,112,512), 8 groups)."""
+    rows, groups = (32, 1) if site == "block1" else (8, 8)
+    g = torch.Generator(device=dev).manual_seed(8)
+    y = torch.randn((rows, 112, 112, groups * 64), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, 4, (8, 112, 112, 64), generator=g, device=dev, dtype=torch.int8)
+    for relu in (False, True):
+        got = cuda_pool.unpool_argmax(y, idx, (2, 2), None, relu, groups)
+        assert torch.equal(_bits(got), _bits(pool.unpool_argmax_plain(y, idx, (2, 2), None, relu, groups)))
+
+
+def test_unpool_wrapper_refuses_an_output_past_32_bit_indexing(dev):
+    """y (1, 16384, 16384, 2) bf16 has 2^29 elements, its unpooled output
+    2^31: the wrapper raises before it allocates or launches."""
+    y = torch.empty((1, 16384, 16384, 2), dtype=torch.bfloat16, device=dev)
+    idx = torch.empty((1, 16384, 16384, 2), dtype=torch.int8, device=dev)
+    before = cuda_pool.launches["unpool_argmax"]
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_pool.unpool_argmax(y, idx)
+    assert cuda_pool.launches["unpool_argmax"] == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)])
@@ -115,7 +226,7 @@ def test_grouped_unpool_kernel_is_exact(dev, dtype, groups, rep, relu, out_hw):
     idx = torch.randint(0, 4, (2, 4, 5, 6), generator=g, device=dev, dtype=torch.int8)
     before = cuda_pool.launches["unpool_argmax_grouped"]
     got = cuda_pool.unpool_argmax(y, idx, (2, 2), out_hw, relu, groups)
-    assert torch.equal(got, pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu, groups))
+    assert torch.equal(_bits(got), _bits(pool.unpool_argmax_plain(y, idx, (2, 2), out_hw, relu, groups)))
     assert cuda_pool.launches["unpool_argmax_grouped"] == before + 1
 
 
