@@ -30,7 +30,19 @@ Phases, each printing JSON lines:
    ``fused_unpool`` auto and off in turns; tiles at each ``lowc_kpack``
    policy at the default ``fused_unpool``, and at ``lowc_kpack=off`` with
    ``fused_unpool`` auto and off in turns) and of one batch-8 sweep from
-   block5_conv1 at each setting.
+   block5_conv1 at each setting;
+7. dag: ``serve --model resnet50`` at 224x224, 8 concurrent ``POST /`` at
+   conv5_block3_out, one ``/v1/deconv`` with top-8 tiles and one sweep from
+   conv5_block3_out; one batch-8 ``POST /`` program each of inception_v3
+   (299, mixed10), mobilenet_v1 (conv_pw_13_relu), mobilenet_v2 (out_relu)
+   and vgg19 (block5_conv1, at the default ``fused_unpool`` and at
+   ``auto``); each DAG family's projection of one full-width image on the
+   card against the same program on the CPU (``engine/crosscheck.py``:
+   the CPU's channels projected on the card, and the card's own
+   selection where the CPU's ranking is separated); then the p50 of ResNet50's
+   grid, tiles and sweep programs and of the other models' grid programs,
+   with one profiled call each, and ResNet50's batched backward against K
+   retained backward passes, in turns.
 Each main path zeroes the launch counters just before it and reads them
 just after.  The line before the last is the kernels line, the last the
 result line.
@@ -156,13 +168,6 @@ def png_bytes(img) -> bytes:
 
     ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
     return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
-
-
-def psnr_db(a, b) -> float:
-    import numpy as np
-
-    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
-    return float("inf") if mse == 0 else 10 * np.log10(255.0**2 / mse)
 
 
 # --- phase 1 -------------------------------------------------------------------
@@ -532,6 +537,7 @@ def phase_main_path(torch) -> dict:
 
     from deconv_api_tpu_torch import ops
     from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
     from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
     from deconv_api_tpu_torch.serving import codec
 
@@ -650,6 +656,7 @@ def phase_v1_deconv(torch, uris: list) -> dict:
 
     from deconv_api_tpu_torch import ops
     from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
     from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
     from deconv_api_tpu_torch.serving.app import Program
 
@@ -846,6 +853,206 @@ def phase_throughput_v1(torch, bundle, batch, label: str) -> dict:
     return out
 
 
+# --- phase 7 -------------------------------------------------------------------
+
+# the DAG slice: each family at its deepest projectable layer, and VGG19
+# through the sequential engine at its block5_conv1 (as VGG16's main path)
+DAG_LAYERS = {"resnet50": "conv5_block3_out", "inception_v3": "mixed10",
+              "mobilenet_v1": "conv_pw_13_relu", "mobilenet_v2": "out_relu"}
+VGG19_LAYER = "block5_conv1"
+# a batched backward against K retained ones on the card (the CPU test's rtol)
+BATCHED_MAX_REL_ERR = 1e-5
+# the NCHW avg_pool2d gradient blocks.avgpool relies on (the GPU test's tolerance)
+AVGPOOL_MAX_REL_ERR = 1e-6
+
+
+def avg_pool2d_grad_errors(torch) -> dict:
+    """The gradient of ``F.avg_pool2d`` (3x3/1, padding 1, the valid-cell
+    count) on the card against the CPU, relative to its largest magnitude,
+    over a ``channels_last`` input (the library fault) and over a
+    contiguous NCHW one (what ``blocks.avgpool`` passes, which must stay
+    within AVGPOOL_MAX_REL_ERR)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+    x, gy = torch.randn((2, 8, 35, 35), generator=g), torch.randn((2, 8, 35, 35), generator=g)
+    out = {}
+    for name, fmt in (("channels_last", torch.channels_last), ("nchw", torch.contiguous_format)):
+        grads = []
+        for dev in ("cpu", "cuda"):
+            xi = x.to(dev).contiguous(memory_format=fmt).requires_grad_(True)
+            y = F.avg_pool2d(xi, 3, 1, padding=1, count_include_pad=False)
+            grads.append(torch.autograd.grad(y, xi, gy.to(dev))[0].cpu())
+        out[name] = float((grads[1] - grads[0]).abs().max() / grads[0].abs().max())
+    if not out["nchw"] <= AVGPOOL_MAX_REL_ERR:
+        raise AssertionError(f"avg_pool2d gradient over NCHW on the card vs the CPU: {out}")
+    return out
+
+
+def phase_dag(torch, uris: list, label: str) -> dict:
+    """The DAG slice: ResNet50 served over HTTP (``POST /`` and
+    ``/v1/deconv`` tiles and a sweep), one batch-8 ``POST /`` program of
+    each other new model, each DAG family held against its CPU run, and the
+    times of the programs."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.crosscheck import card_vs_cpu
+    from deconv_api_tpu_torch.serving import codec
+    from deconv_api_tpu_torch.serving.app import DeconvService, Program
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    layer = DAG_LAYERS["resnet50"]
+    t0 = time.perf_counter()
+    server = build_server(["serve", "--port", "0", "--model", "resnet50", "--device", "cuda",
+                           "--max-batch", str(B)])
+    boot_s = time.perf_counter() - t0
+    service, port = server.service, server.server_address[1]
+    bundle, size = service.bundle, service.bundle.image_size
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        forms = [("/", {"file": u, "layer": layer}) for u in uris[:B]] + [
+            ("/v1/deconv", {"file": uris[B], "layer": layer}),
+            ("/v1/deconv", {"file": uris[B + 1], "layer": layer, "sweep": "true"}),
+        ]
+        ops.reset_launch_counts()
+        service.batch_sizes.clear()
+        results = [None] * len(forms)
+
+        def run(i):
+            results[i] = _post(port, *forms[i])
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(forms))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        counts = ops.launch_counts()
+        responses = []
+        for (path, form), (status, body, secs) in zip(forms, results):
+            what = f"resnet50 POST {path} {({k: v for k, v in form.items() if k != 'file'})}"
+            if status != 200:
+                raise AssertionError(f"{what}: {status} {str(body)[:300]}")
+            if path == "/":
+                hw = codec.jpeg_size(base64.b64decode(urllib.parse.unquote(body.split(",", 1)[1])))
+                if hw != (2 * size, 2 * size):
+                    raise AssertionError(f"{what}: grid {hw}, expected {2 * size}x{2 * size}")
+                n = None
+            elif form.get("sweep"):
+                want = list(bundle.sweep_layers(layer))
+                if list(body["layers"]) != want:
+                    raise AssertionError(f"{what}: layers {list(body['layers'])}, expected {want}")
+                n = {name: _check_tiles(e, f"{what} {name}", 8, size) for name, e in body["layers"].items()}
+            else:
+                n = _check_tiles(body, what, 8, size)
+            if n is not None and not (all(n.values()) if isinstance(n, dict) else n):
+                raise AssertionError(f"{what}: no filter fired: {n}")
+            responses.append({"path": path, "sweep": bool(form.get("sweep")), "status": status,
+                              "seconds": secs, "filters": n})
+        batch_sizes = list(service.batch_sizes)
+        # the served tiles are the engine's fired prefix for that image
+        engine = service.run_program(Program(layer, "all", 8, "tiles"),
+                                     service.decode_preprocess(uris[B])[None])[layer]
+        served_ok = results[B][1]["filters"] == [int(i) for i in engine["indices"][0][: int(engine["valid"][0].sum())]]
+        xs = np.stack([service.decode_preprocess(u) for u in uris[:B]])
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(10)
+    out = {"phase": "dag", "card": label, "model": "resnet50", "layer": layer, "boot_s": boot_s,
+           "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
+           "served_filters_match_engine": served_ok}
+    if max(batch_sizes) <= 1 or not served_ok:
+        raise AssertionError(f"resnet50 serving: batch sizes {batch_sizes}, served filters match {served_ok}")
+
+    # one batch-8 POST / program of each other new model; VGG19's kernel
+    # launches read around its own runs (fused_unpool at the default, then auto)
+    bundles, batches, programs = {"resnet50": bundle}, {"resnet50": xs}, {}
+    for model in ("inception_v3", "mobilenet_v1", "mobilenet_v2", "vgg19"):
+        b = bundles[model] = build_bundle(model, "cuda")
+        svc = DeconvService(b, max_batch=B)
+        lyr = DAG_LAYERS.get(model, VGG19_LAYER)
+        xm = batches[model] = np.stack([svc.decode_preprocess(u) for u in uris[:B]])
+        ops.reset_launch_counts()
+        grid = svc.run_program(Program(lyr), xm)[lyr]
+        torch.cuda.synchronize()
+        side = 2 * b.image_size
+        entry = {"layer": lyr, "launches": ops.launch_counts(), "fired": int(grid["valid"].sum()),
+                 "grid_ok": grid["grid"].dtype == np.uint8 and grid["grid"].shape == (B, side, side, 3)}
+        if model == "vgg19":
+            ops.reset_launch_counts()
+            svc.run_program(Program(lyr), xm, fused_unpool="auto")
+            torch.cuda.synchronize()
+            entry["launches_fused_auto"] = ops.launch_counts()
+        programs[model] = entry
+        if not entry["grid_ok"] or not entry["fired"]:
+            raise AssertionError(f"{model} POST / program: {entry}")
+    out["programs"] = programs
+    vgg19 = programs["vgg19"]
+    if not (vgg19["launches"]["pool_argmax"] and vgg19["launches"]["unpool_argmax"]
+            and vgg19["launches_fused_auto"]["fused_unpool_conv"]):
+        raise AssertionError(f"a kernel of VGG19's path never launched: {vgg19}")
+
+    # card against CPU, one image at full width per DAG family, and the
+    # library fault blocks.avgpool works around, measured again
+    out["avg_pool2d_grad_rel_err"] = avg_pool2d_grad_errors(torch)
+    out["card_vs_cpu"] = {model: card_vs_cpu(bundles[model], lyr, torch.from_numpy(batches[model][:1]), K)
+                          for model, lyr in DAG_LAYERS.items()}
+    emit(out)
+    dag_times(torch, bundles, batches, label)
+    return {"counts": counts, "vgg19_counts": vgg19["launches"], "vgg19_auto_counts": vgg19["launches_fused_auto"]}
+
+
+def dag_times(torch, bundles: dict, batches: dict, label: str) -> None:
+    """Host-clock p50 of ResNet50's batch-8 grid, tiles and sweep programs
+    and of the other models' grid programs (each with one profiled call),
+    and ResNet50's batched backward against K retained backward passes
+    over one forward, in turns."""
+    from deconv_api_tpu_torch.engine.autodeconv import project
+    from deconv_api_tpu_torch.engine.deconv import _seed_fmaps, _select_top
+    from deconv_api_tpu_torch.models.blocks import DECONV_RULES
+
+    times = {"phase": "dag_throughput", "card": label, "batch": B, "forward": "float32",
+             "backward": "float32 (vgg19: bfloat16)"}
+
+    def program(model, k, post, sweep=False):
+        # the service's settings (run_program); a DAG model ignores the
+        # backward dtype and bug_compat and projects in fp32
+        b, xb = bundles[model], torch.from_numpy(batches[model]).cuda()
+        fn = b.batched_visualizer(DAG_LAYERS.get(model, VGG19_LAYER), "all", k, True, "bfloat16",
+                                  post=post, sweep=sweep)
+        return lambda: [e[post].cpu() for e in fn(b.params, xb).values()]
+
+    times["resnet50_grid"] = _timed(torch, program("resnet50", K, "grid"), reps=20)
+    times["resnet50_tiles_top8"] = _timed(torch, program("resnet50", 8, "tiles"), reps=10)
+    sweep = program("resnet50", 8, "tiles", sweep=True)
+    times["resnet50_sweep_top8"] = {"layers": len(sweep()), **_timed(torch, sweep, reps=3)}
+    for model in ("inception_v3", "mobilenet_v1", "mobilenet_v2", "vgg19"):
+        times[f"{model}_grid"] = _timed(torch, program(model, K, "grid"), reps=10)
+
+    bundle = bundles["resnet50"]
+    x = torch.from_numpy(batches["resnet50"]).cuda().requires_grad_(True)
+    act = bundle.forward_fn(bundle.params, x, rules=DECONV_RULES)[1][DAG_LAYERS["resnet50"]]
+
+    def k_passes():
+        top_idx = _select_top(act.detach(), K)[0]
+        seeds = _seed_fmaps(act.detach(), top_idx, "all").reshape(B, K, *act.shape[1:])
+        return torch.stack([torch.autograd.grad(act, x, seeds[:, k], retain_graph=True)[0] for k in range(K)], 1)
+
+    want = k_passes()
+    got = project(act, x, K, "all", retain_graph=True)["images"]
+    times["batched_vs_k_passes_rel_err"] = float((got - want).abs().max() / want.abs().max())
+    del got, want
+    if not times["batched_vs_k_passes_rel_err"] <= BATCHED_MAX_REL_ERR:
+        raise AssertionError(f"batched backward vs K passes: {times['batched_vs_k_passes_rel_err']}")
+    in_turns(torch, times, {"batched": lambda: project(act, x, K, "all", retain_graph=True)["images"].sum().item(),
+                            "k_passes": lambda: k_passes().sum().item()}, "resnet50_backward")
+    emit(times)
+
+
 def main() -> int:
     try:
         import torch
@@ -871,7 +1078,10 @@ def main() -> int:
     v1 = phase_v1_deconv(torch, ctx["uris"])
     phase_throughput(torch, ctx, env["nvidia_smi"])
     phase_throughput_v1(torch, v1["bundle"], torch.from_numpy(ctx["xs"]).cuda(), env["nvidia_smi"])
-    by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"]}
+    dag = phase_dag(torch, ctx["uris"], env["nvidia_smi"])
+    by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
+               "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
+               "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

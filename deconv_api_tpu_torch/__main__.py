@@ -1,6 +1,7 @@
-"""``python -m deconv_api_tpu_torch serve --port P [--model vgg16]
-[--device cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]``:
-serve the reference's ``POST /`` and the JSON API ``POST /v1/deconv``."""
+"""``python -m deconv_api_tpu_torch serve --port P [--model vgg16|vgg19|
+resnet50|inception_v3|mobilenet_v1|mobilenet_v2|vgg_tiny] [--device
+cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]``: serve the
+reference's ``POST /`` and the JSON API ``POST /v1/deconv``."""
 
 from __future__ import annotations
 

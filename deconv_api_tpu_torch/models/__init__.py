@@ -1,4 +1,4 @@
-"""Model specs and weights of the port."""
+"""Model specs, the DAG model families and weights of the port."""
 
 from deconv_api_tpu_torch.models.spec import (
     Entry,
@@ -10,12 +10,14 @@ from deconv_api_tpu_torch.models.spec import (
 )
 from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
 from deconv_api_tpu_torch.models.vgg16 import VGG16_SPEC
+from deconv_api_tpu_torch.models.vgg19 import VGG19_SPEC
 
 __all__ = [
     "Entry",
     "Layer",
     "ModelSpec",
     "VGG16_SPEC",
+    "VGG19_SPEC",
     "VGG_TINY_SPEC",
     "entry_chain",
     "init_params",

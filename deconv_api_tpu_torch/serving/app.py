@@ -103,9 +103,10 @@ class DeconvService:
     ) -> dict[str, dict[str, np.ndarray]]:
         """Preprocessed images (B, H, W, 3) -> ``{layer: {post, "valid",
         "indices"}}`` as numpy, one device program with the reference's
-        serving settings (bf16 backward, bug_compat); ``post`` is
-        ``program.post``, uint8 (B, 2H, 2W, 3) grids or (B, K, H, W, 3)
-        tiles.  ``lowc_kpack`` defaults to the service's policy."""
+        serving settings (bf16 backward, bug_compat; a DAG model ignores
+        both and projects in fp32); ``post`` is ``program.post``, uint8
+        (B, 2H, 2W, 3) grids or (B, K, H, W, 3) tiles.  ``lowc_kpack``
+        defaults to the service's policy."""
         fn = self.bundle.batched_visualizer(
             program.layer, program.mode, program.top_k, bug_compat=True,
             backward_dtype="bfloat16", post=program.post, fused_unpool=fused_unpool,
@@ -124,12 +125,13 @@ class DeconvService:
         return self.run_program(Program(layer), xs, fused_unpool)[layer]
 
     def warmup(self) -> None:
-        """Run one batch at the deepest conv layer (builds the kernels on
-        first use), then mark the service ready."""
-        layer = [l.name for l in self.bundle.spec.layers if l.kind == "conv"][-1]
-        h, w, c = self.bundle.spec.input_shape
+        """Run one batch at the bundle's deepest layer (builds the kernels
+        on first use), then mark the service ready."""
+        size = self.bundle.image_size
         gen = np.random.default_rng(0)
-        self.visualize_batch(layer, gen.normal(0, 50, (1, h, w, c)).astype(np.float32))
+        self.visualize_batch(
+            self.bundle.deepest_layer(), gen.normal(0, 50, (1, size, size, 3)).astype(np.float32)
+        )
         self.ready = True
 
     # --- dispatcher ------------------------------------------------------
@@ -197,7 +199,7 @@ class DeconvService:
         except codec.CodecError as e:
             raise errors.InvalidImage(str(e)) from None
         size = self.bundle.image_size
-        return codec.preprocess_vgg(codec.resize224(img, (size, size)))
+        return self.bundle.preprocess(codec.resize224(img, (size, size)))
 
     def _project(self, form: dict[str, str], **program) -> dict:
         """Check readiness and the form's image and layer, then run the

@@ -1,9 +1,10 @@
 """Image codec of the port: the reference's wire format, plus the device-side
 stitch and deprocess (counterpart of ``deconv_api_tpu/serving/codec.py``).
 
-Host side: data-URL -> BGR uint8 decode, resize to 224x224 with cv2's
-bilinear, Keras caffe preprocessing, and JPEG -> base64 -> percent-quoted
-data URL under the reference's ``data:image/webp`` prefix.
+Host side: data-URL -> BGR uint8 decode, resize to the model's input size
+with cv2's bilinear, Keras caffe or 'tf'-mode preprocessing, and JPEG ->
+base64 -> percent-quoted data URL under the reference's ``data:image/webp``
+prefix.
 
 The host codec uses cv2 where it imports, else Pillow for decode and
 encode, else its own numpy code: a PNG decoder (zlib + unfiltering), a
@@ -105,6 +106,13 @@ def preprocess_vgg(img_bgr: np.ndarray) -> np.ndarray:
     image: a channel flip plus BGR-ordered mean subtraction."""
     x = img_bgr.astype(np.float32)[..., ::-1]
     return x - CAFFE_MEANS_BGR
+
+
+def preprocess_tf(img_bgr: np.ndarray) -> np.ndarray:
+    """Keras 'tf'-mode preprocessing (InceptionV3, the MobileNets) on a
+    BGR image: flip to RGB and scale to [-1, 1]."""
+    x = img_bgr.astype(np.float32)[..., ::-1]
+    return x / 127.5 - 1.0
 
 
 def encode_data_url(img_uint8: np.ndarray) -> str:

@@ -1,50 +1,91 @@
 """Model registry for serving (counterpart of
-``deconv_api_tpu/serving/models.py``, sequential VGG models only).
+``deconv_api_tpu/serving/models.py``).
 
-A ``ModelBundle`` packages what the HTTP layer needs: the spec, params on
-one device, the projectable layer names, and a maker of
-batched visualizers whose output carries the uint8 presentation
+A ``ModelBundle`` packages what the HTTP layer needs: params on one device,
+the input size and preprocessing, the projectable layer names, and a maker
+of batched visualizers whose output carries the uint8 presentation
 (``post="grid"`` or ``"tiles"``) instead of the fp32 projections, so only
-uint8 leaves the device."""
+uint8 leaves the device.  Sequential specs (VGG16, VGG19, vgg_tiny) run the
+switch-deconv engine (``engine/deconv.py``); DAG models (ResNet50,
+InceptionV3, the MobileNets) run the autodiff engine
+(``engine/autodeconv.py``), for which the backward dtype, ``bug_compat``,
+``lowc_kpack`` and ``fused_unpool`` are inert: the DAG backward stays fp32
+over the saved forward, as in the reference."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
 from deconv_api_tpu_torch._device import resolve_device
+from deconv_api_tpu_torch.engine.autodeconv import autodeconv_visualizer
 from deconv_api_tpu_torch.engine.deconv import get_visualizer, resolve_kpack_chan
+from deconv_api_tpu_torch.models import inception_v3, mobilenet_v1, mobilenet_v2, resnet50
+from deconv_api_tpu_torch.models.blocks import DECONV_RULES
 from deconv_api_tpu_torch.models.spec import ModelSpec, init_params
 from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
 from deconv_api_tpu_torch.models.vgg16 import VGG16_SPEC
+from deconv_api_tpu_torch.models.vgg19 import VGG19_SPEC
+from deconv_api_tpu_torch.models.weights import tree_map
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
 
 
 @dataclasses.dataclass
 class ModelBundle:
-    spec: ModelSpec
-    params: dict  # {layer: {"w", "b"}} on ``device``
+    """A sequential model (``spec`` set; name, size and layers default from
+    it) or a DAG model (``spec`` None, ``forward_fn`` set)."""
+
+    spec: ModelSpec | None
+    params: dict  # nested dict of tensors on ``device``
     device: torch.device
+    name: str = ""
+    image_size: int = 0
+    preprocess: Callable = codec.preprocess_vgg
+    layer_names: tuple[str, ...] = ()  # projectable layers
+    forward_fn: Callable | None = None  # forward_fn(params, x, *, rules) -> (out, acts)
+    _order: tuple[str, ...] | None = dataclasses.field(default=None, repr=False)
 
-    @property
-    def name(self) -> str:
-        return self.spec.name
+    def __post_init__(self):
+        if self.spec is not None:
+            self.name = self.name or self.spec.name
+            self.image_size = self.image_size or self.spec.input_shape[0]
+            self.layer_names = self.layer_names or tuple(
+                l.name for l in self.spec.layers if l.kind != "input"
+            )
 
-    @property
-    def image_size(self) -> int:
-        return self.spec.input_shape[0]
+    def forward_order(self) -> tuple[str, ...]:
+        """The projectable layers in forward order.  A DAG model's come from
+        the insertion order of its named activations in one forward on the
+        ``meta`` device (shapes only, no data), under the rules the
+        visualizer runs with."""
+        if self.spec is not None:
+            return self.layer_names
+        if self._order is None:
+            params = tree_map(lambda t: torch.empty_like(t, device="meta"), self.params)
+            x = torch.empty((1, self.image_size, self.image_size, 3), device="meta")
+            with torch.no_grad():
+                _, acts = self.forward_fn(params, x, rules=DECONV_RULES)
+            missing = sorted(set(self.layer_names) - set(acts))
+            if missing:
+                raise ValueError(f"model {self.name!r}: projectable layer(s) {missing} are not named by its forward")
+            self._order = tuple(n for n in acts if n in set(self.layer_names))
+        return self._order
 
-    @property
-    def layer_names(self) -> tuple[str, ...]:
-        return tuple(l.name for l in self.spec.layers if l.kind != "input")
+    def deepest_layer(self) -> str:
+        """The layer warmup projects: the last conv of a spec, the last
+        projectable activation of a DAG model."""
+        if self.spec is not None:
+            return [l.name for l in self.spec.layers if l.kind == "conv"][-1]
+        return self.forward_order()[-1]
 
     def sweep_layers(self, layer: str) -> tuple[str, ...]:
-        """The projectable layers at and below ``layer``, deepest first:
-        what a sweep from ``layer`` projects."""
+        """The projectable layers at and below ``layer`` in forward order,
+        deepest first: what a sweep from ``layer`` projects."""
         self.check_layer(layer)
-        names = self.layer_names
+        names = self.forward_order()
         return tuple(reversed(names[: names.index(layer) + 1]))
 
     def check_layer(self, layer: str) -> None:
@@ -73,16 +114,25 @@ class ModelBundle:
         presentation), ``post="tiles"`` with uint8 ``tiles`` (each
         projection deprocessed alone, the ``/v1/deconv`` presentation);
         ``post=None`` keeps the raw projections.  ``lowc_kpack``
-        (off|auto|forced|<chan>) sets the packed tail."""
+        (off|auto|forced|<chan>) sets the packed tail of a spec; a DAG model
+        validates it and ``fused_unpool`` and leaves both inert, and
+        ignores ``bug_compat`` and ``backward_dtype``."""
         self.check_layer(layer)
         if post not in (None, "grid", "tiles"):
             raise ValueError(f"illegal post {post!r}; expected None, 'grid' or 'tiles'")
-        raw = get_visualizer(
-            self.spec, layer, top_k, mode, bug_compat,
-            backward_dtype=backward_dtype or None, fused_unpool=fused_unpool,
-            device=self.device, sweep=sweep,
-            kpack_chan=resolve_kpack_chan(lowc_kpack, top_k),
-        )
+        if self.spec is None:
+            raw = autodeconv_visualizer(
+                self.forward_fn, layer, top_k, mode,
+                sweep_layers=self.sweep_layers(layer) if sweep else None, device=self.device,
+                lowc_kpack=lowc_kpack, fused_unpool=fused_unpool,
+            )
+        else:
+            raw = get_visualizer(
+                self.spec, layer, top_k, mode, bug_compat,
+                backward_dtype=backward_dtype or None, fused_unpool=fused_unpool,
+                device=self.device, sweep=sweep,
+                kpack_chan=resolve_kpack_chan(lowc_kpack, top_k),
+            )
         return raw if post is None else _fuse_post(raw, post)
 
 
@@ -105,7 +155,39 @@ def _fuse_post(raw, post: str):
     return fused
 
 
-REGISTRY = {"vgg16": VGG16_SPEC, "vgg_tiny": VGG_TINY_SPEC}
+def _spec_bundle(spec: ModelSpec):
+    def build(gen: torch.Generator, dev: torch.device) -> ModelBundle:
+        return ModelBundle(spec, init_params(spec, gen, dev), dev)
+
+    return build
+
+
+def _dag_bundle(name, module, init, forward, image_size: int, preprocess):
+    def build(gen: torch.Generator, dev: torch.device) -> ModelBundle:
+        return ModelBundle(
+            None, init(gen, device=dev), dev, name=name, image_size=image_size,
+            preprocess=preprocess, layer_names=module.DECONV_LAYERS, forward_fn=forward,
+        )
+
+    return build
+
+
+# the reference's image sizes, preprocessing modes and projectable layers
+# (deconv_api_tpu/serving/models.py, the registry's bundles)
+REGISTRY: dict[str, Callable[[torch.Generator, torch.device], ModelBundle]] = {
+    "vgg16": _spec_bundle(VGG16_SPEC),
+    "vgg19": _spec_bundle(VGG19_SPEC),
+    "vgg_tiny": _spec_bundle(VGG_TINY_SPEC),
+    # Keras resnet50 uses caffe mode, like VGG
+    "resnet50": _dag_bundle("resnet50", resnet50, resnet50.resnet50_init,
+                            resnet50.resnet50_forward, 224, codec.preprocess_vgg),
+    "inception_v3": _dag_bundle("inception_v3", inception_v3, inception_v3.inception_v3_init,
+                                inception_v3.inception_v3_forward, 299, codec.preprocess_tf),
+    "mobilenet_v1": _dag_bundle("mobilenet_v1", mobilenet_v1, mobilenet_v1.mobilenet_v1_init,
+                                mobilenet_v1.mobilenet_v1_forward, 224, codec.preprocess_tf),
+    "mobilenet_v2": _dag_bundle("mobilenet_v2", mobilenet_v2, mobilenet_v2.mobilenet_v2_init,
+                                mobilenet_v2.mobilenet_v2_forward, 224, codec.preprocess_tf),
+}
 
 
 def build_bundle(model: str, device=None, seed: int = 0) -> ModelBundle:
@@ -114,6 +196,4 @@ def build_bundle(model: str, device=None, seed: int = 0) -> ModelBundle:
     if model not in REGISTRY:
         raise ValueError(f"unknown model {model!r}; known: {sorted(REGISTRY)}")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    spec = REGISTRY[model]
-    return ModelBundle(spec, init_params(spec, gen, dev), dev)
+    return REGISTRY[model](torch.Generator(device=dev).manual_seed(seed), dev)

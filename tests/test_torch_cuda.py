@@ -12,6 +12,7 @@ from deconv_api_tpu_torch import ops
 from deconv_api_tpu_torch.engine.deconv import get_visualizer
 from deconv_api_tpu_torch.models import VGG_TINY_SPEC, init_params
 from deconv_api_tpu_torch.ops import cuda_deconv, cuda_pool, pool
+from deconv_api_tpu_torch.ops.activations import deconv_relu, deconv_relu6
 
 pytestmark = pytest.mark.cuda
 
@@ -279,3 +280,57 @@ def test_packed_tail_on_the_card_goes_through_the_grouped_kernels(dev):
             scale = float(want[name]["images"].abs().max())
             assert float((entry["images"].cpu() - want[name]["images"]).abs().max()) <= 1e-4 * scale
         assert ops.launch_counts()[kernel] > 0
+
+
+# --- the DAG slice -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("fn", [deconv_relu, deconv_relu6], ids=["relu", "relu6"])
+def test_deconv_functions_under_batched_grads_on_the_card(dev, fn):
+    """The deconvnet Functions' backward under ``is_grads_batched`` on the
+    card: one batched backward equals one backward per row."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn((2, 6, 6, 4), generator=g, device=dev).requires_grad_(True)
+    y = fn(x * 3) * 2
+    gs = torch.randn((5, 2, 6, 6, 4), generator=g, device=dev) * 4
+    (batched,) = torch.autograd.grad(y, x, gs, is_grads_batched=True, retain_graph=True)
+    rows = torch.stack([torch.autograd.grad(y, x, r, retain_graph=True)[0] for r in gs])
+    assert torch.equal(batched, rows)
+
+
+@pytest.mark.parametrize("model,layer,size", [
+    ("resnet50", "conv4_block2_out", 64),
+    ("inception_v3", "mixed2", 75),
+    ("mobilenet_v1", "conv_pw_11_relu", 64),
+    ("mobilenet_v2", "block_6_expand_relu", 64),
+])
+def test_dag_family_on_the_card_matches_its_cpu_run(dev, model, layer, size):
+    """Each DAG family's projection on the card against ``device="cpu"``
+    with the same params, at a small input: the CPU's channels projected on
+    the card within 1e-4 and at >= 65 dB on every image, equal indices where
+    the CPU ranking is separated (``engine/crosscheck.py:card_vs_cpu``)."""
+    from deconv_api_tpu_torch.engine.crosscheck import card_vs_cpu
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    bundle = build_bundle(model, dev)
+    bundle.image_size = size
+    x = torch.randn((2, size, size, 3), generator=torch.Generator().manual_seed(1))
+    out = card_vs_cpu(bundle, layer, x)
+    assert out["finite"] and out["images"] == 2
+
+
+@pytest.mark.parametrize("window,stride,padding", [(3, 1, "SAME"), (3, 2, "SAME"), (3, 2, "VALID")])
+def test_avgpool_gradient_on_the_card_matches_the_cpu(dev, window, stride, padding):
+    """``blocks.avgpool`` forward and gradient on the card against the CPU
+    (its NCHW copy keeps the card's gradient right; see its docstring)."""
+    from deconv_api_tpu_torch.models import blocks
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 9, 9, 8), generator=g)
+    xc, xg = x.clone().requires_grad_(True), x.to(dev).requires_grad_(True)
+    yc, yg = blocks.avgpool(xc, window, stride, padding), blocks.avgpool(xg, window, stride, padding)
+    gy = torch.randn(yc.shape, generator=g)
+    (gc,) = torch.autograd.grad(yc, xc, gy)
+    (gg,) = torch.autograd.grad(yg, xg, gy.to(dev))
+    torch.testing.assert_close(yg.detach().cpu(), yc.detach(), rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(gg.cpu(), gc, rtol=1e-6, atol=1e-6)

@@ -39,6 +39,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "import deconv_api_tpu_torch, deconv_api_tpu_torch.__main__\n"
         "import deconv_api_tpu_torch.ops, deconv_api_tpu_torch.engine\n"
         "import deconv_api_tpu_torch.serving.app, deconv_api_tpu_torch.models.weights\n"
+        "import deconv_api_tpu_torch.engine.autodeconv, deconv_api_tpu_torch.models.apply\n"
+        "from deconv_api_tpu_torch.models import blocks, resnet50, inception_v3, mobilenet_v1, mobilenet_v2, vgg19\n"
         "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
@@ -74,18 +76,24 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         pytest.skip("a card is present: the default device is valid")
     from deconv_api_tpu_torch.__main__ import main
     from deconv_api_tpu_torch._device import resolve_device
+    from deconv_api_tpu_torch.engine.autodeconv import autodeconv_visualizer
     from deconv_api_tpu_torch.engine.deconv import get_visualizer
+    from deconv_api_tpu_torch.models.resnet50 import resnet50_forward
     from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
     from deconv_api_tpu_torch.serving.models import build_bundle
 
     for call in (
         lambda: resolve_device(),
         lambda: get_visualizer(VGG_TINY_SPEC, "fc1"),
+        lambda: autodeconv_visualizer(resnet50_forward, "conv1_relu"),
         lambda: build_bundle("vgg_tiny"),
+        lambda: build_bundle("resnet50"),
         lambda: main(["serve", "--model", "vgg_tiny", "--port", "0"]),
+        lambda: main(["serve", "--model", "mobilenet_v1", "--port", "0"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
     assert build_bundle("vgg_tiny", "cpu").device.type == "cpu"
     get_visualizer(VGG_TINY_SPEC, "fc1", device="cpu")
+    autodeconv_visualizer(resnet50_forward, "conv1_relu", device="cpu")

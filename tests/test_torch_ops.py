@@ -157,11 +157,19 @@ def test_conv2d_and_backward_match_jax(k, cin, cout):
 
 
 def test_conv_refuses_strided_projection():
+    """Strided convs and their projections are ported (the DAG models,
+    tests/test_torch_dag_models.py); what is refused is a projection onto an
+    input extent the signal cannot have come from, and a padding XLA does
+    not name."""
     w = torch.zeros((3, 3, 2, 2))
-    with pytest.raises(NotImplementedError):
-        tops.conv2d(torch.zeros((1, 4, 4, 2)), w, strides=(2, 2))
-    with pytest.raises(NotImplementedError):
-        tops.conv2d_input_backward(torch.zeros((1, 4, 4, 2)), w, strides=(2, 2))
+    assert tops.conv2d(torch.zeros((1, 4, 4, 2)), w, strides=(2, 2)).shape == (1, 2, 2, 2)
+    assert tops.conv2d_input_backward(torch.zeros((1, 4, 4, 2)), w, strides=(2, 2)).shape == (1, 8, 8, 2)
+    with pytest.raises(ValueError, match="not the output"):
+        tops.conv2d_input_backward(torch.zeros((1, 4, 4, 2)), w, strides=(2, 2), input_hw=(20, 20))
+    with pytest.raises(ValueError, match="keeps its extent"):
+        tops.conv2d_input_backward(torch.zeros((1, 4, 4, 2)), w, input_hw=(5, 5))
+    with pytest.raises(ValueError, match="unknown padding"):
+        tops.conv2d(torch.zeros((1, 4, 4, 2)), w, padding="FULL")
 
 
 def test_dense_ops_and_flatten_match_jax():
