@@ -42,7 +42,17 @@ Phases, each printing JSON lines:
    selection where the CPU's ranking is separated); then the p50 of ResNet50's
    grid, tiles and sweep programs and of the other models' grid programs,
    with one profiled call each, and ResNet50's batched backward against K
-   retained backward passes, in turns.
+   retained backward passes, in turns;
+8. dream: ``serve --model inception_v3`` at 299x299, 4 concurrent default
+   ``POST /v1/dream`` (mixed3-mixed5, 10 steps on the 5 rungs of 10
+   octaves that fit over 75 px) and one naming another model (422
+   ``unknown_model``); one default dream each of vgg16 (224, 8 rungs, the
+   truncated spec) and mobilenet_v2 (ReLU6 true gradients) through the
+   engine; one InceptionV3 dream on the card against the same dream on the
+   CPU (``engine/crosscheck.py:dream_card_vs_cpu``: every float32 step
+   from the card's input, and the whole dream in float64); the p50 of the
+   batch-4 and batch-1 InceptionV3 dreams, with one profiled call.  No
+   hand-written kernel lies on the dream path: its counts must stay 0.
 Each main path zeroes the launch counters just before it and reads them
 just after.  The line before the last is the kernels line, the last the
 result line.
@@ -532,6 +542,20 @@ def _post(port: int, path: str, form: dict):
         return e.code, e.read().decode("utf-8", "replace"), time.perf_counter() - t0
 
 
+def image_uris(n: int) -> list:
+    """``n`` PNG data URLs of smooth random images at a size no model takes
+    (256x240), so every request resizes."""
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    imgs = []
+    for _ in range(n):
+        base = rng.integers(0, 256, (16, 15, 3)).astype(np.float64)
+        img = np.kron(base, np.ones((16, 16, 1)))[:256, :240] + rng.normal(0, 12, (256, 240, 3))
+        imgs.append(np.clip(img, 0, 255).astype(np.uint8))
+    return ["data:image/png;base64," + base64.b64encode(png_bytes(i)).decode() for i in imgs]
+
+
 def phase_main_path(torch) -> dict:
     import numpy as np
 
@@ -555,14 +579,7 @@ def phase_main_path(torch) -> dict:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/health-check", timeout=10) as r:
             assert json.loads(r.read()) == {"healthy": "true"}
 
-        rng = np.random.default_rng(1)
-        # smooth random images at a non-224 size, so resize runs
-        imgs = []
-        for _ in range(B + 2):
-            base = rng.integers(0, 256, (16, 15, 3)).astype(np.float64)
-            img = np.kron(base, np.ones((16, 16, 1)))[:256, :240] + rng.normal(0, 12, (256, 240, 3))
-            imgs.append(np.clip(img, 0, 255).astype(np.uint8))
-        uris = ["data:image/png;base64," + base64.b64encode(png_bytes(i)).decode() for i in imgs]
+        uris = image_uris(B + 2)
         layers = ["block5_conv1"] * B + ["block3_conv3", "fc1"]
 
         ops.reset_launch_counts()
@@ -1053,6 +1070,181 @@ def dag_times(torch, bundles: dict, batches: dict, label: str) -> None:
     emit(times)
 
 
+# --- phase 8 -------------------------------------------------------------------
+
+DREAM_BATCH = 4  # the dream dispatcher's max_batch
+
+
+def _check_dream(status, body, what: str, size: int, layers) -> dict:
+    """A 200 ``{"layers", "loss", "image"}`` answer with the model's dream
+    layers, a finite loss above 0 and a size x size JPEG."""
+    from deconv_api_tpu_torch.serving import codec
+
+    if status != 200:
+        raise AssertionError(f"{what}: {status} {str(body)[:300]}")
+    hw = codec.jpeg_size(base64.b64decode(urllib.parse.unquote(body["image"].split(",", 1)[1])))
+    loss = body["loss"]
+    if body["layers"] != list(layers) or hw != (size, size) or loss is None or not loss > 0:
+        raise AssertionError(f"{what}: layers {body['layers']}, image {hw}, loss {loss}")
+    return {"jpeg_hw": list(hw), "loss": loss}
+
+
+def dream_work(torch, bundle, shapes) -> dict:
+    """What one default dream of one image asks of the device, counted on
+    ``meta`` tensors (no data, no device): the conv and matmul FLOPs of the
+    forward and of the input gradient at each rung
+    (``torch.utils.flop_counter``), and the aten calls of one step at the
+    top rung, views included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from deconv_api_tpu_torch.engine.deepdream import activation_loss
+    from deconv_api_tpu_torch.models.weights import tree_map
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS
+
+    class Calls(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    params = tree_map(lambda t: torch.empty_like(t, device="meta"), bundle.params)
+    layers = bundle.dream_layers
+    fwd = bundle.dream_forward(layers)
+    rungs, calls = [], {}
+    for hw in shapes:
+        x = torch.empty((1, *hw, 3), device="meta", requires_grad=True)
+        with FlopCounterMode(display=False) as f, Calls() as cf:
+            loss = activation_loss(fwd, params, x, layers).sum()
+        with FlopCounterMode(display=False) as g, Calls() as cg:
+            torch.autograd.grad(loss, x)
+        rungs.append({"hw": list(hw), "forward_gflop": f.get_total_flops() / 1e9,
+                      "input_grad_gflop": g.get_total_flops() / 1e9})
+        calls = {"forward": cf.n, "input_grad": cg.n}
+    steps = DREAM_DEFAULTS["steps"]
+    return {"rungs": rungs, "aten_calls_per_step_top_rung": calls,
+            "tflop_per_image": steps * sum(r["forward_gflop"] + r["input_grad_gflop"] for r in rungs) / 1e3}
+
+
+def phase_dream(torch, uris: list, label: str) -> dict:
+    """DeepDream: InceptionV3 served over HTTP (4 concurrent default
+    dreams, one request for another model), one default dream each of
+    vgg16 and mobilenet_v2 through the engine, the InceptionV3 dream on the
+    card against the CPU, and the times of the batch-4 and batch-1
+    InceptionV3 dreams."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.crosscheck import dream_card_vs_cpu
+    from deconv_api_tpu_torch.engine.deepdream import octave_shapes
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS, DeconvService, Dream
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    t0 = time.perf_counter()
+    server = build_server(["serve", "--port", "0", "--model", "inception_v3", "--device", "cuda"])
+    boot_s = time.perf_counter() - t0
+    service, port = server.service, server.server_address[1]
+    bundle, size = service.bundle, service.bundle.image_size
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    counts_by_path = {}
+    try:
+        ops.reset_launch_counts()
+        service.dream_batch_sizes.clear()
+        results = [None] * DREAM_BATCH
+
+        def run(i):
+            results[i] = _post(port, "/v1/dream", {"file": uris[i]})
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(DREAM_BATCH)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        torch.cuda.synchronize()
+        counts_by_path["inception_v3 POST /v1/dream"] = ops.launch_counts()
+        responses = [{**_check_dream(status, body, f"inception_v3 POST /v1/dream {i}", size, bundle.dream_layers),
+                      "seconds": secs} for i, (status, body, secs) in enumerate(results)]
+        batch_sizes = list(service.dream_batch_sizes)
+        status, body, _ = _post(port, "/v1/dream", {"file": uris[0], "model": "vgg19"})
+        other_model = {"status": status, "error": json.loads(body).get("error") if status != 200 else None}
+        if other_model != {"status": 422, "error": "unknown_model"}:
+            raise AssertionError(f"inception_v3 server, POST /v1/dream model=vgg19: {status} {str(body)[:300]}")
+        xs = np.stack([service.decode_preprocess(u) for u in uris[:DREAM_BATCH]])
+    finally:
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(10)
+    shapes = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, bundle.min_dream_size)
+    out = {"phase": "dream", "card": label, "model": "inception_v3", "boot_s": boot_s,
+           "layers": list(bundle.dream_layers), "octave_shapes": shapes,
+           "ascent_steps": len(shapes) * DREAM_DEFAULTS["steps"], "work": dream_work(torch, bundle, shapes),
+           "responses": responses,
+           "batch_sizes": batch_sizes, "other_model": other_model}
+
+    # one default dream of a sequential spec and of ReLU6 through the engine
+    engine = {}
+    for model in ("vgg16", "mobilenet_v2"):
+        b = build_bundle(model, "cuda")
+        svc = DeconvService(b)
+        xm = svc.decode_preprocess(uris[0])[None]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        img, losses = svc.run_dream(Dream(b.dream_layers), xm)
+        secs = time.perf_counter() - t0
+        counts_by_path[f"{model} dream"] = ops.launch_counts()
+        ladder = octave_shapes(b.image_size, b.image_size, DREAM_DEFAULTS["octaves"], 1.4, b.min_dream_size)
+        entry = {"layers": list(b.dream_layers), "octave_shapes": ladder, "seconds": secs,
+                 "loss": float(losses[0]), "max_change": float(np.abs(img - xm).max()),
+                 "work": dream_work(torch, b, ladder)}
+        engine[model] = entry
+        if not (img.shape == xm.shape and np.isfinite(img).all() and entry["loss"] > 0 and entry["max_change"] > 0):
+            raise AssertionError(f"{model} dream: {entry}")
+        del b, svc
+    out["engine"] = engine
+    bad = {path: c for path, c in counts_by_path.items() if any(c.values())}
+    if bad:
+        raise AssertionError(f"a hand-written kernel launched on the dream path: {bad}")
+    out["launches"] = counts_by_path
+
+    # the card against the CPU, one full-width image at the route's defaults
+    out["card_vs_cpu"] = dream_card_vs_cpu(bundle, torch.from_numpy(xs[:1]))
+    emit(out)
+    dream_times(torch, service, xs, out["ascent_steps"], out["work"]["tflop_per_image"], label)
+    return {"counts_by_path": counts_by_path}
+
+
+def dream_times(torch, service, xs, ascent_steps: int, tflop_per_image: float, label: str) -> None:
+    """Host-clock p50 of 3 default InceptionV3 dreams at batch 4 and at
+    batch 1, each after one warm-up call, with the conv FLOP rate that
+    p50 implies, and one profiled batch-4 call."""
+    from deconv_api_tpu_torch.serving.app import Dream
+
+    times = {"phase": "dream_throughput", "card": label, "model": "inception_v3",
+             "ascent_steps": ascent_steps}
+    dream = Dream(service.bundle.dream_layers)
+    for b in (DREAM_BATCH, 1):
+        def run(xb=xs[:b]):
+            return service.run_dream(dream, xb)
+
+        run()
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            secs.append(time.perf_counter() - t0)
+        p50 = statistics.median(secs)
+        times[f"batch{b}"] = {"p50_ms": p50 * 1e3, "min_ms": min(secs) * 1e3, "max_ms": max(secs) * 1e3,
+                              "dreams_per_s": b / p50, "ascent_steps_per_s": ascent_steps / p50,
+                              "image_steps_per_s": b * ascent_steps / p50,
+                              "conv_tflop_per_s": b * tflop_per_image / p50}
+    times[f"batch{DREAM_BATCH}"]["profile"] = device_breakdown(torch, lambda: service.run_dream(dream, xs))
+    emit(times)
+
+
 def main() -> int:
     try:
         import torch
@@ -1079,9 +1271,10 @@ def main() -> int:
     phase_throughput(torch, ctx, env["nvidia_smi"])
     phase_throughput_v1(torch, v1["bundle"], torch.from_numpy(ctx["xs"]).cuda(), env["nvidia_smi"])
     dag = phase_dag(torch, ctx["uris"], env["nvidia_smi"])
+    dream = phase_dream(torch, ctx["uris"], env["nvidia_smi"])
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
-               "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"]}
+               "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"], **dream["counts_by_path"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

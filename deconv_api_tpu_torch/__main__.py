@@ -1,7 +1,9 @@
 """``python -m deconv_api_tpu_torch serve --port P [--model vgg16|vgg19|
 resnet50|inception_v3|mobilenet_v1|mobilenet_v2|vgg_tiny] [--device
 cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]``: serve the
-reference's ``POST /`` and the JSON API ``POST /v1/deconv``."""
+reference's ``POST /``, the JSON API ``POST /v1/deconv`` and DeepDream's
+``POST /v1/dream`` (``file``, optional ``layers``, ``steps``, ``octaves``,
+``lr``; dreams have a dispatcher of their own, up to 4 a batch)."""
 
 from __future__ import annotations
 
@@ -27,12 +29,12 @@ def build_server(argv=None) -> DeconvHTTPServer:
     serving)."""
     ap = argparse.ArgumentParser(prog="python -m deconv_api_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("serve", help="serve POST / and POST /v1/deconv on HTTP")
+    s = sub.add_parser("serve", help="serve POST /, POST /v1/deconv and POST /v1/dream on HTTP")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
     s.add_argument("--model", default="vgg16", choices=sorted(REGISTRY))
     s.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    s.add_argument("--max-batch", type=int, default=8)
+    s.add_argument("--max-batch", type=int, default=8, help="images per deconv batch (default 8)")
     s.add_argument(
         "--lowc-kpack", type=_kpack_policy, default="off",
         help="packed low-channel backward tail: off|auto|forced|<chan> (default off)",

@@ -31,6 +31,13 @@ class UnknownLayer(DeconvError):
     code = "unknown_layer"
 
 
+class UnknownModel(DeconvError):
+    """The request names a model this server does not serve."""
+
+    status = 422
+    code = "unknown_model"
+
+
 class IllegalMode(DeconvError):
     status = 422
     code = "illegal_visualize_mode"

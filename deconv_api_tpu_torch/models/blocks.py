@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from deconv_api_tpu_torch import ops
-from deconv_api_tpu_torch.ops.activations import deconv_relu, deconv_relu6, relu6
+from deconv_api_tpu_torch.ops.activations import deconv_relu, deconv_relu6, relu, relu6
 from deconv_api_tpu_torch.ops.conv import pad_nchw, spatial_pads
 
 
@@ -33,7 +33,7 @@ class Rules:
     relu6: Callable[[torch.Tensor], torch.Tensor]
 
 
-INFERENCE_RULES = Rules(relu=torch.relu, relu6=relu6)
+INFERENCE_RULES = Rules(relu=relu, relu6=relu6)
 DECONV_RULES = Rules(relu=deconv_relu, relu6=deconv_relu6)
 
 

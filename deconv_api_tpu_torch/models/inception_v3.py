@@ -164,3 +164,5 @@ def inception_v3_forward(
 
 
 DECONV_LAYERS = tuple(f"mixed{i}" for i in range(11))
+# the default DeepDream targets (/v1/dream without 'layers')
+DREAM_LAYERS = ("mixed3", "mixed4", "mixed5")

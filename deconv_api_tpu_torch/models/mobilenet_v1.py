@@ -63,3 +63,5 @@ def mobilenet_v1_forward(
 
 
 DECONV_LAYERS = tuple([f"conv_pw_{i}_relu" for i, _c, _s in _BLOCKS] + ["conv1_relu"])
+# the default DeepDream targets (/v1/dream without 'layers')
+DREAM_LAYERS = ("conv_pw_7_relu", "conv_pw_11_relu")

@@ -91,3 +91,5 @@ def mobilenet_v2_forward(
 DECONV_LAYERS = tuple(
     [f"block_{i}_expand_relu" for i, _t, _c, _s in _BLOCKS] + ["out_relu", "Conv1_relu"]
 )
+# the default DeepDream targets (/v1/dream without 'layers')
+DREAM_LAYERS = ("block_6_expand_relu", "block_13_expand_relu")

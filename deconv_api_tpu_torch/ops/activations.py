@@ -6,17 +6,35 @@ down.  The DAG engine (``engine/autodeconv.py``) instead runs
 ``torch.autograd.grad`` over a model's forward built with ``deconv_relu`` /
 ``deconv_relu6``: their backward applies ReLU (ReLU6) to the incoming
 gradient itself instead of masking it by the forward input's sign, so the
-gradient of the whole forward is the Zeiler–Fergus projection.
+gradient of the whole forward is the Zeiler–Fergus projection.  ``relu``
+and ``relu6`` are the true-gradient forms DeepDream differentiates.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A 0-dim constant, made once per dtype and device (no fill launch a
+    call)."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
+def relu(x: torch.Tensor) -> torch.Tensor:
+    """max(x, 0) with the reference's true gradient: ``torch.maximum``
+    splits a tie, so the gradient at 0 is 0.5 as ``jnp.maximum``'s is
+    (``torch.relu``'s is 0)."""
+    return torch.maximum(x, _const(0.0, x.dtype, x.device))
+
+
 def relu6(x: torch.Tensor) -> torch.Tensor:
-    """min(max(x, 0), 6): MobileNet's activation (Keras ``ReLU(6.)``)."""
-    return torch.clamp(x, 0.0, 6.0)
+    """min(max(x, 0), 6): MobileNet's activation (Keras ``ReLU(6.)``), with
+    the reference's gradient of 0.5 at both ties (``torch.clamp``'s is 1)."""
+    return torch.minimum(relu(x), _const(6.0, x.dtype, x.device))
 
 
 _ACTIVATIONS = {
@@ -58,13 +76,15 @@ class _DeconvReLU(torch.autograd.Function):
 
 class _DeconvReLU6(torch.autograd.Function):
     """ReLU6 forward; backward ``relu6(g)``: the deconvnet rule with the
-    cap, as the reference applies the layer's own activation going down."""
+    cap, as the reference applies the layer's own activation going down.
+    One ``torch.clamp`` each way: this backward reads no tie, so it needs
+    none of ``relu6``'s tie-splitting (two launches)."""
 
     generate_vmap_rule = True
 
     @staticmethod
     def forward(x):
-        return relu6(x)
+        return torch.clamp(x, 0.0, 6.0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -72,7 +92,7 @@ class _DeconvReLU6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return relu6(g)
+        return torch.clamp(g, 0.0, 6.0)
 
 
 def deconv_relu(x: torch.Tensor) -> torch.Tensor:

@@ -1,22 +1,29 @@
-"""HTTP serving of the reference's request and the JSON API (counterparts of
-the ``POST /`` and ``POST /v1/deconv`` paths of
-``deconv_api_tpu/serving/app.py``).
+"""HTTP serving of the reference's request, the JSON API and DeepDream
+(counterparts of the ``POST /``, ``POST /v1/deconv`` and ``POST /v1/dream``
+paths of ``deconv_api_tpu/serving/app.py``).
 
 Routes: ``GET /health-check`` -> ``{"healthy": "true"}``, ``GET /ready``,
 ``POST /`` with form fields ``file`` (a data-URL image) and ``layer``,
 urlencoded or multipart, answered with the JSON-encoded
 ``data:image/webp;base64,...`` string of the 2x2 grid of the top-4
-projections, and ``POST /v1/deconv`` with ``file``, ``layer``, ``mode``
+projections; ``POST /v1/deconv`` with ``file``, ``layer``, ``mode``
 (all|max), ``top_k`` (1..64) and ``sweep``, answered with the data URLs of
 the fired filters' tiles, one per filter (for every layer from ``layer``
-down with ``sweep``).
+down with ``sweep``); and ``POST /v1/dream`` with ``file`` and optional
+``layers`` (comma list; default the model's dream layers), ``steps``
+(1..100), ``octaves`` (1..16, steps x octaves <= 500) and ``lr`` (0, 1],
+answered with ``{"layers", "loss", "image"}``.  Every POST also takes
+``model`` (form field, else the ``x-model`` header): empty or the served
+model's name, else 422 ``unknown_model``.
 
 Request threads decode and preprocess on the host, then hand the image to
-one dispatcher thread, which coalesces concurrent requests for the same
-program (layer, mode, top_k, presentation, sweep) into one batch of up to
-``max_batch`` within ``batch_window_ms`` and runs it as one device program,
-so the device sees a single stream.  The request thread encodes its own
-images.  The service's ``lowc_kpack`` policy applies to every program.
+a dispatcher thread, which coalesces concurrent requests for the same
+program into one batch of up to ``max_batch`` within a window and runs it
+on the device.  Deconv programs (layer, mode, top_k, presentation, sweep)
+and dreams (layers, steps, octaves, lr) have a dispatcher each, so a dream
+that runs for seconds never holds a ``POST /`` back.  The request thread
+encodes its own images.  The service's ``lowc_kpack`` policy applies to
+every deconv program.
 """
 
 from __future__ import annotations
@@ -26,11 +33,12 @@ import concurrent.futures
 import dataclasses
 import json
 import logging
+import math
 import re
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import NamedTuple
+from typing import Callable, Hashable, NamedTuple
 from urllib.parse import parse_qsl
 
 import numpy as np
@@ -38,6 +46,7 @@ import torch
 
 from deconv_api_tpu_torch import errors
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
+from deconv_api_tpu_torch.engine.deepdream import deepdream_batch
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
 from deconv_api_tpu_torch.serving.models import ModelBundle
@@ -49,6 +58,11 @@ log = logging.getLogger(__name__)
 STITCH_K = 4
 DEFAULT_TOP_K = 8  # /v1/deconv's default
 REQUEST_TIMEOUT_S = 60.0
+# /v1/dream's defaults and its own dispatcher's (deconv_api_tpu/config.py)
+DREAM_DEFAULTS = {"steps": 10, "octaves": 10, "lr": 0.01}
+DREAM_MAX_BATCH = 4
+DREAM_WINDOW_MS = 50.0
+DREAM_TIMEOUT_S = 300.0
 MAX_BODY_BYTES = 64 * 1024 * 1024  # a form carrying one base64 image
 _TRUTHY = ("1", "true", "yes", "on")
 
@@ -64,36 +78,130 @@ class Program(NamedTuple):
     sweep: bool = False
 
 
+class Dream(NamedTuple):
+    """What one dream computes: requests with equal dreams share a batch."""
+
+    layers: tuple[str, ...]
+    steps: int = DREAM_DEFAULTS["steps"]
+    octaves: int = DREAM_DEFAULTS["octaves"]
+    lr: float = DREAM_DEFAULTS["lr"]
+
+
 @dataclasses.dataclass
 class _Job:
-    program: Program
+    key: Hashable
     x: np.ndarray
     future: concurrent.futures.Future
 
 
+class Dispatcher:
+    """One thread that coalesces jobs of equal key: it takes the oldest job,
+    gathers jobs with its key until ``max_batch`` or the window closes, and
+    runs ``run_batch(key, xs)`` on the stacked images, whose result holds
+    one entry per image."""
+
+    def __init__(
+        self, run_batch: Callable[[Hashable, np.ndarray], list], *, max_batch: int,
+        window_ms: float, name: str,
+    ):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.run_batch = run_batch
+        self.max_batch = max_batch
+        self.window_s = window_ms / 1000.0
+        self.name = name
+        # images per dispatched batch, the most recent ones
+        self.batch_sizes: collections.deque[int] = collections.deque(maxlen=1024)
+        self._pending: collections.deque[_Job] = collections.deque()
+        self._cv = threading.Condition()
+        self._closed = False
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._loop, name=self.name, daemon=True)
+        self._thread.start()
+
+    def close(self, timeout: float = 10.0) -> None:
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout)
+
+    def submit(self, key: Hashable, x: np.ndarray) -> concurrent.futures.Future:
+        job = _Job(key, x, concurrent.futures.Future())
+        with self._cv:
+            if self._closed:
+                raise errors.ModelNotReady("service is shutting down")
+            self._pending.append(job)
+            self._cv.notify_all()
+        return job.future
+
+    def _next_batch(self) -> list[_Job] | None:
+        """Block for the oldest job, then gather jobs for its key until the
+        batch is full or the window closes."""
+        with self._cv:
+            while not self._pending and not self._closed:
+                self._cv.wait()
+            if not self._pending:
+                return None
+            key = self._pending[0].key
+            deadline = time.monotonic() + self.window_s
+            while True:
+                same = [j for j in self._pending if j.key == key]
+                left = deadline - time.monotonic()
+                if len(same) >= self.max_batch or left <= 0 or self._closed:
+                    break
+                self._cv.wait(left)
+            batch = same[: self.max_batch]
+            for job in batch:
+                self._pending.remove(job)
+            return batch
+
+    def _loop(self) -> None:
+        while (batch := self._next_batch()) is not None:
+            self.batch_sizes.append(len(batch))
+            try:
+                out = self.run_batch(batch[0].key, np.stack([j.x for j in batch]))
+            except Exception as e:  # the dispatcher must outlive a failed batch
+                for job in batch:
+                    job.future.set_exception(e)
+                continue
+            for job, result in zip(batch, out):
+                job.future.set_result(result)
+
+
 class DeconvService:
-    """The batching dispatcher and the request logic, independent of the
-    HTTP server that drives it.  ``lowc_kpack`` (off|auto|forced|<chan>)
+    """The batching dispatchers and the request logic, independent of the
+    HTTP server that drives them.  ``lowc_kpack`` (off|auto|forced|<chan>)
     is validated here, at boot."""
 
     def __init__(
         self, bundle: ModelBundle, *, max_batch: int = 8, batch_window_ms: float = 3.0,
         lowc_kpack: str = "off",
     ):
-        if max_batch < 1:
-            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         resolve_kpack_chan(lowc_kpack, DEFAULT_TOP_K)
         self.bundle = bundle
-        self.max_batch = max_batch
-        self.window_s = batch_window_ms / 1000.0
         self.lowc_kpack = lowc_kpack
-        # images per dispatched batch, the most recent ones
-        self.batch_sizes: collections.deque[int] = collections.deque(maxlen=1024)
         self.ready = False
-        self._pending: collections.deque[_Job] = collections.deque()
-        self._cv = threading.Condition()
-        self._closed = False
-        self._thread: threading.Thread | None = None
+        self.dispatcher = Dispatcher(
+            self._run_deconv_batch, max_batch=max_batch, window_ms=batch_window_ms,
+            name="deconv-dispatch",
+        )
+        self.dream_dispatcher = Dispatcher(
+            self._run_dream_batch, max_batch=DREAM_MAX_BATCH, window_ms=DREAM_WINDOW_MS,
+            name="dream-dispatch",
+        )
+
+    @property
+    def batch_sizes(self) -> collections.deque:
+        """Images per dispatched deconv batch, the most recent ones."""
+        return self.dispatcher.batch_sizes
+
+    @property
+    def dream_batch_sizes(self) -> collections.deque:
+        """Images per dispatched dream batch, the most recent ones."""
+        return self.dream_dispatcher.batch_sizes
 
     # --- device work -----------------------------------------------------
 
@@ -120,6 +228,30 @@ class DeconvService:
             for name, entry in out.items()
         }
 
+    def _run_deconv_batch(self, program: Program, xs: np.ndarray) -> list[dict]:
+        out = self.run_program(program, xs)
+        return [
+            {name: {k: v[i] for k, v in entry.items()} for name, entry in out.items()}
+            for i in range(len(xs))
+        ]
+
+    def run_dream(self, dream: Dream, xs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Preprocessed images (B, H, W, 3) -> (dreamed images (B, H, W, 3)
+        fp32 in model-input space, final losses (B,)) as numpy, the whole
+        batch on one octave ladder of the bundle's ``min_dream_size``."""
+        bundle = self.bundle
+        out, losses = deepdream_batch(
+            bundle.dream_forward(dream.layers), bundle.params,
+            torch.from_numpy(np.ascontiguousarray(xs, dtype=np.float32)),
+            layers=dream.layers, steps_per_octave=dream.steps, num_octaves=dream.octaves,
+            lr=dream.lr, min_size=bundle.min_dream_size, device=bundle.device,
+        )
+        return out.cpu().numpy(), losses.cpu().numpy()
+
+    def _run_dream_batch(self, dream: Dream, xs: np.ndarray) -> list[dict]:
+        out, losses = self.run_dream(dream, xs)
+        return [{"image": out[i], "loss": float(losses[i])} for i in range(len(xs))]
+
     def visualize_batch(self, layer: str, xs: np.ndarray, fused_unpool: str = FUSED_DEFAULT):
         """The ``POST /`` program on a batch: ``{"grid", "valid", "indices"}``."""
         return self.run_program(Program(layer), xs, fused_unpool)[layer]
@@ -134,64 +266,35 @@ class DeconvService:
         )
         self.ready = True
 
-    # --- dispatcher ------------------------------------------------------
+    # --- dispatchers -----------------------------------------------------
 
     def start(self) -> None:
-        self._thread = threading.Thread(target=self._loop, name="deconv-dispatch", daemon=True)
-        self._thread.start()
+        self.dispatcher.start()
+        self.dream_dispatcher.start()
 
     def close(self, timeout: float = 10.0) -> None:
-        with self._cv:
-            self._closed = True
-            self._cv.notify_all()
-        if self._thread is not None:
-            self._thread.join(timeout)
+        self.dispatcher.close(timeout)
+        self.dream_dispatcher.close(timeout)
 
     def submit(self, program: Program, x: np.ndarray) -> concurrent.futures.Future:
-        job = _Job(program, x, concurrent.futures.Future())
-        with self._cv:
-            if self._closed:
-                raise errors.ModelNotReady("service is shutting down")
-            self._pending.append(job)
-            self._cv.notify_all()
-        return job.future
-
-    def _next_batch(self) -> list[_Job] | None:
-        """Block for the oldest job, then gather jobs for its program
-        until the batch is full or the window closes."""
-        with self._cv:
-            while not self._pending and not self._closed:
-                self._cv.wait()
-            if not self._pending:
-                return None
-            program = self._pending[0].program
-            deadline = time.monotonic() + self.window_s
-            while True:
-                same = [j for j in self._pending if j.program == program]
-                left = deadline - time.monotonic()
-                if len(same) >= self.max_batch or left <= 0 or self._closed:
-                    break
-                self._cv.wait(left)
-            batch = same[: self.max_batch]
-            for job in batch:
-                self._pending.remove(job)
-            return batch
-
-    def _loop(self) -> None:
-        while (batch := self._next_batch()) is not None:
-            self.batch_sizes.append(len(batch))
-            try:
-                out = self.run_program(batch[0].program, np.stack([j.x for j in batch]))
-            except Exception as e:  # the dispatcher must outlive a failed batch
-                for job in batch:
-                    job.future.set_exception(e)
-                continue
-            for i, job in enumerate(batch):
-                job.future.set_result(
-                    {name: {k: v[i] for k, v in entry.items()} for name, entry in out.items()}
-                )
+        return self.dispatcher.submit(program, x)
 
     # --- requests --------------------------------------------------------
+
+    def resolve_model(self, form: dict[str, str], headers=None) -> str:
+        """The request's model: the ``model`` form field, else the
+        ``x-model`` header; empty names the served model.  Any other name
+        than the served model's is a 422 ``unknown_model``."""
+        name = (form.get("model") or (headers or {}).get("x-model", "")).strip()
+        if name and name != self.bundle.name:
+            raise errors.UnknownModel(
+                f"unknown or unserved model {name!r}; serving: {[self.bundle.name]}"
+            )
+        return self.bundle.name
+
+    def _check_ready(self) -> None:
+        if not self.ready:
+            raise errors.ModelNotReady("the model is warming up; poll /ready")
 
     def decode_preprocess(self, file_uri: str) -> np.ndarray:
         try:
@@ -201,12 +304,12 @@ class DeconvService:
         size = self.bundle.image_size
         return self.bundle.preprocess(codec.resize224(img, (size, size)))
 
-    def _project(self, form: dict[str, str], **program) -> dict:
-        """Check readiness and the form's image and layer, then run the
-        image through the dispatcher in ``Program(layer, **program)``:
-        ``{layer: {...}}`` of one image."""
-        if not self.ready:
-            raise errors.ModelNotReady("the model is warming up; poll /ready")
+    def _project(self, form: dict[str, str], headers=None, **program) -> dict:
+        """Check readiness, the model, and the form's image and layer, then
+        run the image through the dispatcher in ``Program(layer,
+        **program)``: ``{layer: {...}}`` of one image."""
+        self._check_ready()
+        self.resolve_model(form, headers)
         file_uri, layer = form.get("file"), form.get("layer")
         if not file_uri or not layer:
             raise errors.BadRequest("form fields 'file' and 'layer' are required")
@@ -215,19 +318,16 @@ class DeconvService:
         except ValueError as e:
             raise errors.UnknownLayer(str(e)) from None
         x = self.decode_preprocess(file_uri)
-        try:
-            return self.submit(Program(layer, **program), x).result(timeout=REQUEST_TIMEOUT_S)
-        except concurrent.futures.TimeoutError:
-            raise errors.RequestTimeout(f"no result within {REQUEST_TIMEOUT_S} s") from None
+        return _wait(self.submit(Program(layer, **program), x), REQUEST_TIMEOUT_S)
 
-    def compat(self, form: dict[str, str]) -> str:
+    def compat(self, form: dict[str, str], headers=None) -> str:
         """``POST /``: form -> the data URL of the stitched grid."""
-        result = self._project(form)[form["layer"]]
+        result = self._project(form, headers)[form["layer"]]
         if not result["valid"].any():
             raise errors.NoActiveFilters(f"no filters fired for layer {form['layer']!r}")
         return codec.encode_data_url(result["grid"])
 
-    def deconv_v1(self, form: dict[str, str]) -> dict:
+    def deconv_v1(self, form: dict[str, str], headers=None) -> dict:
         """``POST /v1/deconv``: form -> ``{"layer", "mode", "filters",
         "images"}`` for the fired filters (a prefix of the ranking), or
         ``{"layer", "mode", "sweep": true, "layers": {name: {"filters",
@@ -242,11 +342,65 @@ class DeconvService:
         if not 1 <= top_k <= 64:
             raise errors.BadRequest("top_k must be in [1, 64]")
         sweep = form.get("sweep", "").lower() in _TRUTHY
-        result = self._project(form, mode=mode, top_k=top_k, post="tiles", sweep=sweep)
+        result = self._project(form, headers, mode=mode, top_k=top_k, post="tiles", sweep=sweep)
         if sweep:
             layers = {name: _encode_tiles(entry) for name, entry in result.items()}
             return {"layer": form["layer"], "mode": mode, "sweep": True, "layers": layers}
         return {"layer": form["layer"], "mode": mode, **_encode_tiles(result[form["layer"]])}
+
+    def dream_params(self, form: dict[str, str]) -> Dream:
+        """A dream request's knobs, validated as the reference's
+        ``_dream_params``: ``layers`` (default the model's dream layers),
+        ``steps`` in [1, 100], ``octaves`` in [1, 16], steps x octaves <= 500,
+        ``lr`` in (0, 1]; a 400 ``bad_request`` otherwise."""
+        layers = tuple(s for s in form.get("layers", "").split(",") if s) or self.bundle.dream_layers
+        if not layers:
+            raise errors.BadRequest(
+                f"model {self.bundle.name!r} has no default dream layers; pass 'layers' explicitly"
+            )
+        try:
+            steps = int(form.get("steps", DREAM_DEFAULTS["steps"]))
+            octaves = int(form.get("octaves", DREAM_DEFAULTS["octaves"]))
+            lr = float(form.get("lr", DREAM_DEFAULTS["lr"]))
+        except ValueError as e:
+            raise errors.BadRequest(str(e)) from None
+        if not 1 <= steps <= 100 or not 1 <= octaves <= 16:
+            raise errors.BadRequest("steps must be in [1,100], octaves in [1,16]")
+        if steps * octaves > 500:
+            raise errors.BadRequest("steps x octaves must be <= 500 (total ascent steps)")
+        if not 0.0 < lr <= 1.0:  # also rejects NaN
+            raise errors.BadRequest("lr must be a finite value in (0, 1]")
+        return Dream(layers, steps, octaves, lr)
+
+    def dream_v1(self, form: dict[str, str], headers=None) -> dict:
+        """``POST /v1/dream``: form -> ``{"layers", "loss", "image"}``, the
+        dreamed image as a data URL and its final loss (``None`` when it is
+        not finite)."""
+        self._check_ready()
+        self.resolve_model(form, headers)
+        file_uri = form.get("file")
+        if not file_uri:
+            raise errors.BadRequest("form field 'file' is required")
+        dream = self.dream_params(form)
+        try:
+            self.bundle.dream_forward(dream.layers)
+        except KeyError as e:
+            raise errors.UnknownLayer(str(e)) from None
+        x = self.decode_preprocess(file_uri)
+        result = _wait(self.dream_dispatcher.submit(dream, x), DREAM_TIMEOUT_S)
+        loss = result["loss"]
+        return {
+            "layers": list(dream.layers),
+            "loss": loss if math.isfinite(loss) else None,  # NaN and inf are not JSON
+            "image": codec.encode_data_url(self.bundle.unpreprocess(result["image"])),
+        }
+
+
+def _wait(future: concurrent.futures.Future, timeout_s: float):
+    try:
+        return future.result(timeout=timeout_s)
+    except concurrent.futures.TimeoutError:
+        raise errors.RequestTimeout(f"no result within {timeout_s} s") from None
 
 
 def _encode_tiles(entry: dict) -> dict:
@@ -320,13 +474,15 @@ class _Handler(BaseHTTPRequestHandler):
             return
         body = self.rfile.read(length)
         service = self.server.service
-        route = {"/": service.compat, "/v1/deconv": service.deconv_v1}.get(self.path)
+        route = {
+            "/": service.compat, "/v1/deconv": service.deconv_v1, "/v1/dream": service.dream_v1,
+        }.get(self.path)
         if route is None:
             self._send_json({"error": "not_found", "detail": self.path}, 404)
             return
         try:
             form = parse_form(self.headers.get("content-type", ""), body)
-            self._send_json(route(form))
+            self._send_json(route(form, self.headers))
         except errors.DeconvError as e:
             self._send_json(e.payload(), e.status)
         except Exception as e:  # a request must answer, not drop the socket

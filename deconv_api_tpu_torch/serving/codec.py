@@ -115,6 +115,19 @@ def preprocess_tf(img_bgr: np.ndarray) -> np.ndarray:
     return x / 127.5 - 1.0
 
 
+def unpreprocess_vgg(x: np.ndarray) -> np.ndarray:
+    """Inverse of ``preprocess_vgg``: back to BGR uint8 (a dreamed image
+    lives in model-input space, not projection space)."""
+    y = x.astype(np.float32) + CAFFE_MEANS_BGR
+    return np.clip(y[..., ::-1], 0, 255).astype(np.uint8)
+
+
+def unpreprocess_tf(x: np.ndarray) -> np.ndarray:
+    """Inverse of ``preprocess_tf``: back to BGR uint8."""
+    y = (x.astype(np.float32) + 1.0) * 127.5
+    return np.clip(y[..., ::-1], 0, 255).astype(np.uint8)
+
+
 def encode_data_url(img_uint8: np.ndarray) -> str:
     """uint8 BGR image -> JPEG bytes, base64, percent-quoted, under the
     reference's ``data:image/webp`` prefix."""

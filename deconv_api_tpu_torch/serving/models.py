@@ -10,7 +10,9 @@ switch-deconv engine (``engine/deconv.py``); DAG models (ResNet50,
 InceptionV3, the MobileNets) run the autodiff engine
 (``engine/autodeconv.py``), for which the backward dtype, ``bug_compat``,
 ``lowc_kpack`` and ``fused_unpool`` are inert: the DAG backward stays fp32
-over the saved forward, as in the reference."""
+over the saved forward, as in the reference.  A bundle also carries its
+DeepDream surface: default target layers, the smallest octave edge, the
+inverse preprocessing, and ``dream_forward``."""
 
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from deconv_api_tpu_torch._device import resolve_device
 from deconv_api_tpu_torch.engine.autodeconv import autodeconv_visualizer
 from deconv_api_tpu_torch.engine.deconv import get_visualizer, resolve_kpack_chan
 from deconv_api_tpu_torch.models import inception_v3, mobilenet_v1, mobilenet_v2, resnet50
+from deconv_api_tpu_torch.models.apply import spec_forward
 from deconv_api_tpu_torch.models.blocks import DECONV_RULES
 from deconv_api_tpu_torch.models.spec import ModelSpec, init_params
 from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
@@ -46,7 +49,11 @@ class ModelBundle:
     preprocess: Callable = codec.preprocess_vgg
     layer_names: tuple[str, ...] = ()  # projectable layers
     forward_fn: Callable | None = None  # forward_fn(params, x, *, rules) -> (out, acts)
-    _order: tuple[str, ...] | None = dataclasses.field(default=None, repr=False)
+    dream_layers: tuple[str, ...] = ()  # default DeepDream targets
+    min_dream_size: int = 16  # smallest octave edge the trunk accepts
+    unpreprocess: Callable = codec.unpreprocess_vgg  # model input -> BGR uint8
+    _acts: tuple[str, ...] | None = dataclasses.field(default=None, repr=False)
+    _dream_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         if self.spec is not None:
@@ -56,23 +63,28 @@ class ModelBundle:
                 l.name for l in self.spec.layers if l.kind != "input"
             )
 
-    def forward_order(self) -> tuple[str, ...]:
-        """The projectable layers in forward order.  A DAG model's come from
-        the insertion order of its named activations in one forward on the
-        ``meta`` device (shapes only, no data), under the rules the
-        visualizer runs with."""
-        if self.spec is not None:
-            return self.layer_names
-        if self._order is None:
+    def activation_names(self) -> tuple[str, ...]:
+        """A DAG model's named activations in forward order: the insertion
+        order of one forward on the ``meta`` device (shapes only, no data),
+        under the rules the visualizer runs with."""
+        if self._acts is None:
             params = tree_map(lambda t: torch.empty_like(t, device="meta"), self.params)
             x = torch.empty((1, self.image_size, self.image_size, 3), device="meta")
             with torch.no_grad():
                 _, acts = self.forward_fn(params, x, rules=DECONV_RULES)
-            missing = sorted(set(self.layer_names) - set(acts))
-            if missing:
-                raise ValueError(f"model {self.name!r}: projectable layer(s) {missing} are not named by its forward")
-            self._order = tuple(n for n in acts if n in set(self.layer_names))
-        return self._order
+            self._acts = tuple(acts)
+        return self._acts
+
+    def forward_order(self) -> tuple[str, ...]:
+        """The projectable layers in forward order."""
+        if self.spec is not None:
+            return self.layer_names
+        acts = self.activation_names()
+        missing = sorted(set(self.layer_names) - set(acts))
+        if missing:
+            raise ValueError(f"model {self.name!r}: projectable layer(s) {missing} are not named by its forward")
+        keep = set(self.layer_names)
+        return tuple(n for n in acts if n in keep)
 
     def deepest_layer(self) -> str:
         """The layer warmup projects: the last conv of a spec, the last
@@ -94,6 +106,35 @@ class ModelBundle:
                 f"model {self.name!r} has no projectable layer {layer!r}; "
                 f"known: {list(self.layer_names)}"
             )
+
+    def dream_forward(self, layers: tuple[str, ...]):
+        """The forward a dream of ``layers`` climbs, which must accept every
+        octave's size: a DAG model's as it is, a spec's truncated at its
+        deepest target (below the flatten and dense head).  Cached per layer
+        set.  A layer the model does not name, or a spec's dense or flatten
+        layer, is a ``KeyError``."""
+        layers = tuple(layers)
+        if layers not in self._dream_cache:
+            if self.spec is None:
+                known = self.activation_names()
+                for name in layers:
+                    if name not in known:
+                        raise KeyError(f"model has no activation {name!r}; known: {list(known)}")
+                fwd = self.forward_fn
+            else:
+                by_name = {l.name: l for l in self.spec.layers}
+                for name in layers:
+                    if name not in by_name:
+                        raise KeyError(f"model has no activation {name!r}")
+                    if by_name[name].kind not in ("conv", "pool"):
+                        raise KeyError(
+                            f"layer {name!r} ({by_name[name].kind}) is not dreamable: octave "
+                            "resizing needs conv or pool layers (dense heads are resolution-bound)"
+                        )
+                names = self.spec.layer_names()
+                fwd = spec_forward(self.spec.truncated(max(layers, key=names.index)))
+            self._dream_cache[layers] = fwd
+        return self._dream_cache[layers]
 
     def batched_visualizer(
         self,
@@ -155,38 +196,47 @@ def _fuse_post(raw, post: str):
     return fused
 
 
-def _spec_bundle(spec: ModelSpec):
+def _spec_bundle(spec: ModelSpec, dream_layers: tuple[str, ...]):
     def build(gen: torch.Generator, dev: torch.device) -> ModelBundle:
-        return ModelBundle(spec, init_params(spec, gen, dev), dev)
+        return ModelBundle(spec, init_params(spec, gen, dev), dev, dream_layers=dream_layers)
 
     return build
 
 
-def _dag_bundle(name, module, init, forward, image_size: int, preprocess):
+def _dag_bundle(name, module, init, forward, image_size: int, preprocess, **dream):
     def build(gen: torch.Generator, dev: torch.device) -> ModelBundle:
         return ModelBundle(
             None, init(gen, device=dev), dev, name=name, image_size=image_size,
-            preprocess=preprocess, layer_names=module.DECONV_LAYERS, forward_fn=forward,
+            preprocess=preprocess, layer_names=module.DECONV_LAYERS, forward_fn=forward, **dream,
         )
 
     return build
 
 
-# the reference's image sizes, preprocessing modes and projectable layers
-# (deconv_api_tpu/serving/models.py, the registry's bundles)
+# the reference's image sizes, preprocessing modes, projectable layers and
+# dream settings (deconv_api_tpu/serving/models.py, the registry's bundles)
 REGISTRY: dict[str, Callable[[torch.Generator, torch.device], ModelBundle]] = {
-    "vgg16": _spec_bundle(VGG16_SPEC),
-    "vgg19": _spec_bundle(VGG19_SPEC),
-    "vgg_tiny": _spec_bundle(VGG_TINY_SPEC),
+    "vgg16": _spec_bundle(VGG16_SPEC, ("block4_conv3", "block5_conv1")),
+    "vgg19": _spec_bundle(VGG19_SPEC, ("block4_conv4", "block5_conv1")),
+    "vgg_tiny": _spec_bundle(VGG_TINY_SPEC, ("block2_conv2", "block3_conv1")),
     # Keras resnet50 uses caffe mode, like VGG
     "resnet50": _dag_bundle("resnet50", resnet50, resnet50.resnet50_init,
-                            resnet50.resnet50_forward, 224, codec.preprocess_vgg),
+                            resnet50.resnet50_forward, 224, codec.preprocess_vgg,
+                            dream_layers=("conv4_block3_out", "conv4_block6_out")),
+    # the VALID-padded stem needs >= 75 px
     "inception_v3": _dag_bundle("inception_v3", inception_v3, inception_v3.inception_v3_init,
-                                inception_v3.inception_v3_forward, 299, codec.preprocess_tf),
+                                inception_v3.inception_v3_forward, 299, codec.preprocess_tf,
+                                dream_layers=inception_v3.DREAM_LAYERS, min_dream_size=75,
+                                unpreprocess=codec.unpreprocess_tf),
+    # five (0, 1)-padded stride-2 convs
     "mobilenet_v1": _dag_bundle("mobilenet_v1", mobilenet_v1, mobilenet_v1.mobilenet_v1_init,
-                                mobilenet_v1.mobilenet_v1_forward, 224, codec.preprocess_tf),
+                                mobilenet_v1.mobilenet_v1_forward, 224, codec.preprocess_tf,
+                                dream_layers=mobilenet_v1.DREAM_LAYERS, min_dream_size=32,
+                                unpreprocess=codec.unpreprocess_tf),
     "mobilenet_v2": _dag_bundle("mobilenet_v2", mobilenet_v2, mobilenet_v2.mobilenet_v2_init,
-                                mobilenet_v2.mobilenet_v2_forward, 224, codec.preprocess_tf),
+                                mobilenet_v2.mobilenet_v2_forward, 224, codec.preprocess_tf,
+                                dream_layers=mobilenet_v2.DREAM_LAYERS, min_dream_size=32,
+                                unpreprocess=codec.unpreprocess_tf),
 }
 
 

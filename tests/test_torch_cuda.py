@@ -334,3 +334,23 @@ def test_avgpool_gradient_on_the_card_matches_the_cpu(dev, window, stride, paddi
     (gg,) = torch.autograd.grad(yg, xg, gy.to(dev))
     torch.testing.assert_close(yg.detach().cpu(), yc.detach(), rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(gg.cpu(), gc, rtol=1e-6, atol=1e-6)
+
+
+# --- DeepDream ----------------------------------------------------------------------
+
+
+def test_mobilenet_v1_dream_on_the_card_matches_its_cpu_run(dev):
+    """A MobileNet v1 dream at 64x64 (its default layers, 10 steps on the
+    two rungs 46 and 64) on the card against ``device="cpu"`` with the same
+    params, with ``chip_smoke.py``'s bars: every float32 step against the
+    CPU's from the same input, the whole float64 dream against the CPU's
+    (``engine/crosscheck.py:dream_card_vs_cpu``); no kernel launches."""
+    from deconv_api_tpu_torch.engine.crosscheck import dream_card_vs_cpu
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    bundle = build_bundle("mobilenet_v1", dev)
+    x = torch.rand((2, 64, 64, 3), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    ops.reset_launch_counts()
+    out = dream_card_vs_cpu(bundle, x, octaves=2)
+    assert out["float32_stepwise"]["compared"] == 22 and out["float64"]["finite"] and out["images"] == 2
+    assert not any(ops.launch_counts().values())

@@ -78,6 +78,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     from deconv_api_tpu_torch._device import resolve_device
     from deconv_api_tpu_torch.engine.autodeconv import autodeconv_visualizer
     from deconv_api_tpu_torch.engine.deconv import get_visualizer
+    from deconv_api_tpu_torch.engine.deepdream import deepdream_batch
     from deconv_api_tpu_torch.models.resnet50 import resnet50_forward
     from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
     from deconv_api_tpu_torch.serving.models import build_bundle
@@ -86,6 +87,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         lambda: resolve_device(),
         lambda: get_visualizer(VGG_TINY_SPEC, "fc1"),
         lambda: autodeconv_visualizer(resnet50_forward, "conv1_relu"),
+        lambda: deepdream_batch(resnet50_forward, {}, torch.zeros((1, 8, 8, 3)), layers=("conv1_relu",)),
         lambda: build_bundle("vgg_tiny"),
         lambda: build_bundle("resnet50"),
         lambda: main(["serve", "--model", "vgg_tiny", "--port", "0"]),
