@@ -53,9 +53,16 @@ Phases, each printing JSON lines:
    from the card's input, and the whole dream in float64); the p50 of the
    batch-4 and batch-1 InceptionV3 dreams, with one profiled call.  No
    hand-written kernel lies on the dream path: its counts must stay 0.
-Each main path zeroes the launch counters just before it and reads them
-just after.  The line before the last is the kernels line, the last the
-result line.
+9. capture: every captured program against its eager run and each padded
+   row against its solo run (``phase_capture``), and what the graphs hold.
+Every route serves through captured CUDA graphs, one per
+program and bucket (``engine/capture.py``): each server's warmup captures
+every bucket of both route defaults and of the default dream before
+``/ready`` (``warmup_report``), and the throughput phases time each
+program captured, with its eager run beside it in turns.  A graph's
+kernels count as launches on each replay.  Each main path zeroes the
+launch counters just before it and reads them just after.  The line
+before the last is the kernels line, the last the result line.
 """
 
 from __future__ import annotations
@@ -91,7 +98,8 @@ PACKED_SITES = {"pool1_auto": (112, 112, 64, 64), "pool2_forced": (56, 56, 128, 
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    # numpy scalars (np.bool_ is no bool) as their Python values
+    print(json.dumps(obj, default=lambda v: v.item()), flush=True)
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -528,6 +536,50 @@ def summed_row(sites: list, source: str, replaces: str) -> dict:
     }
 
 
+def pool_bytes(torch, pool):
+    """Device memory the caching allocator holds in the graph memory pool
+    ``pool`` (its segments' sizes, from ``torch.cuda.memory_snapshot``)."""
+    segments = torch.cuda.memory_snapshot()
+    if not segments or "segment_pool_id" not in segments[0]:
+        return "not measured"
+    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def warmup_report(torch, service, reserved_before: int) -> dict:
+    """What a server's warmup captured before ``/ready``: its wall time,
+    the programs of both caches, and the device memory reserved after it
+    (in all, and more than ``reserved_before``, before the boot).
+    Fails unless every deconv bucket of both route defaults (grid top-4,
+    tiles top-8 at the deepest layer) and, where the model has dream
+    layers, the default dream at every dream bucket, were captured."""
+    from deconv_api_tpu_torch.engine.deepdream import octave_shapes
+    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, DREAM_DEFAULTS, DREAM_MAX_BATCH, STITCH_K
+    from deconv_api_tpu_torch.serving.batcher import buckets
+
+    bundle = service.bundle
+    layer, size = bundle.deepest_layer(), bundle.image_size
+    deconv = {(k[2], k[4], k[5], k[-2]) for k in bundle.programs.keys()}
+    want = {(layer, top_k, post, b) for b in buckets(service.max_batch)
+            for top_k, post in ((STITCH_K, "grid"), (DEFAULT_TOP_K, "tiles"))}
+    ladder = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, bundle.min_dream_size)
+    dreams = {(k[1], k[2]) for k in bundle.dream_programs.keys() if k[0] == "step"}
+    want_dreams = {(hw, b) for hw in ladder for b in buckets(DREAM_MAX_BATCH)} if bundle.dream_layers else set()
+    graphs = [p for c in (bundle.programs, bundle.dream_programs) for p in c.programs().values()]
+    out = {"model": bundle.name, "ready": service.ready, "warmup_wall_s": service.warmup_wall_s,
+           "deconv_programs": len(bundle.programs), "dream_programs": len(bundle.dream_programs),
+           "deconv_pool_bytes": pool_bytes(torch, bundle.programs.pool),
+           "dream_pool_bytes": pool_bytes(torch, bundle.dream_programs.pool),
+           "graphs": sum(p.graph is not None for p in graphs),
+           "capture_s": sum(p.capture_s for p in graphs),
+           "reserved_bytes": torch.cuda.memory_reserved(),
+           "boot_reserved_bytes": torch.cuda.memory_reserved() - reserved_before,
+           "allocated_bytes": torch.cuda.memory_allocated()}
+    if not service.ready or not want <= deconv or not want_dreams <= dreams or out["graphs"] != len(graphs):
+        raise AssertionError(f"warmup of {bundle.name}: missing {sorted(want - deconv)} "
+                             f"{sorted(want_dreams - dreams)}; {out}")
+    return out
+
+
 # --- phase 4 -------------------------------------------------------------------
 
 
@@ -566,11 +618,13 @@ def phase_main_path(torch) -> dict:
     from deconv_api_tpu_torch.serving import codec
 
     # what `python -m deconv_api_tpu_torch serve ...` runs, on a free port
-    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda",
                            "--max-batch", str(B)])
     warm_s = time.perf_counter() - t0
     service, bundle, port = server.service, server.service.bundle, server.server_address[1]
+    warm = warmup_report(torch, service, reserved0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -619,14 +673,14 @@ def phase_main_path(torch) -> dict:
                  other: service.visualize_batch("block5_conv1", xs, fused_unpool=other)}
         fused, unfused = grids["auto"], grids["off"]
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts, graph_counts = ops.launch_counts(), dict(ops.graph_counts)
 
         psnr = min(psnr_db(a, b) for a, b in zip(fused["grid"], unfused["grid"]))
         same_idx = bool((fused["indices"] == unfused["indices"]).all())
         out = {
-            "phase": "main_path", "model": "vgg16", "boot_s": warm_s, "fused_unpool": FUSED_DEFAULT,
-            "responses": responses, "batch_sizes": batch_sizes,
-            "launches": counts,
+            "phase": "main_path", "model": "vgg16", "boot_s": warm_s, "warmup": warm,
+            "fused_unpool": FUSED_DEFAULT, "responses": responses, "batch_sizes": batch_sizes,
+            "launches": counts, "graph_counts": graph_counts,
             "fused_vs_off_min_psnr_db": psnr if np.isfinite(psnr) else "identical",
             "fused_vs_off_indices_equal": same_idx,
             "grid_finite_uint8": fused["grid"].dtype == np.uint8 and fused["grid"].shape == (B, 448, 448, 3),
@@ -636,6 +690,8 @@ def phase_main_path(torch) -> dict:
             raise AssertionError(f"a kernel of the path never launched: {counts}")
         if max(batch_sizes) <= 1:
             raise AssertionError(f"no batch held more than one image: {batch_sizes}")
+        if graph_counts["replays"] < len(batch_sizes) + 2:
+            raise AssertionError(f"the requests did not replay captured programs: {graph_counts}")
         if psnr < 52.0 or not same_idx:
             raise AssertionError(f"fused vs off: {psnr:.1f} dB, indices equal {same_idx}")
         return {"bundle": bundle, "xs": xs, "uris": uris, "counts": counts}
@@ -677,12 +733,14 @@ def phase_v1_deconv(torch, uris: list) -> dict:
     from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
     from deconv_api_tpu_torch.serving.app import Program
 
-    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda",
                            "--max-batch", str(B), "--lowc-kpack", "auto"])
     boot_s = time.perf_counter() - t0
     service, port = server.service, server.server_address[1]
     size = service.bundle.image_size
+    warm = warmup_report(torch, service, reserved0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -730,7 +788,7 @@ def phase_v1_deconv(torch, uris: list) -> dict:
         unpacked = service.run_program(prog, xs, lowc_kpack="off")[V1_LAYER]
         packed_other = service.run_program(prog, xs, fused_unpool=other)[V1_LAYER]
         torch.cuda.synchronize()
-        counts = ops.launch_counts()
+        counts, graph_counts = ops.launch_counts(), dict(ops.graph_counts)
 
         served_ok = all(
             r[1]["filters"] == [int(i) for i in packed["indices"][b][: int(packed["valid"][b].sum())]]
@@ -746,14 +804,17 @@ def phase_v1_deconv(torch, uris: list) -> dict:
                                       and (packed["valid"] == run["valid"]).all()),
             }
         out = {"phase": "v1_deconv", "model": service.bundle.name, "lowc_kpack": "auto",
-               "fused_unpool": FUSED_DEFAULT, "boot_s": boot_s,
+               "fused_unpool": FUSED_DEFAULT, "boot_s": boot_s, "warmup": warm,
                "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
+               "graph_counts": graph_counts,
                "served_filters_match_engine": served_ok, "packed_vs": compare,
                "tiles_uint8": packed["tiles"].dtype == np.uint8 and packed["tiles"].shape == (B, 8, size, size, 3)}
         emit(out)
         needed = ("pool_argmax", "fused_unpool_conv", "fused_unpool_conv_grouped", "unpool_argmax_grouped")
         if not all(counts[k] > 0 for k in needed):
             raise AssertionError(f"a kernel of the path never launched: {counts}")
+        if graph_counts["replays"] < len(batch_sizes) + 3:
+            raise AssertionError(f"the requests did not replay captured programs: {graph_counts}")
         if not served_ok:
             raise AssertionError("served filters differ from the engine's valid prefix")
         for name, c in compare.items():
@@ -772,9 +833,10 @@ def phase_v1_deconv(torch, uris: list) -> dict:
 # --- phase 6 -------------------------------------------------------------------
 
 
-def device_breakdown(torch, run) -> dict:
-    """One call of ``run`` under torch.profiler: device time by kernel, and
-    the device's idle share of the host-clock window."""
+def device_breakdown(torch, run, top: int | None = 10) -> dict:
+    """One call of ``run`` under torch.profiler: device time by kernel (the
+    ``top`` longest, or all), and the device's idle share of the
+    host-clock window."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -790,17 +852,18 @@ def device_breakdown(torch, run) -> dict:
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     if not busy_ms:
         return {"wall_ms": wall_ms, "device_busy_ms": "not measured"}
-    top = sorted(events, key=_device_us, reverse=True)[:10]
+    top = sorted(events, key=_device_us, reverse=True)[:top]
     return {
         "wall_ms": wall_ms, "device_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
         "top": [{"kernel": e.key[:90], "ms": _device_us(e) / 1e3, "calls": e.count} for e in top],
     }
 
 
-def _timed(torch, run, reps: int = 10) -> dict:
+def _timed(torch, run, reps: int = 10, items: int = B, warmup: int = 2, profiled: bool = True) -> dict:
     """Host-clock p50 of ``run`` (which ends in a device-to-host copy)
-    after 2 warm-up calls, and one profiled call."""
-    for _ in range(2):
+    after ``warmup`` calls, ``items`` images a call, and one profiled
+    call unless not ``profiled``."""
+    for _ in range(warmup):
         run()
     times = []
     for _ in range(reps):
@@ -808,64 +871,104 @@ def _timed(torch, run, reps: int = 10) -> dict:
         run()
         times.append(time.perf_counter() - t0)
     p50 = statistics.median(times)
-    return {"p50_ms": p50 * 1e3, "images_per_s": B / p50, "min_ms": min(times) * 1e3,
-            "max_ms": max(times) * 1e3, "profile": device_breakdown(torch, run)}
+    out = {"p50_ms": p50 * 1e3, "images_per_s": items / p50, "min_ms": min(times) * 1e3, "max_ms": max(times) * 1e3}
+    if profiled:
+        out["profile"] = device_breakdown(torch, run)
+    return out
 
 
-def in_turns(torch, out: dict, runs: dict, key: str, reps: int = 20) -> None:
+def in_turns(torch, out: dict, runs: dict, key: str, reps: int = 20, profile_repeats: bool = True, **timed) -> None:
     """Time each of the two ``runs`` (setting -> callable) twice, in turns
     (a, b, b, a), ``reps`` calls each, into ``out[f"{key}_{setting}"]`` and
-    its ``_repeat``, and add by how much the second setting's slower p50
-    beats the first's faster one beside the spread between the repeats of
-    either."""
+    its ``_repeat`` (profiled too unless not ``profile_repeats``), and add
+    by how much the second setting's slower p50 beats the first's faster
+    one beside the spread between the repeats of either."""
     (a, run_a), (b, run_b) = runs.items()
     for name, run in ((a, run_a), (b, run_b), (f"{b}_repeat", run_b), (f"{a}_repeat", run_a)):
-        out[f"{key}_{name}"] = _timed(torch, run, reps)
+        out[f"{key}_{name}"] = _timed(torch, run, reps, profiled=profile_repeats or not name.endswith("_repeat"),
+                                      **timed)
     p50 = {s: [out[f"{key}_{s}"]["p50_ms"], out[f"{key}_{s}_repeat"]["p50_ms"]] for s in (a, b)}
     out[f"{key}_{b}_faster_by_ms"] = min(p50[a]) - max(p50[b])
     out[f"{key}_spread_ms"] = max(abs(p[0] - p[1]) for p in p50.values())
 
 
+def captured_run(bundle, batch, layer: str, top_k: int, post: str, **settings):
+    """The captured batch program at the service's settings (bf16 backward,
+    bug_compat) as a callable that replays it on ``batch`` (on the card)
+    and copies every projected layer's ``post`` to the host; and the
+    program."""
+    prog = bundle.program(layer, "all", top_k, len(batch), bug_compat=True, backward_dtype="bfloat16",
+                          post=post, **settings)
+
+    def run():
+        with bundle.programs.replaying():
+            return [e[post].cpu() for e in prog(batch).values()]
+
+    return run, prog
+
+
+def eager_run(bundle, batch, layer: str, top_k: int, post: str, **settings):
+    """The same program run eagerly, one aten call at a time."""
+    fn = bundle.batched_visualizer(layer, "all", top_k, True, "bfloat16", post=post, **settings)
+    return lambda: [e[post].cpu() for e in fn(bundle.params, batch).values()]
+
+
 def phase_throughput(torch, ctx: dict, label: str) -> dict:
-    """POST /: the grid program at fused_unpool auto and off, in turns."""
+    """POST /: the batch-8 grid program at the default fused_unpool,
+    captured against eager in turns; captured and eager (fewer calls) at
+    the other setting."""
+    from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
+
     bundle, xs = ctx["bundle"], ctx["xs"]
     batch = torch.from_numpy(xs).cuda()
     out = {"phase": "throughput", "card": label, "batch": B, "layer": "block5_conv1", "top_k": K,
            "forward": "float32", "backward": "bfloat16"}
-    runs = {}
-    for policy in ("auto", "off"):
-        fn = bundle.batched_visualizer("block5_conv1", "all", K, True, "bfloat16", post="grid", fused_unpool=policy)
-        runs[policy] = lambda fn=fn: fn(bundle.params, batch)["block5_conv1"]["grid"].cpu()
-    in_turns(torch, out, runs, "fused")
+    other = "off" if FUSED_DEFAULT == "auto" else "auto"
+    cap, prog = captured_run(bundle, batch, "block5_conv1", K, "grid", fused_unpool=FUSED_DEFAULT)
+    out[f"fused_{FUSED_DEFAULT}_capture_s"] = prog.capture_s
+    in_turns(torch, out, {"eager": eager_run(bundle, batch, "block5_conv1", K, "grid", fused_unpool=FUSED_DEFAULT),
+                          "captured": cap}, f"fused_{FUSED_DEFAULT}")
+    cap, prog = captured_run(bundle, batch, "block5_conv1", K, "grid", fused_unpool=other)
+    out[f"fused_{other}_captured"] = {"capture_s": prog.capture_s, **_timed(torch, cap, reps=20)}
+    out[f"fused_{other}_eager"] = _timed(torch, eager_run(bundle, batch, "block5_conv1", K, "grid",
+                                                          fused_unpool=other), reps=5)
     emit(out)
     return out
 
 
 def phase_throughput_v1(torch, bundle, batch, label: str) -> dict:
-    """/v1/deconv: the tiles program at top_k 8 under each lowc_kpack
-    policy at the default fused_unpool; at lowc_kpack=off, fused_unpool
-    auto and off in turns; then one sweep from the same layer at each."""
+    """/v1/deconv: the captured tiles program at top_k 8 under each
+    lowc_kpack policy at the default fused_unpool; at lowc_kpack=off,
+    captured against eager in turns, and captured at the other
+    fused_unpool; then one sweep from the same layer at each setting;
+    each program not timed in turns also eager, in fewer calls."""
     from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 
     out = {"phase": "throughput", "card": label, "batch": B, "layer": V1_LAYER, "top_k": 8,
            "post": "tiles", "forward": "float32", "backward": "bfloat16"}
-
-    def tiles(lowc_kpack, fused_unpool):
-        fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles",
-                                       lowc_kpack=lowc_kpack, fused_unpool=fused_unpool)
-        return lambda: fn(bundle.params, batch)[V1_LAYER]["tiles"].cpu()
-
+    other = "off" if FUSED_DEFAULT == "auto" else "auto"
     for policy in ("auto", "forced"):
-        out[f"lowc_kpack_{policy}_fused_{FUSED_DEFAULT}"] = _timed(torch, tiles(policy, FUSED_DEFAULT))
-    in_turns(torch, out, {"auto": tiles("off", "auto"), "off": tiles("off", "off")}, "lowc_kpack_off_fused")
+        cap, prog = captured_run(bundle, batch, V1_LAYER, 8, "tiles", lowc_kpack=policy, fused_unpool=FUSED_DEFAULT)
+        out[f"lowc_kpack_{policy}_fused_{FUSED_DEFAULT}_captured"] = {"capture_s": prog.capture_s, **_timed(torch, cap)}
+        out[f"lowc_kpack_{policy}_fused_{FUSED_DEFAULT}_eager"] = _timed(
+            torch, eager_run(bundle, batch, V1_LAYER, 8, "tiles", lowc_kpack=policy, fused_unpool=FUSED_DEFAULT),
+            reps=5)
+    cap, _ = captured_run(bundle, batch, V1_LAYER, 8, "tiles", lowc_kpack="off", fused_unpool=FUSED_DEFAULT)
+    in_turns(torch, out, {"eager": eager_run(bundle, batch, V1_LAYER, 8, "tiles", lowc_kpack="off",
+                                             fused_unpool=FUSED_DEFAULT), "captured": cap},
+             f"lowc_kpack_off_fused_{FUSED_DEFAULT}", reps=10)
+    cap, prog = captured_run(bundle, batch, V1_LAYER, 8, "tiles", lowc_kpack="off", fused_unpool=other)
+    out[f"lowc_kpack_off_fused_{other}_captured"] = {"capture_s": prog.capture_s, **_timed(torch, cap)}
+    out[f"lowc_kpack_off_fused_{other}_eager"] = _timed(
+        torch, eager_run(bundle, batch, V1_LAYER, 8, "tiles", lowc_kpack="off", fused_unpool=other), reps=5)
     for fused_unpool in ("auto", "off"):
-        fn = bundle.batched_visualizer(V1_LAYER, "all", 8, True, "bfloat16", post="tiles", sweep=True,
-                                       lowc_kpack="auto", fused_unpool=fused_unpool)
-
-        def sweep(fn=fn):
-            return [e["tiles"].cpu() for e in fn(bundle.params, batch).values()]
-
-        out[f"sweep_lowc_kpack_auto_fused_{fused_unpool}"] = {"layers": len(sweep()), **_timed(torch, sweep, reps=3)}
+        cap, prog = captured_run(bundle, batch, V1_LAYER, 8, "tiles", sweep=True, lowc_kpack="auto",
+                                 fused_unpool=fused_unpool)
+        out[f"sweep_lowc_kpack_auto_fused_{fused_unpool}_captured"] = {
+            "layers": len(cap()), "capture_s": prog.capture_s, **_timed(torch, cap, reps=3)}
+        out[f"sweep_lowc_kpack_auto_fused_{fused_unpool}_eager"] = _timed(
+            torch, eager_run(bundle, batch, V1_LAYER, 8, "tiles", sweep=True, lowc_kpack="auto",
+                             fused_unpool=fused_unpool), reps=2, warmup=1)
     emit(out)
     return out
 
@@ -921,12 +1024,14 @@ def phase_dag(torch, uris: list, label: str) -> dict:
     from deconv_api_tpu_torch.serving.models import build_bundle
 
     layer = DAG_LAYERS["resnet50"]
-    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "resnet50", "--device", "cuda",
                            "--max-batch", str(B)])
     boot_s = time.perf_counter() - t0
     service, port = server.service, server.server_address[1]
     bundle, size = service.bundle, service.bundle.image_size
+    warm = warmup_report(torch, service, reserved0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     try:
@@ -946,7 +1051,7 @@ def phase_dag(torch, uris: list, label: str) -> dict:
             t.start()
         for t in threads:
             t.join(600)
-        counts = ops.launch_counts()
+        counts, graph_counts = ops.launch_counts(), dict(ops.graph_counts)
         responses = []
         for (path, form), (status, body, secs) in zip(forms, results):
             what = f"resnet50 POST {path} {({k: v for k, v in form.items() if k != 'file'})}"
@@ -980,10 +1085,11 @@ def phase_dag(torch, uris: list, label: str) -> dict:
         service.close()
         thread.join(10)
     out = {"phase": "dag", "card": label, "model": "resnet50", "layer": layer, "boot_s": boot_s,
-           "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
-           "served_filters_match_engine": served_ok}
-    if max(batch_sizes) <= 1 or not served_ok:
-        raise AssertionError(f"resnet50 serving: batch sizes {batch_sizes}, served filters match {served_ok}")
+           "warmup": warm, "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
+           "graph_counts": graph_counts, "served_filters_match_engine": served_ok}
+    if max(batch_sizes) <= 1 or not served_ok or graph_counts["replays"] < len(batch_sizes):
+        raise AssertionError(f"resnet50 serving: batch sizes {batch_sizes}, served filters match {served_ok}, "
+                             f"graphs {graph_counts}")
 
     # one batch-8 POST / program of each other new model; VGG19's kernel
     # launches read around its own runs (fused_unpool at the default, then auto)
@@ -1020,14 +1126,16 @@ def phase_dag(torch, uris: list, label: str) -> dict:
                           for model, lyr in DAG_LAYERS.items()}
     emit(out)
     dag_times(torch, bundles, batches, label)
-    return {"counts": counts, "vgg19_counts": vgg19["launches"], "vgg19_auto_counts": vgg19["launches_fused_auto"]}
+    return {"counts": counts, "vgg19_counts": vgg19["launches"], "vgg19_auto_counts": vgg19["launches_fused_auto"],
+            "bundles": bundles, "batches": batches}
 
 
 def dag_times(torch, bundles: dict, batches: dict, label: str) -> None:
-    """Host-clock p50 of ResNet50's batch-8 grid, tiles and sweep programs
-    and of the other models' grid programs (each with one profiled call),
-    and ResNet50's batched backward against K retained backward passes
-    over one forward, in turns."""
+    """Host-clock p50 of the batch-8 programs, captured against eager in
+    turns: ResNet50's grid and the other models' grids; ResNet50's tiles
+    and sweep captured, with one eager time each; each with one profiled
+    call.  Then ResNet50's batched backward against K retained backward
+    passes over one forward, in turns."""
     from deconv_api_tpu_torch.engine.autodeconv import project
     from deconv_api_tpu_torch.engine.deconv import _seed_fmaps, _select_top
     from deconv_api_tpu_torch.models.blocks import DECONV_RULES
@@ -1035,20 +1143,26 @@ def dag_times(torch, bundles: dict, batches: dict, label: str) -> None:
     times = {"phase": "dag_throughput", "card": label, "batch": B, "forward": "float32",
              "backward": "float32 (vgg19: bfloat16)"}
 
-    def program(model, k, post, sweep=False):
+    def runs(model, k, post, sweep=False):
         # the service's settings (run_program); a DAG model ignores the
         # backward dtype and bug_compat and projects in fp32
         b, xb = bundles[model], torch.from_numpy(batches[model]).cuda()
-        fn = b.batched_visualizer(DAG_LAYERS.get(model, VGG19_LAYER), "all", k, True, "bfloat16",
-                                  post=post, sweep=sweep)
-        return lambda: [e[post].cpu() for e in fn(b.params, xb).values()]
+        layer = DAG_LAYERS.get(model, VGG19_LAYER)
+        cap, prog = captured_run(b, xb, layer, k, post, sweep=sweep)
+        return cap, eager_run(b, xb, layer, k, post, sweep=sweep), prog
 
-    times["resnet50_grid"] = _timed(torch, program("resnet50", K, "grid"), reps=20)
-    times["resnet50_tiles_top8"] = _timed(torch, program("resnet50", 8, "tiles"), reps=10)
-    sweep = program("resnet50", 8, "tiles", sweep=True)
-    times["resnet50_sweep_top8"] = {"layers": len(sweep()), **_timed(torch, sweep, reps=3)}
-    for model in ("inception_v3", "mobilenet_v1", "mobilenet_v2", "vgg19"):
-        times[f"{model}_grid"] = _timed(torch, program(model, K, "grid"), reps=10)
+    for model in ("resnet50", "inception_v3", "mobilenet_v1", "mobilenet_v2", "vgg19"):
+        cap, eager, prog = runs(model, K, "grid")
+        times[f"{model}_grid_capture_s"] = prog.capture_s
+        in_turns(torch, times, {"eager": eager, "captured": cap}, f"{model}_grid",
+                 reps=10 if model == "resnet50" else 5)
+    cap, eager, prog = runs("resnet50", 8, "tiles")
+    times["resnet50_tiles_top8_captured"] = {"capture_s": prog.capture_s, **_timed(torch, cap, reps=10)}
+    times["resnet50_tiles_top8_eager"] = _timed(torch, eager, reps=5)
+    cap, eager, prog = runs("resnet50", 8, "tiles", sweep=True)
+    times["resnet50_sweep_top8_captured"] = {"layers": len(cap()), "capture_s": prog.capture_s,
+                                             **_timed(torch, cap, reps=3)}
+    times["resnet50_sweep_top8_eager"] = _timed(torch, eager, reps=2, warmup=1)
 
     bundle = bundles["resnet50"]
     x = torch.from_numpy(batches["resnet50"]).cuda().requires_grad_(True)
@@ -1066,7 +1180,7 @@ def dag_times(torch, bundles: dict, batches: dict, label: str) -> None:
     if not times["batched_vs_k_passes_rel_err"] <= BATCHED_MAX_REL_ERR:
         raise AssertionError(f"batched backward vs K passes: {times['batched_vs_k_passes_rel_err']}")
     in_turns(torch, times, {"batched": lambda: project(act, x, K, "all", retain_graph=True)["images"].sum().item(),
-                            "k_passes": lambda: k_passes().sum().item()}, "resnet50_backward")
+                            "k_passes": lambda: k_passes().sum().item()}, "resnet50_backward", reps=5)
     emit(times)
 
 
@@ -1142,11 +1256,13 @@ def phase_dream(torch, uris: list, label: str) -> dict:
     from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS, DeconvService, Dream
     from deconv_api_tpu_torch.serving.models import build_bundle
 
-    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "inception_v3", "--device", "cuda"])
     boot_s = time.perf_counter() - t0
     service, port = server.service, server.server_address[1]
     bundle, size = service.bundle, service.bundle.image_size
+    warm = warmup_report(torch, service, reserved0)
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     counts_by_path = {}
@@ -1165,6 +1281,7 @@ def phase_dream(torch, uris: list, label: str) -> dict:
             t.join(600)
         torch.cuda.synchronize()
         counts_by_path["inception_v3 POST /v1/dream"] = ops.launch_counts()
+        graph_counts = dict(ops.graph_counts)
         responses = [{**_check_dream(status, body, f"inception_v3 POST /v1/dream {i}", size, bundle.dream_layers),
                       "seconds": secs} for i, (status, body, secs) in enumerate(results)]
         batch_sizes = list(service.dream_batch_sizes)
@@ -1179,11 +1296,15 @@ def phase_dream(torch, uris: list, label: str) -> dict:
         service.close()
         thread.join(10)
     shapes = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, bundle.min_dream_size)
-    out = {"phase": "dream", "card": label, "model": "inception_v3", "boot_s": boot_s,
-           "layers": list(bundle.dream_layers), "octave_shapes": shapes,
+    out = {"phase": "dream", "card": label, "model": "inception_v3", "boot_s": boot_s, "warmup": warm,
+           "graph_counts": graph_counts, "layers": list(bundle.dream_layers), "octave_shapes": shapes,
            "ascent_steps": len(shapes) * DREAM_DEFAULTS["steps"], "work": dream_work(torch, bundle, shapes),
            "responses": responses,
            "batch_sizes": batch_sizes, "other_model": other_model}
+
+    # 4 dreams of 50 steps on 5 rungs: a pyramid replay and 10 step replays a rung
+    if graph_counts["replays"] < len(shapes) * (1 + DREAM_DEFAULTS["steps"]) * len(batch_sizes):
+        raise AssertionError(f"the served dreams did not replay their captured programs: {graph_counts}")
 
     # one default dream of a sequential spec and of ReLU6 through the engine
     engine = {}
@@ -1213,36 +1334,350 @@ def phase_dream(torch, uris: list, label: str) -> dict:
     # the card against the CPU, one full-width image at the route's defaults
     out["card_vs_cpu"] = dream_card_vs_cpu(bundle, torch.from_numpy(xs[:1]))
     emit(out)
-    dream_times(torch, service, xs, out["ascent_steps"], out["work"]["tflop_per_image"], label)
-    return {"counts_by_path": counts_by_path}
+    dream_times(torch, service, xs, shapes, out["work"]["tflop_per_image"], label)
+    return {"counts_by_path": counts_by_path, "service": service, "xs": xs}
 
 
-def dream_times(torch, service, xs, ascent_steps: int, tflop_per_image: float, label: str) -> None:
-    """Host-clock p50 of 3 default InceptionV3 dreams at batch 4 and at
-    batch 1, each after one warm-up call, with the conv FLOP rate that
-    p50 implies, and one profiled batch-4 call."""
-    from deconv_api_tpu_torch.serving.app import Dream
+def eager_dream(torch, bundle, x, shapes):
+    """The default dream of ``x`` (on the card) run eagerly, one aten call
+    at a time: each rung's pyramid step, then the eager ascent loop (what
+    ``deepdream_batch`` ran before the capture)."""
+    from deconv_api_tpu_torch.engine.deepdream import _ascend, _pyramid_step
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS
 
-    times = {"phase": "dream_throughput", "card": label, "model": "inception_v3",
-             "ascent_steps": ascent_steps}
-    dream = Dream(service.bundle.dream_layers)
-    for b in (DREAM_BATCH, 1):
-        def run(xb=xs[:b]):
-            return service.run_dream(dream, xb)
+    layers = bundle.dream_layers
+    fwd, cur, losses = bundle.dream_forward(layers), None, None
+    for i, hw in enumerate(shapes):
+        cur = _pyramid_step(cur, x, hw, shapes[i - 1] if i else None)
+        cur, losses = _ascend(fwd, bundle.params, cur, layers, DREAM_DEFAULTS["steps"], DREAM_DEFAULTS["lr"])
+    return cur, losses
 
-        run()
-        secs = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            run()
-            secs.append(time.perf_counter() - t0)
-        p50 = statistics.median(secs)
-        times[f"batch{b}"] = {"p50_ms": p50 * 1e3, "min_ms": min(secs) * 1e3, "max_ms": max(secs) * 1e3,
-                              "dreams_per_s": b / p50, "ascent_steps_per_s": ascent_steps / p50,
-                              "image_steps_per_s": b * ascent_steps / p50,
-                              "conv_tflop_per_s": b * tflop_per_image / p50}
-    times[f"batch{DREAM_BATCH}"]["profile"] = device_breakdown(torch, lambda: service.run_dream(dream, xs))
+
+def dream_times(torch, service, xs, shapes, tflop_per_image: float, label: str) -> None:
+    """Host-clock p50 of the default InceptionV3 dream at batch 4, captured
+    (``run_dream``) against eager in turns, and at batch 1 captured and
+    eager (one call), with the rates its p50 implies and one profiled call
+    each."""
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS, Dream
+
+    steps = len(shapes) * DREAM_DEFAULTS["steps"]
+    times = {"phase": "dream_throughput", "card": label, "model": "inception_v3", "ascent_steps": steps}
+    dream, bundle = Dream(service.bundle.dream_layers), service.bundle
+    base = torch.from_numpy(xs[:DREAM_BATCH]).cuda()
+    in_turns(torch, times, {"eager": lambda: eager_dream(torch, bundle, base, shapes)[0].cpu(),
+                            "captured": lambda: service.run_dream(dream, xs[:DREAM_BATCH])},
+             f"batch{DREAM_BATCH}", reps=2, items=DREAM_BATCH, warmup=0, profile_repeats=False)
+    times["batch1_captured"] = _timed(torch, lambda: service.run_dream(dream, xs[:1]), reps=3, items=1, warmup=1)
+    times["batch1_eager"] = _timed(torch, lambda: eager_dream(torch, bundle, base[:1], shapes)[0].cpu(), reps=1,
+                                   items=1, warmup=0)
+    for key, b in ((f"batch{DREAM_BATCH}_captured", DREAM_BATCH), (f"batch{DREAM_BATCH}_eager", DREAM_BATCH),
+                   ("batch1_captured", 1), ("batch1_eager", 1)):
+        p50 = times[key]["p50_ms"] / 1e3
+        times[key].update(dreams_per_s=b / p50, ascent_steps_per_s=steps / p50, image_steps_per_s=b * steps / p50,
+                          conv_tflop_per_s=b * tflop_per_image / p50)
+    times["capture_s"] = {f"batch{b}": sum(p.capture_s for rung in bundle.dream_program(dream.layers, shapes, b)
+                                          for p in rung) for b in (1, 2, DREAM_BATCH)}
     emit(times)
+
+
+# --- phase 9 -------------------------------------------------------------------
+
+PADDED = ((3, 4), (5, 8))  # (images, bucket)
+FP32_RTOL, FP32_ATOL = 1e-4, 1e-5  # a split batch's bars in the JAX package (tests/test_parallel.py)
+DREAM_RTOL, DREAM_ATOL = 2e-4, 2e-5  # a batched dream against its solo runs (tests/test_deepdream.py)
+BF16_MIN_PSNR_DB, FP32_MIN_PSNR_DB = 52.0, 65.0
+# a padded fp32 row whose forward switch flipped on a near-tie, against its
+# solo run at bucket 1, of its largest magnitude: twice the largest reading
+# of 2.6e-2 (PERF.md §6)
+FLIPPED_MAX_REL_ERR = 5e-2
+
+
+def _host_tree(out) -> dict:
+    return {name: {k: v.detach().cpu() for k, v in e.items()} for name, e in out.items()}
+
+
+def _captured_vs_eager(torch, bundle, batch, layer, top_k, settings) -> dict:
+    """One captured program (at ``len(batch)``) against its eager run on the
+    same batch: equal indices and valid, and the uint8 output byte-equal,
+    or else held at the PSNR bar of its backward dtype with the bytes that
+    differ reported."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
+
+    post = settings["post"]
+    prog = bundle.program(layer, "all", top_k, len(batch), bug_compat=True, backward_dtype="bfloat16", **settings)
+    with bundle.programs.replaying():
+        got = _host_tree(prog(batch))
+    want = _host_tree(bundle.batched_visualizer(layer, "all", top_k, True, "bfloat16", **settings)(bundle.params, batch))
+    bar = BF16_MIN_PSNR_DB if bundle.spec is not None else FP32_MIN_PSNR_DB
+    row = {"model": bundle.name, "layer": layer, "top_k": top_k, **settings, "layers": len(want),
+           "kernels": prog.kernels, "capture_s": prog.capture_s, "indices_equal": True, "differing_bytes": 0}
+    psnrs = []
+    for name in want:
+        g, w = got[name], want[name]
+        row["indices_equal"] &= bool(torch.equal(g["indices"], w["indices"]) and torch.equal(g["valid"], w["valid"]))
+        row["differing_bytes"] += int((g[post] != w[post]).sum())
+        a, b = g[post].numpy(), w[post].numpy()
+        psnrs += [psnr_db(x, y) for x, y in zip(a.reshape(-1, *a.shape[-3:]), b.reshape(-1, *b.shape[-3:]))]
+    row["byte_equal"] = row["differing_bytes"] == 0
+    row["min_psnr_db"] = min(psnrs) if np.isfinite(min(psnrs)) else "identical"
+    row["ok"] = bool(row["indices_equal"] and (row["byte_equal"] or min(psnrs) >= bar))
+    if not row["byte_equal"]:
+        # find the kernel that differs: the eager program against itself,
+        # and the kernels it runs only with cuDNN's non-deterministic
+        # algorithms allowed; with them barred, two eager runs agree
+        eager = bundle.batched_visualizer(layer, "all", top_k, True, "bfloat16", **settings)
+        run = lambda: _host_tree(eager(bundle.params, batch))  # noqa: E731
+        row["eager_vs_eager_differing_bytes"] = sum(int((run()[n][post] != want[n][post]).sum()) for n in want)
+        names, prev = {}, torch.backends.cudnn.deterministic
+        try:
+            for det in (False, True):
+                torch.backends.cudnn.deterministic = det
+                names[det] = {k["kernel"] for k in device_breakdown(torch, run, top=None).get("top", [])}
+                if det:
+                    a, b = run(), run()
+                    row["deterministic_eager_vs_eager_differing_bytes"] = sum(
+                        int((a[n][post] != b[n][post]).sum()) for n in a)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        row["kernels_only_when_nondeterministic"] = sorted(names[False] - names[True])
+    return row
+
+
+def forward_switches(torch, bundle, layer: str, x) -> list:
+    """The int8 switches of every forward pool of a sequential bundle's
+    eager forward to ``layer`` on the batch ``x`` (on the card)."""
+    from deconv_api_tpu_torch.engine.deconv import _forward_chain
+    from deconv_api_tpu_torch.models.spec import entry_chain
+
+    switches: dict = {}
+    with torch.no_grad():
+        _forward_chain(entry_chain(bundle.spec.truncated(layer)), bundle.params, x, switches)
+    return [idx.cpu() for idx, _ in switches.values()]
+
+
+def phase_capture(torch, vgg16, dag: dict, dream: dict, xs, label: str) -> None:
+    """The captured programs against their eager runs and their solo runs,
+    at full width on the card.  Every bar is checked and reported before
+    the phase fails on any:
+    - each deconv program, batch 8: VGG16's grid, tiles and sweep at both
+      fused_unpool settings and its tiles at lowc_kpack=auto, and the grids
+      of ResNet50, InceptionV3, MobileNet v1/v2 and VGG19: equal indices,
+      the uint8 output byte-equal (else the PSNR bar, the bytes reported);
+      the kernels each graph holds (K1 and K2 in VGG16's POST / graph, K3
+      and K3g at fused_unpool=auto, K2g in the lowc_kpack=auto tiles graph);
+    - padded buckets, 3 images in bucket 4 and 5 in bucket 8, each real row
+      against its solo runs: VGG16's fp32 projections against the image
+      alone in the same bucket through the same graph (indices equal, the
+      JAX package's elementwise rtol 1e-4 / atol 1e-5) and at bucket 1
+      (indices equal; 1e-4 of the largest magnitude on every image whose
+      forward switches all agree, at least one a bucket, and
+      FLIPPED_MAX_REL_ERR on the others, the flips counted and the
+      elementwise bar reported: cuDNN sums in another order at another
+      batch), and its served bf16 grids (>= 52 dB); the default InceptionV3
+      dream, 3 in bucket 4, whole in float64 (within rtol 2e-4 / atol 2e-5)
+      and one float32 top-rung step (the dream step bars), the whole float32
+      dream reported (float32 dreams part at ReLU kinks);
+    - one captured InceptionV3 ascent step at 299 against one eager step
+      from the same input: byte-equal, or the dream step bars (uint8 >= 40
+      dB, loss within 1e-3, update >= 40 dB); the whole captured dream
+      against the whole eager dream, reported only."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.engine.capture import ProgramCache
+    from deconv_api_tpu_torch.engine.crosscheck import DREAM_LOSS_REL_ERR, DREAM_MIN_PSNR_DB, MAX_REL_ERR, psnr_db
+    from deconv_api_tpu_torch.engine.deepdream import _ascend, dream_programs, octave_shapes, run_dream_programs
+    from deconv_api_tpu_torch.models.weights import tree_map
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS, DeconvService, Dream, Program
+    from deconv_api_tpu_torch.serving.batcher import pad_to_bucket
+
+    ops.reset_launch_counts()
+    out = {"phase": "capture", "card": label}
+    failed = []
+    batch = torch.from_numpy(xs).cuda()
+    cases = []
+    for fused in ("off", "auto"):
+        cases += [(vgg16, "block5_conv1", K, {"post": "grid", "fused_unpool": fused}),
+                  (vgg16, "block5_conv1", 8, {"post": "tiles", "fused_unpool": fused}),
+                  (vgg16, V1_SWEEP_FROM, 8, {"post": "tiles", "fused_unpool": fused, "sweep": True}),
+                  (vgg16, "block5_conv1", 8, {"post": "tiles", "fused_unpool": fused, "lowc_kpack": "auto"})]
+    for model in ("resnet50", "inception_v3", "mobilenet_v1", "mobilenet_v2", "vgg19"):
+        cases.append((dag["bundles"][model], DAG_LAYERS.get(model, VGG19_LAYER), K, {"post": "grid"}))
+    rows = []
+    for bundle, layer, top_k, settings in cases:
+        xb = batch if bundle.name == "vgg16" else torch.from_numpy(dag["batches"][bundle.name]).cuda()
+        rows.append(_captured_vs_eager(torch, bundle, xb, layer, top_k, settings))
+        if not rows[-1]["ok"]:
+            failed.append(f"captured vs eager: {rows[-1]}")
+    out["captured_vs_eager"] = rows
+    held = {(r["model"], r["post"], r["fused_unpool"] if r["model"] == "vgg16" else None,
+             r.get("lowc_kpack", "off"), r.get("sweep", False)): r["kernels"] for r in rows}
+    need = {("vgg16", "grid", "off", "off", False): ("pool_argmax", "unpool_argmax"),
+            ("vgg16", "grid", "auto", "off", False): ("pool_argmax", "fused_unpool_conv"),
+            ("vgg16", "tiles", "off", "auto", False): ("pool_argmax", "unpool_argmax_grouped"),
+            ("vgg16", "tiles", "auto", "auto", False): ("fused_unpool_conv", "fused_unpool_conv_grouped")}
+    for key, kernels in need.items():
+        if not all(held[key].get(k, 0) > 0 for k in kernels):
+            failed.append(f"graph {key} holds {held[key]}, expected {kernels}")
+
+    # padded buckets against solo runs, the fp32 programs captured under
+    # cuDNN's deterministic algorithms.  Each real row against two solo
+    # runs of its image: (1) alone in the same bucket (every row that
+    # image), through the same graph, which isolates the padding from the
+    # algorithm cuDNN picks for a batch size: the JAX package's elementwise
+    # bar and equal indices hold there; (2) at bucket 1, where cuDNN may
+    # sum in another order and a forward switch whose window holds a
+    # near-tie can flip, moving a projected value by a pixel: equal
+    # indices, 1e-4 of the largest magnitude on every image whose switches
+    # all agree (at least one such image a bucket), FLIPPED_MAX_REL_ERR on
+    # the others, and the served bf16 grids at >= 52 dB
+    padded = []
+    service = DeconvService(vgg16, max_batch=B)
+    prev_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for n, bucket in PADDED:
+            fp32 = vgg16.program("block5_conv1", "all", K, bucket, post=None)
+            solo = vgg16.program("block5_conv1", "all", K, 1, post=None)
+            xp = torch.from_numpy(pad_to_bucket(xs[:n], bucket))
+            with vgg16.programs.replaying():
+                got = _host_tree(fp32(xp))["block5_conv1"]
+            row = {"images": n, "bucket": bucket, "same_bucket_indices_equal": True, "same_bucket_max_abs_err": 0.0,
+                   "same_bucket_elementwise_outside": 0, "indices_equal": True, "switch_flips": [],
+                   "fp32_rel_err": [], "fp32_max_abs_err": 0.0, "fp32_elementwise_outside": 0, "fp32_elements": 0}
+            padded_switches = forward_switches(torch, vgg16, "block5_conv1", xp.cuda())
+            for i in range(n):
+                with vgg16.programs.replaying():
+                    alone = _host_tree(fp32(torch.from_numpy(pad_to_bucket(xs[i : i + 1], bucket))))["block5_conv1"]
+                    want = _host_tree(solo(batch[i : i + 1]))["block5_conv1"]
+                g, a = got["images"][i], alone["images"][i]
+                row["same_bucket_indices_equal"] &= bool(torch.equal(got["indices"][i], alone["indices"][i]))
+                row["same_bucket_max_abs_err"] = max(row["same_bucket_max_abs_err"], float((g - a).abs().max()))
+                row["same_bucket_elementwise_outside"] += int(((g - a).abs() > FP32_ATOL + FP32_RTOL * a.abs()).sum())
+                row["indices_equal"] &= bool(torch.equal(got["indices"][i], want["indices"][0]))
+                row["switch_flips"].append(sum(int((p[i] != s[0]).sum()) for p, s in zip(
+                    padded_switches, forward_switches(torch, vgg16, "block5_conv1", batch[i : i + 1]))))
+                w = want["images"][0]
+                row["fp32_max_abs_err"] = max(row["fp32_max_abs_err"], float((g - w).abs().max()))
+                row["fp32_rel_err"].append(float((g - w).abs().max() / w.abs().max()))
+                row["fp32_elementwise_outside"] += int(((g - w).abs() > FP32_ATOL + FP32_RTOL * w.abs()).sum())
+                row["fp32_elements"] += w.numel()
+            unflipped = [e for e, f in zip(row["fp32_rel_err"], row["switch_flips"]) if not f]
+            row["fp32_within"] = bool(unflipped) and all(
+                e <= (FLIPPED_MAX_REL_ERR if f else MAX_REL_ERR) for e, f in zip(row["fp32_rel_err"], row["switch_flips"]))
+            grids = service.run_program(Program("block5_conv1"), xs[:n])["block5_conv1"]
+            solo_grids = [service.run_program(Program("block5_conv1"), xs[i : i + 1])["block5_conv1"] for i in range(n)]
+            row["bf16_grid_min_psnr_db"] = min(psnr_db(grids["grid"][i], s["grid"][0]) for i, s in enumerate(solo_grids))
+            row["bf16_indices_equal"] = all(np.array_equal(grids["indices"][i], s["indices"][0])
+                                            for i, s in enumerate(solo_grids))
+            ok = (row["same_bucket_indices_equal"] and row["same_bucket_elementwise_outside"] == 0
+                  and row["indices_equal"] and row["fp32_within"] and row["bf16_indices_equal"]
+                  and row["bf16_grid_min_psnr_db"] >= BF16_MIN_PSNR_DB)
+            if not np.isfinite(row["bf16_grid_min_psnr_db"]):
+                row["bf16_grid_min_psnr_db"] = "identical"
+            padded.append(row)
+            if not ok:
+                failed.append(f"padded VGG16 rows against solo runs: {row}")
+    finally:
+        torch.backends.cudnn.deterministic = prev_det
+    out["padded_vs_solo"] = padded
+
+    svc, dxs = dream["service"], dream["xs"]
+    dbundle, dream_req = svc.bundle, Dream(svc.bundle.dream_layers)
+    layers, size = dbundle.dream_layers, dbundle.image_size
+    shapes = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, dbundle.min_dream_size)
+    lr = DREAM_DEFAULTS["lr"]
+    # held: the whole default dream in float64 (far from every ReLU kink),
+    # 3 images padded to bucket 4 against each solo, through the captured
+    # programs; and one float32 ascent step of the top rung, bucket 4
+    # against bucket 1 from the same inputs, at the dream step bars
+    p64 = tree_map(lambda t: t.double(), dbundle.params)
+    fwd, cache64 = dbundle.dream_forward(layers), ProgramCache(dbundle.device)
+
+    def dream64(x):  # as DeconvService.run_dream, in float64
+        rungs = dream_programs(cache64, fwd, p64, layers, shapes, tuple(x.shape), torch.float64)
+        with cache64.replaying():
+            return tuple(t.cpu() for t in run_dream_programs(rungs, x.cuda(), DREAM_DEFAULTS["steps"], lr))
+
+    x64 = torch.from_numpy(pad_to_bucket(dxs[:3], 4)).double()
+    got_x, got_l = dream64(x64)
+    solo = [dream64(x64[i : i + 1]) for i in range(3)]
+    d64 = {"images": 3, "bucket": 4,
+           "max_abs_err": max(float((got_x[i] - s[0][0]).abs().max()) for i, s in enumerate(solo)),
+           "within": all(torch.allclose(got_x[i], s[0][0], rtol=DREAM_RTOL, atol=DREAM_ATOL)
+                         and torch.allclose(got_l[i], s[1][0], rtol=DREAM_RTOL) for i, s in enumerate(solo))}
+    del cache64, p64
+    steps = {b: dbundle.dream_program(layers, shapes, b)[-1][1] for b in (4, 1)}
+    xs4 = torch.from_numpy(pad_to_bucket(dxs[:3], 4))
+    with dbundle.dream_programs.replaying():
+        steps[4].load(xs4, torch.tensor(lr))
+        l4, x4 = steps[4].replay().cpu(), steps[4].static[0].cpu()
+        one = []
+        for i in range(3):
+            steps[1].load(xs4[i : i + 1], torch.tensor(lr))
+            one.append((steps[1].replay().cpu(), steps[1].static[0].cpu()))
+    f32 = {"step_max_abs_err": max(float((x4[i] - o[1][0]).abs().max()) for i, o in enumerate(one)),
+           "step_min_uint8_psnr_db": min(psnr_db(dbundle.unpreprocess(x4[i].numpy()), dbundle.unpreprocess(o[1][0].numpy()))
+                                         for i, o in enumerate(one)),
+           "step_loss_rel_err": max(abs(float(l4[i]) / float(o[0][0]) - 1) for i, o in enumerate(one)),
+           "step_min_update_snr_db": min(float(10 * torch.log10(
+               (o[1][0].double() - xs4[i].double()).square().sum()
+               / (x4[i].double() - o[1][0].double()).square().sum())) for i, o in enumerate(one))}
+    f32_ok = (f32["step_min_uint8_psnr_db"] >= DREAM_MIN_PSNR_DB and f32["step_loss_rel_err"] <= DREAM_LOSS_REL_ERR
+              and f32["step_min_update_snr_db"] >= DREAM_MIN_PSNR_DB)
+    # reported: the whole float32 dream, padded against solo
+    got_x, got_l = svc.run_dream(dream_req, dxs[:3])  # bucket 4
+    solo = [svc.run_dream(dream_req, dxs[i : i + 1]) for i in range(3)]
+    out["padded_dream_vs_solo"] = {
+        "float64_whole_dream": d64, "float32_top_rung_step": f32,
+        "float32_whole_dream_reported": {
+            "max_abs_err": max(float(np.abs(got_x[i] - s[0][0]).max()) for i, s in enumerate(solo)),
+            "within": all(np.allclose(got_x[i], s[0][0], rtol=DREAM_RTOL, atol=DREAM_ATOL) for i, s in enumerate(solo)),
+            "loss_rel_err": max(abs(float(got_l[i]) / float(s[1][0]) - 1) for i, s in enumerate(solo))}}
+    if not (d64["within"] and f32_ok):
+        failed.append(f"padded dream rows against solo dreams: {out['padded_dream_vs_solo']}")
+
+    # one captured ascent step against one eager step, at the top rung
+    x = torch.from_numpy(dxs[:1]).cuda()
+    _, step = dbundle.dream_program(layers, shapes, 1)[-1]
+    with dbundle.dream_programs.replaying():
+        step.load(x, torch.tensor(lr))
+        cap_l = step.replay().cpu()
+        cap_x = step.static[0].cpu()
+    eag_x, eag_l = (t.cpu() for t in _ascend(dbundle.dream_forward(layers), dbundle.params, x, layers, 1, lr))
+    moved, want = (cap_x.double() - x.cpu().double()), (eag_x.double() - x.cpu().double())
+    snr = float(10 * torch.log10(want.square().sum() / (moved - want).square().sum()))
+    step_row = {"byte_equal": bool(torch.equal(cap_x, eag_x) and torch.equal(cap_l, eag_l)),
+                "max_abs_err": float((cap_x - eag_x).abs().max()),
+                "uint8_psnr_db": psnr_db(dbundle.unpreprocess(cap_x[0].numpy()), dbundle.unpreprocess(eag_x[0].numpy())),
+                "loss_rel_err": float(((cap_l - eag_l).abs() / eag_l.abs()).max()),
+                "update_snr_db": snr if np.isfinite(snr) else "identical"}
+    if not (step_row["byte_equal"] or (step_row["uint8_psnr_db"] >= DREAM_MIN_PSNR_DB
+                                      and step_row["loss_rel_err"] <= DREAM_LOSS_REL_ERR and snr >= DREAM_MIN_PSNR_DB)):
+        failed.append(f"captured ascent step against eager: {step_row}")
+    if not np.isfinite(step_row["uint8_psnr_db"]):
+        step_row["uint8_psnr_db"] = "identical"
+    out["dream_step_captured_vs_eager"] = step_row
+    cap_dream = svc.run_dream(dream_req, dxs[:1])
+    eag_dream = [t.cpu().numpy() for t in eager_dream(torch, dbundle, x, shapes)]
+    scale = float(np.abs(eag_dream[0]).max())
+    psnr = psnr_db(dbundle.unpreprocess(cap_dream[0][0]), dbundle.unpreprocess(eag_dream[0][0]))
+    out["dream_captured_vs_eager_reported"] = {
+        "rel_err": float(np.abs(cap_dream[0] - eag_dream[0]).max()) / scale,
+        "uint8_psnr_db": psnr if np.isfinite(psnr) else "identical",
+        "loss_rel_err": float(abs(cap_dream[1][0] / eag_dream[1][0] - 1))}
+
+    torch.cuda.synchronize()
+    out["graph_counts"] = dict(ops.graph_counts)
+    out["memory"] = {"reserved_bytes": torch.cuda.memory_reserved(), "allocated_bytes": torch.cuda.memory_allocated(),
+                     "programs": [[b.name, len(b.programs), len(b.dream_programs)]
+                                  for b in (vgg16, dbundle, *dag["bundles"].values())]}
+    out["failed"] = failed
+    emit(out)
+    if failed:
+        raise AssertionError(f"capture phase: {len(failed)} bar(s) missed: {failed}")
 
 
 def main() -> int:
@@ -1263,15 +1698,26 @@ def main() -> int:
         print("chip_smoke: run it from the root of a deconv_api_tpu checkout", file=sys.stderr)
         return 2
 
-    env = phase_environment(torch)
-    phase_build()
-    rows = phase_kernels(torch)
-    ctx = phase_main_path(torch)
-    v1 = phase_v1_deconv(torch, ctx["uris"])
-    phase_throughput(torch, ctx, env["nvidia_smi"])
-    phase_throughput_v1(torch, v1["bundle"], torch.from_numpy(ctx["xs"]).cuda(), env["nvidia_smi"])
-    dag = phase_dag(torch, ctx["uris"], env["nvidia_smi"])
-    dream = phase_dream(torch, ctx["uris"], env["nvidia_smi"])
+    wall = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        result = fn(*args)
+        wall[name] = time.perf_counter() - t0
+        return result
+
+    env = timed("environment", phase_environment, torch)
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, torch)
+    ctx = timed("main_path", phase_main_path, torch)
+    v1 = timed("v1_deconv", phase_v1_deconv, torch, ctx["uris"])
+    timed("throughput", phase_throughput, torch, ctx, env["nvidia_smi"])
+    timed("throughput_v1", phase_throughput_v1, torch, v1["bundle"], torch.from_numpy(ctx["xs"]).cuda(),
+          env["nvidia_smi"])
+    dag = timed("dag", phase_dag, torch, ctx["uris"], env["nvidia_smi"])
+    dream = timed("dream", phase_dream, torch, ctx["uris"], env["nvidia_smi"])
+    timed("capture", phase_capture, torch, ctx["bundle"], dag, dream, ctx["xs"], env["nvidia_smi"])
+    emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
                "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"], **dream["counts_by_path"]}

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from deconv_api_tpu_torch._device import resolve_device
+from deconv_api_tpu_torch.engine.capture import BatchProgram
 from deconv_api_tpu_torch.engine.deconv import _seed_fmaps, _select_top, resolve_kpack_chan
 from deconv_api_tpu_torch.models.blocks import DECONV_RULES
 from deconv_api_tpu_torch.ops.cuda_deconv import resolve_fused_unpool
@@ -67,7 +68,7 @@ def autodeconv_visualizer(
     lowc_kpack: str = "off",
     fused_unpool: str = "off",
 ):
-    """``fn(params, images)`` for images (B, H, W, 3) ->
+    """A ``BatchProgram``, ``fn(params, images)`` for images (B, H, W, 3) ->
     ``{name: {"images": (B, K, H, W, 3), "indices": (B, K), "sums": (B, K),
     "valid": (B, K)}}``: for ``layer``, or for every layer of
     ``sweep_layers`` (deepest first) from one forward.
@@ -79,17 +80,19 @@ def autodeconv_visualizer(
     ``lowc_kpack`` and ``fused_unpool`` are validated and inert: the
     gradient walk has no per-K chain to pack and no pool -> ReLU -> conv
     triple to fuse.  ``device`` is where it runs (``cuda`` unless
-    ``"cpu"``); the params must already be there, the images are moved.
-    The program needs autograd: call it outside ``torch.inference_mode``."""
+    ``"cpu"``); the params must already be there.  ``fn`` moves the images
+    there as a leaf that requires grad; ``fn.body(params, x)``, what a
+    capture records, takes such a leaf, and its one batched
+    ``autograd.grad`` (each of a sweep's over the retained graph) is
+    captured with it.  The program needs autograd: call it outside
+    ``torch.inference_mode``."""
     resolve_kpack_chan(lowc_kpack, top_k)
     resolve_fused_unpool(fused_unpool)
     if mode not in ("all", "max"):
         raise ValueError(f"illegal visualize mode {mode!r}; expected 'all' or 'max'")
     names = tuple(sweep_layers) if sweep_layers else (layer,)
-    dev = resolve_device(device)
 
-    def fn(params, images):
-        x = torch.as_tensor(images).to(dev).detach().requires_grad_(True)
+    def body(params, x):
         with torch.enable_grad():
             _, acts = forward_fn(params, x, rules=DECONV_RULES)
             missing = [n for n in names if n not in acts]
@@ -100,4 +103,4 @@ def autodeconv_visualizer(
                 for i, name in enumerate(names)
             }
 
-    return fn
+    return BatchProgram(body, resolve_device(device), grad_input=True)

@@ -54,15 +54,17 @@ def ranking_separated(act: torch.Tensor, k: int) -> list[bool]:
 
 def card_vs_cpu(bundle, layer: str, x: torch.Tensor, top_k: int = 4) -> dict:
     """``x`` (B, H, W, 3) through ``bundle``'s DAG program at ``layer`` on the
-    card (TF32 off, as ``resolve_device`` leaves it) and on the CPU.  Every image is held to
+    card (its captured program; TF32 off, as ``resolve_device`` leaves it)
+    and on the CPU.  Every image is held to
     the CPU's: the CPU's channels projected on the card within MAX_REL_ERR
     and at >= MIN_PSNR_DB as grids.  The card's own selection equals the
     CPU's on every image whose CPU ranking is separated, and its grid is at
     >= MIN_PSNR_DB where it does.  Raises AssertionError otherwise."""
     cpu_params = tree_map(lambda t: t.cpu(), bundle.params)
     cpu = autodeconv_visualizer(bundle.forward_fn, layer, top_k, device="cpu")(cpu_params, x)[layer]
-    card = autodeconv_visualizer(bundle.forward_fn, layer, top_k, device="cuda")(bundle.params, x)[layer]
-    card = {k: v.cpu() for k, v in card.items()}
+    prog = bundle.program(layer, "all", top_k, len(x))  # the card's captured program
+    with bundle.programs.replaying():
+        card = {k: v.to("cpu", copy=True) for k, v in prog(x)[layer].items()}
     xc = x.detach().to("cuda").requires_grad_(True)
     with torch.enable_grad():
         act = bundle.forward_fn(bundle.params, xc, rules=DECONV_RULES)[1][layer]
@@ -101,9 +103,10 @@ def dream_card_vs_cpu(bundle, x: torch.Tensor, *, octaves: int = DREAM_DEFAULTS[
     as far as two CPU dreams whose inputs differ by one ulp.  So:
 
     - ``float32_stepwise`` walks the card's float32 dream one step at a
-      time, the composition ``deepdream_batch`` runs (each pyramid step,
-      then the one-step octave runner), and runs every step on the CPU from
-      the card's input, in float32 and in float64.  Held at every step: the
+      time through the captured programs ``deepdream_batch`` replays (each
+      rung's pyramid step, then one replay of its ascent step at a time),
+      and runs every step on the CPU from the card's input, in float32 and
+      in float64.  Held at every step: the
       uint8 image at >= DREAM_MIN_PSNR_DB and the loss within
       DREAM_LOSS_REL_ERR.  Held at each image's median step: the step's
       update (lr times the normalised gradient) at >= DREAM_MIN_PSNR_DB of
@@ -148,13 +151,15 @@ def dream_card_vs_cpu(bundle, x: torch.Tensor, *, octaves: int = DREAM_DEFAULTS[
 
 
 def _stepwise(bundle, fwd, params, x: torch.Tensor, octaves: int) -> dict:
-    """The card's float32 dream of ``x`` one step at a time, each step run
-    on the CPU too from the card's input, in float32 and in float64 (see
+    """The card's float32 dream of ``x`` one step at a time through its
+    captured programs (``ModelBundle.dream_program``), each step run on the
+    CPU too from the card's input, in float32 and in float64 (see
     ``dream_card_vs_cpu``)."""
     lr = DREAM_DEFAULTS["lr"]
-    step = make_octave_runner(fwd, bundle.dream_layers, 1, lr)
+    step_cpu = make_octave_runner(fwd, bundle.dream_layers, 1, lr)
     p64 = tree_map(lambda t: t.double(), params["cpu"])
     shapes = octave_shapes(*x.shape[1:3], octaves, 1.4, bundle.min_dream_size)
+    rungs = bundle.dream_program(bundle.dream_layers, shapes, len(x))
     base = x.to("cuda")
     rel = {"card_vs_cpu": [], "cpu_vs_float64": [], "card_vs_float64": []}
     psnr, loss_rel, snr = [], [], []
@@ -167,28 +172,33 @@ def _stepwise(bundle, fwd, params, x: torch.Tensor, octaves: int) -> dict:
 
     t0 = time.perf_counter()
     card = None
-    for i, hw in enumerate(shapes):
-        prev = shapes[i - 1] if i else None
-        x_in = None if card is None else card.cpu()
-        card = _pyramid_step(card, base, hw, prev)
-        record(card.cpu(), *(_pyramid_step(None if x_in is None else x_in.to(dt), x.to(dt), hw, prev)
-                             for dt in (torch.float32, torch.float64)))
-        for _ in range(DREAM_DEFAULTS["steps"]):
-            x_in = card.cpu()
-            card, card_l = step(params["cuda"], card)
-            (want32, cpu_l), (want64, _) = step(params["cpu"], x_in), step(p64, x_in.double())
-            got = card.cpu()
-            record(got, want32, want64)
-            loss_rel.append(float(((card_l.cpu() - cpu_l).abs() / cpu_l.abs()).max()))
-            moved, want = (got.double() - x_in.double()).flatten(1), (want32.double() - x_in.double()).flatten(1)
-            snr.append(10 * torch.log10(want.square().sum(1) / (moved - want).square().sum(1)))
+    with bundle.dream_programs.replaying():
+        for i, (hw, (pyramid, step)) in enumerate(zip(shapes, rungs)):
+            prev = shapes[i - 1] if i else None
+            x_in = None if card is None else card.cpu()
+            start = pyramid(base) if card is None else pyramid(card, base)
+            record(start.cpu(), *(_pyramid_step(None if x_in is None else x_in.to(dt), x.to(dt), hw, prev)
+                                  for dt in (torch.float32, torch.float64)))
+            step.load(start)
+            step.static[1].fill_(lr)
+            card = step.static[0]
+            for _ in range(DREAM_DEFAULTS["steps"]):
+                x_in = card.cpu()
+                card_l = step.replay().cpu()
+                (want32, cpu_l), (want64, _) = step_cpu(params["cpu"], x_in), step_cpu(p64, x_in.double())
+                got = card.cpu()
+                record(got, want32, want64)
+                loss_rel.append(float(((card_l - cpu_l).abs() / cpu_l.abs()).max()))
+                moved, want = (got.double() - x_in.double()).flatten(1), (want32.double() - x_in.double()).flatten(1)
+                snr.append(10 * torch.log10(want.square().sum(1) / (moved - want).square().sum(1)))
+        finite = bool(torch.isfinite(card).all())
     over = {k: sum(v > DREAM_MAX_REL_ERR for v in vals) for k, vals in rel.items()}
     snr = torch.stack(snr)  # (steps, B)
     return {"compared": len(psnr) // len(x), "rel_err": {k: max(v) for k, v in rel.items()},
             "steps_over_rel_bar": over, "min_psnr_db": _db(min(psnr)), "loss_rel_err": max(loss_rel),
             "min_update_snr_db": _db(float(snr.min())),
             "median_update_snr_db": _db(float(snr.median(0).values.min())),
-            "finite": bool(torch.isfinite(card).all()), "seconds": time.perf_counter() - t0}
+            "finite": finite, "seconds": time.perf_counter() - t0}
 
 
 def _timed_dream(fwd, params, x, dev, dtype, kw):

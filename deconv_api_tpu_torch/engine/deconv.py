@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from deconv_api_tpu_torch import ops
 from deconv_api_tpu_torch._device import resolve_device
+from deconv_api_tpu_torch.engine.capture import BatchProgram
 from deconv_api_tpu_torch.models.spec import Entry, ModelSpec, entry_chain
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT, resolve_fused_unpool
 
@@ -311,7 +312,7 @@ def get_visualizer(
     sweep: bool = False,
     kpack_chan: int = 0,
 ):
-    """``fn(params, images)`` for images (B, H, W, C) ->
+    """A ``BatchProgram``, ``fn(params, images)`` for images (B, H, W, C) ->
     ``{layer: {"images": (B, K, H, W, C), "indices": (B, K),
     "sums": (B, K), "valid": (B, K)}}``, for ``layer_name`` alone or, with
     ``sweep=True``, for every projectable layer from it down, deepest
@@ -325,7 +326,8 @@ def get_visualizer(
     the K projections into the channels below the boundary where the
     signal has at most that many.  ``device`` is where it runs: ``cuda``
     unless ``"cpu"`` is passed (raises without a card); the params must
-    already be there, the images are moved."""
+    already be there.  ``fn`` moves the images there; ``fn.body(params,
+    x)``, what a capture records, takes a batch already there."""
     if mode not in ("all", "max"):
         raise ValueError(f"illegal visualize mode {mode!r}; expected 'all' or 'max'")
     if backward_dtype and backward_dtype not in _DTYPES:
@@ -344,11 +346,9 @@ def get_visualizer(
     if not sweep:
         vis = vis[:1]
     bwd_dtype = _DTYPES[backward_dtype] if backward_dtype else None
-    dev = resolve_device(device)
 
     @torch.no_grad()
-    def fn(params, images):
-        images = torch.as_tensor(images).to(dev)
+    def body(params, images):
         switches: dict = {}
         ups = _forward_chain(entries, params, images, switches)
         return {
@@ -359,4 +359,4 @@ def get_visualizer(
             for i in vis
         }
 
-    return fn
+    return BatchProgram(body, resolve_device(device))

@@ -9,21 +9,26 @@ the detail each downsampling lost.  The input is the only tensor that
 requires a gradient: the params stay plain tensors, so no weight gradient
 is computed.
 
-Where the reference runs the whole ladder as one jitted program, the port
-runs it eagerly: one forward and one ``torch.autograd.grad`` per ascent
-step.  The reference's ``mesh`` (data-parallel sharding of the batch) and
-``donate`` (XLA buffer donation) have no counterpart here, and neither has
-its padding of the batch to a power-of-two bucket, which only bounded its
-compile cache: the per-image normalisation makes each row's result
+Where the reference jits each octave (``_octave_jit``) or the whole
+ladder (``_dream_jit``), the port captures, per rung, the pyramid step and
+one ascent step (one forward and one ``torch.autograd.grad``) as CUDA
+graphs (``engine/capture.py``) and replays the step ``steps`` times.  The
+reference's ``mesh`` (data-parallel sharding of the batch) and ``donate``
+(XLA buffer donation) have no counterpart here.  The serving layer pads a
+batch to a power-of-two bucket, as the reference does, to bound the
+programs captured: the per-image normalisation makes each row's result
 independent of its batch-mates.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from deconv_api_tpu_torch._device import resolve_device
+from deconv_api_tpu_torch.engine.capture import CapturedProgram, ProgramCache
 from deconv_api_tpu_torch.models.blocks import INFERENCE_RULES
 
 
@@ -41,22 +46,31 @@ def activation_loss(forward_fn, params, x: torch.Tensor, layers: tuple[str, ...]
     return torch.stack(losses).mean(dim=0)
 
 
-def _ascend(forward_fn, params, x: torch.Tensor, layers: tuple[str, ...], steps: int, lr: float):
-    """``steps`` ascent steps from ``x``: the one loop shared by the
-    per-octave runner and the whole dream.  The differentiated scalar is
+def _ascent_step(forward_fn, params, x: torch.Tensor, layers: tuple[str, ...], lr) -> torch.Tensor:
+    """One ascent step of ``x`` (B, H, W, C), in place; returns the
+    per-image losses of x before its update.  The differentiated scalar is
     the sum of the per-image losses and the gradient is normalised per
     image by its mean magnitude, so a batch of B dreams evolves as B solo
-    dreams would.  Returns the stepped batch and the losses of the last
-    step's input, before its update."""
-    losses = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+    dreams would.  ``lr`` is a float or a 0-dim tensor on x's device (the
+    captured step's, so that a new lr needs no new capture)."""
     with torch.enable_grad():
-        for _ in range(steps):
-            xg = x.detach().requires_grad_(True)
-            per_image = activation_loss(forward_fn, params, xg, layers)
-            (g,) = torch.autograd.grad(per_image.sum(), xg)
-            norm = g.abs().mean(dim=tuple(range(1, g.ndim)), keepdim=True)
-            x = xg.detach() + lr * (g / (norm + 1e-8))
-            losses = per_image.detach()
+        xg = x.detach().requires_grad_(True)
+        per_image = activation_loss(forward_fn, params, xg, layers)
+        (g,) = torch.autograd.grad(per_image.sum(), xg)
+    with torch.no_grad():
+        norm = g.abs().mean(dim=tuple(range(1, g.ndim)), keepdim=True)
+        x.copy_(xg.detach() + lr * (g / (norm + 1e-8)))
+    return per_image.detach()
+
+
+def _ascend(forward_fn, params, x: torch.Tensor, layers: tuple[str, ...], steps: int, lr: float):
+    """``steps`` eager ascent steps from ``x``: the per-octave runner's
+    loop.  Returns the stepped batch (a new tensor) and the losses of the
+    last step's input, before its update."""
+    x = x.detach().clone()
+    losses = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+    for _ in range(steps):
+        losses = _ascent_step(forward_fn, params, x, layers, lr)
     return x, losses
 
 
@@ -114,6 +128,62 @@ def make_octave_runner(
     )
 
 
+def dream_programs(
+    programs: ProgramCache, forward_fn, params, layers: tuple[str, ...],
+    shapes: tuple[tuple[int, int], ...], base_shape: tuple[int, ...], dtype: torch.dtype,
+) -> list[tuple[CapturedProgram, CapturedProgram]]:
+    """Per rung of the octave ladder ``shapes``, its pyramid step and its
+    ascent step as captured programs of ``programs`` (captured at their
+    first use) for a batch of ``base_shape`` (B, H, W, C) in ``dtype``: the
+    counterpart of the reference's ``_octave_jit`` and ``_dream_jit``.  One
+    pyramid program per (out_hw, prev_hw, batch); one step program per
+    (rung, batch, layers, forward), whose static inputs are the batch,
+    which it updates in place so that its replays chain with no copy, and
+    lr as a 0-dim tensor; its output is the per-image losses.  ``steps``
+    and ``lr`` stay arguments (``run_dream_programs``), as the reference
+    traces them."""
+    dev = programs.device
+    b, c = base_shape[0], base_shape[-1]
+    zeros = functools.partial(torch.zeros, dtype=dtype, device=dev)
+    rungs = []
+    for i, hw in enumerate(shapes):
+        prev = shapes[i - 1] if i else None
+        if prev is None:  # the first rung resizes the base alone
+            make = lambda hw=hw: (lambda base: _pyramid_step(None, base, hw, None), (zeros(base_shape),))  # noqa: E731
+        else:
+            make = lambda hw=hw, prev=prev: (  # noqa: E731
+                lambda x, base: _pyramid_step(x, base, hw, prev), (zeros((b, *prev, c)), zeros(base_shape)))
+        pyramid = programs.get(("pyramid", hw, prev, tuple(base_shape), dtype), make)
+        step = programs.get(
+            ("step", hw, b, layers, dtype, forward_fn),
+            lambda hw=hw: (
+                lambda x, lr: _ascent_step(forward_fn, params, x, layers, lr), (zeros((b, *hw, c)), zeros(())),
+            ),
+        )
+        rungs.append((pyramid, step))
+    return rungs
+
+
+def run_dream_programs(rungs, base: torch.Tensor, steps: int, lr: float):
+    """A whole dream of ``base`` (on the programs' device) through
+    ``dream_programs``' rungs: each rung's pyramid step, then ``steps``
+    replays of its ascent step.  Returns (x, losses): the last step
+    program's static batch and its losses output (zeros for 0 steps),
+    which the next replay of the cache overwrites; call it, and read them,
+    inside the cache's ``replaying()``."""
+    x = losses = None
+    for i, (pyramid, step) in enumerate(rungs):
+        start = pyramid(base) if i == 0 else pyramid(x, base)
+        step.load(start)
+        step.static[1].fill_(lr)
+        for _ in range(steps):
+            losses = step.replay()
+        x = step.static[0]
+    if losses is None:
+        losses = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+    return x, losses
+
+
 def deepdream_batch(
     forward_fn,
     params,
@@ -134,6 +204,11 @@ def deepdream_batch(
     params must already be there) in ``dtype`` (the reference's float32;
     float64 for a reference run, with the params in float64 too).
 
+    It runs through captured programs (``dream_programs``) of a cache of
+    this call alone; a server keeps its programs for later dreams of the
+    same shape (``ModelBundle.dream_programs``).  On the CPU the same steps
+    run through the same static buffers.
+
     ``forward_fn(params, x, *, rules) -> (out, acts)`` must accept every
     rung's size: a DAG forward as it is, a sequential spec truncated below
     its flatten and dense head (``spec_forward(spec.truncated(deepest))``).
@@ -142,11 +217,11 @@ def deepdream_batch(
     dev = resolve_device(device)
     base = torch.as_tensor(images).to(dev, dtype)
     shapes = octave_shapes(*base.shape[1:3], num_octaves, octave_scale, min_size)
-    x, losses = base, None
-    for i, hw in enumerate(shapes):
-        x = _pyramid_step(x, base, hw, shapes[i - 1] if i else None)
-        x, losses = _ascend(forward_fn, params, x, tuple(layers), steps_per_octave, lr)
-    return x, losses
+    cache = ProgramCache(dev)
+    rungs = dream_programs(cache, forward_fn, params, tuple(layers), shapes, tuple(base.shape), dtype)
+    with cache.replaying():
+        x, losses = run_dream_programs(rungs, base, steps_per_octave, lr)
+        return x.clone(), losses.clone()
 
 
 def deepdream(forward_fn, params, image, *, layers: tuple[str, ...], **kw):

@@ -21,18 +21,34 @@ from deconv_api_tpu_torch.ops.linear import (
 from deconv_api_tpu_torch.ops.pool import maxpool_with_argmax, unpool_with_argmax
 
 
+# CUDA graphs captured and replayed (engine/capture.py).  A wrapper called
+# inside a capture records its kernel into the graph and launches nothing:
+# the capture takes that count back, and every replay adds the graph's
+# kernels, so ``launch_counts()`` counts launches on the card.
+graph_counts = {"captures": 0, "replays": 0}
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
     return {**cuda_pool.launches, **cuda_deconv.launches}
 
 
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches, possibly negative)."""
+    for name, n in counts.items():
+        table = cuda_pool.launches if name in cuda_pool.launches else cuda_deconv.launches
+        table[name] += n
+
+
 def reset_launch_counts() -> None:
-    for counts in (cuda_pool.launches, cuda_deconv.launches):
+    """Zero the kernel launch counts and the graph counts."""
+    for counts in (cuda_pool.launches, cuda_deconv.launches, graph_counts):
         for name in counts:
             counts[name] = 0
 
 
 __all__ = [
+    "add_launch_counts",
     "apply_activation",
     "conv2d",
     "conv2d_input_backward",
@@ -42,6 +58,7 @@ __all__ = [
     "flatten",
     "flip_kernel",
     "fused_unpool_backward",
+    "graph_counts",
     "launch_counts",
     "maxpool_with_argmax",
     "reset_launch_counts",

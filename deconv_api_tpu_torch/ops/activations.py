@@ -20,7 +20,15 @@ import torch
 @functools.lru_cache(maxsize=None)
 def _const(value: float, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """A 0-dim constant, made once per dtype and device (no fill launch a
-    call)."""
+    call).  Never first made inside a CUDA graph capture: the tensor would
+    live in the graph's memory pool and hold no value until a replay, and
+    eager code reusing it would read garbage.  The warm-up runs before every
+    capture (``engine/capture.py``) make each one the body uses."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"_const({value}, {dtype}) first used inside a CUDA graph capture; "
+            "run the body eagerly before capturing it"
+        )
     return torch.full((), value, dtype=dtype, device=device)
 
 

@@ -86,7 +86,10 @@ def pool_plan(x_shape, itemsize: int, pool_size, x_ptr: int) -> PoolPlan:
     thread per pooled pixel (trailing rows and cols that fill no window
     have none) and channel vector.  The outputs are fresh allocations, so
     only the input's alignment matters; the wrapper passes its pointer
-    modulo VECTOR_BYTES, so plans cache by shape."""
+    modulo VECTOR_BYTES, so plans cache by shape.  Inside a CUDA graph the
+    plan is taken once, at the capture: that is sound because a graph
+    replays on the addresses it was captured with (``engine/capture.py``),
+    so the alignment the plan read holds on every replay."""
     b, h, w, c = x_shape
     ph, pw = pool_size
     lanes = _vector_lanes(itemsize, pool_size, c, (x_ptr,), ())

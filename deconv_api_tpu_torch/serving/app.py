@@ -19,7 +19,8 @@ model's name, else 422 ``unknown_model``.
 Request threads decode and preprocess on the host, then hand the image to
 a dispatcher thread, which coalesces concurrent requests for the same
 program into one batch of up to ``max_batch`` within a window and runs it
-on the device.  Deconv programs (layer, mode, top_k, presentation, sweep)
+on the device as the captured program of its power-of-two bucket
+(``serving/batcher.py``, ``engine/capture.py``).  Deconv programs (layer, mode, top_k, presentation, sweep)
 and dreams (layers, steps, octaves, lr) have a dispatcher each, so a dream
 that runs for seconds never holds a ``POST /`` back.  The request thread
 encodes its own images.  The service's ``lowc_kpack`` policy applies to
@@ -46,9 +47,10 @@ import torch
 
 from deconv_api_tpu_torch import errors
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
-from deconv_api_tpu_torch.engine.deepdream import deepdream_batch
+from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_programs
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
+from deconv_api_tpu_torch.serving.batcher import buckets, pad_bucket, pad_to_bucket
 from deconv_api_tpu_torch.serving.models import ModelBundle
 
 log = logging.getLogger(__name__)
@@ -183,7 +185,9 @@ class DeconvService:
         resolve_kpack_chan(lowc_kpack, DEFAULT_TOP_K)
         self.bundle = bundle
         self.lowc_kpack = lowc_kpack
+        self.max_batch = max_batch
         self.ready = False
+        self.warmup_wall_s: float | None = None
         self.dispatcher = Dispatcher(
             self._run_deconv_batch, max_batch=max_batch, window_ms=batch_window_ms,
             name="deconv-dispatch",
@@ -214,19 +218,24 @@ class DeconvService:
         serving settings (bf16 backward, bug_compat; a DAG model ignores
         both and projects in fp32); ``post`` is ``program.post``, uint8
         (B, 2H, 2W, 3) grids or (B, K, H, W, 3) tiles.  ``lowc_kpack``
-        defaults to the service's policy."""
-        fn = self.bundle.batched_visualizer(
-            program.layer, program.mode, program.top_k, bug_compat=True,
+        defaults to the service's policy.  The batch runs as the captured
+        program of its bucket (``pad_bucket`` of ``max_batch``), its tail
+        padded with the last image; only the B real rows come back."""
+        n = len(xs)
+        bucket = pad_bucket(n, self.max_batch)
+        batch = torch.from_numpy(pad_to_bucket(xs, bucket))
+        prog = self.bundle.program(
+            program.layer, program.mode, program.top_k, bucket, bug_compat=True,
             backward_dtype="bfloat16", post=program.post, fused_unpool=fused_unpool,
-            sweep=program.sweep,
-            lowc_kpack=self.lowc_kpack if lowc_kpack is None else lowc_kpack,
+            sweep=program.sweep, lowc_kpack=self.lowc_kpack if lowc_kpack is None else lowc_kpack,
         )
-        batch = torch.from_numpy(np.ascontiguousarray(xs, dtype=np.float32))
-        out = fn(self.bundle.params, batch.to(self.bundle.device))
-        return {
-            name: {k: entry[k].cpu().numpy() for k in (program.post, "valid", "indices")}
-            for name, entry in out.items()
-        }
+        with self.bundle.programs.replaying():
+            out = prog(batch)
+            # copied out before the next replay overwrites the outputs
+            return {
+                name: {k: _host(entry[k][:n]) for k in (program.post, "valid", "indices")}
+                for name, entry in out.items()
+            }
 
     def _run_deconv_batch(self, program: Program, xs: np.ndarray) -> list[dict]:
         out = self.run_program(program, xs)
@@ -238,15 +247,18 @@ class DeconvService:
     def run_dream(self, dream: Dream, xs: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """Preprocessed images (B, H, W, 3) -> (dreamed images (B, H, W, 3)
         fp32 in model-input space, final losses (B,)) as numpy, the whole
-        batch on one octave ladder of the bundle's ``min_dream_size``."""
+        batch on one octave ladder of the bundle's ``min_dream_size``,
+        through the captured programs of its bucket (``pad_bucket`` of
+        ``DREAM_MAX_BATCH``), its tail padded with the last image."""
         bundle = self.bundle
-        out, losses = deepdream_batch(
-            bundle.dream_forward(dream.layers), bundle.params,
-            torch.from_numpy(np.ascontiguousarray(xs, dtype=np.float32)),
-            layers=dream.layers, steps_per_octave=dream.steps, num_octaves=dream.octaves,
-            lr=dream.lr, min_size=bundle.min_dream_size, device=bundle.device,
-        )
-        return out.cpu().numpy(), losses.cpu().numpy()
+        n = len(xs)
+        bucket = pad_bucket(n, DREAM_MAX_BATCH)
+        base = torch.from_numpy(pad_to_bucket(xs, bucket))
+        ladder = octave_shapes(*base.shape[1:3], dream.octaves, 1.4, bundle.min_dream_size)
+        rungs = bundle.dream_program(dream.layers, ladder, bucket)
+        with bundle.dream_programs.replaying():
+            out, losses = run_dream_programs(rungs, base.to(bundle.device), dream.steps, dream.lr)
+            return _host(out[:n]), _host(losses[:n])
 
     def _run_dream_batch(self, dream: Dream, xs: np.ndarray) -> list[dict]:
         out, losses = self.run_dream(dream, xs)
@@ -256,14 +268,45 @@ class DeconvService:
         """The ``POST /`` program on a batch: ``{"grid", "valid", "indices"}``."""
         return self.run_program(Program(layer), xs, fused_unpool)[layer]
 
-    def warmup(self) -> None:
-        """Run one batch at the bundle's deepest layer (builds the kernels
-        on first use), then mark the service ready."""
+    def warmup_programs(self) -> list[tuple[Program | Dream, int]]:
+        """What the card's warmup captures, as (program, bucket): the grid
+        and the tiles programs at the bundle's deepest layer at every
+        deconv bucket, and the default dream at every dream bucket where
+        the model has dream layers (the reference's
+        ``warmup_all_buckets``)."""
+        layer = self.bundle.deepest_layer()
+        out = [(p, b) for b in buckets(self.max_batch)
+               for p in (Program(layer), Program(layer, top_k=DEFAULT_TOP_K, post="tiles"))]
+        if self.bundle.dream_layers:
+            out += [(Dream(self.bundle.dream_layers), b) for b in buckets(DREAM_MAX_BATCH)]
+        return out
+
+    def warm(self, program: Program | Dream, bucket: int) -> None:
+        """Run ``program`` once on a zero batch of ``bucket`` images, which
+        captures it on the card."""
         size = self.bundle.image_size
-        gen = np.random.default_rng(0)
-        self.visualize_batch(
-            self.bundle.deepest_layer(), gen.normal(0, 50, (1, size, size, 3)).astype(np.float32)
-        )
+        xs = np.zeros((bucket, size, size, 3), np.float32)
+        if isinstance(program, Dream):
+            self.run_dream(program, xs)
+        else:
+            self.run_program(program, xs)
+
+    def warmup(self) -> None:
+        """Make the programs a first request would wait for, then mark the
+        service ready (the reference's warmup).  On the card: ``warm``
+        every entry of ``warmup_programs``.  On the CPU, where nothing is
+        captured and boots stay fast: one batch-1 grid.  ``warmup_wall_s``
+        is the time it took."""
+        t0 = time.perf_counter()
+        bundle = self.bundle
+        if bundle.device.type == "cuda":
+            for program, bucket in self.warmup_programs():
+                self.warm(program, bucket)
+        else:
+            size = bundle.image_size
+            gen = np.random.default_rng(0)
+            self.visualize_batch(bundle.deepest_layer(), gen.normal(0, 50, (1, size, size, 3)).astype(np.float32))
+        self.warmup_wall_s = time.perf_counter() - t0
         self.ready = True
 
     # --- dispatchers -----------------------------------------------------
@@ -394,6 +437,13 @@ class DeconvService:
             "loss": loss if math.isfinite(loss) else None,  # NaN and inf are not JSON
             "image": codec.encode_data_url(self.bundle.unpreprocess(result["image"])),
         }
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A copy of ``t`` on the host: never a view of a program's output,
+    which its next replay overwrites (on the CPU ``.cpu()`` alone would
+    be one)."""
+    return t.to("cpu", copy=True).numpy()
 
 
 def _wait(future: concurrent.futures.Future, timeout_s: float):

@@ -17,13 +17,16 @@ inverse preprocessing, and ``dream_forward``."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import torch
 
 from deconv_api_tpu_torch._device import resolve_device
 from deconv_api_tpu_torch.engine.autodeconv import autodeconv_visualizer
+from deconv_api_tpu_torch.engine.capture import BatchProgram, CapturedProgram, ProgramCache
 from deconv_api_tpu_torch.engine.deconv import get_visualizer, resolve_kpack_chan
+from deconv_api_tpu_torch.engine.deepdream import dream_programs
 from deconv_api_tpu_torch.models import inception_v3, mobilenet_v1, mobilenet_v2, resnet50
 from deconv_api_tpu_torch.models.apply import spec_forward
 from deconv_api_tpu_torch.models.blocks import DECONV_RULES
@@ -32,7 +35,7 @@ from deconv_api_tpu_torch.models.tiny import VGG_TINY_SPEC
 from deconv_api_tpu_torch.models.vgg16 import VGG16_SPEC
 from deconv_api_tpu_torch.models.vgg19 import VGG19_SPEC
 from deconv_api_tpu_torch.models.weights import tree_map
-from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
+from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT, resolve_fused_unpool
 from deconv_api_tpu_torch.serving import codec
 
 
@@ -54,8 +57,15 @@ class ModelBundle:
     unpreprocess: Callable = codec.unpreprocess_vgg  # model input -> BGR uint8
     _acts: tuple[str, ...] | None = dataclasses.field(default=None, repr=False)
     _dream_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    _vis_cache: dict = dataclasses.field(default_factory=dict, repr=False)
+    # the captured programs of the deconv dispatcher and of the dream one:
+    # a memory pool each, since the two run at the same time
+    programs: ProgramCache = dataclasses.field(init=False, repr=False)
+    dream_programs: ProgramCache = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
+        self.programs = ProgramCache(self.device)
+        self.dream_programs = ProgramCache(self.device)
         if self.spec is not None:
             self.name = self.name or self.spec.name
             self.image_size = self.image_size or self.spec.input_shape[0]
@@ -157,7 +167,13 @@ class ModelBundle:
         ``post=None`` keeps the raw projections.  ``lowc_kpack``
         (off|auto|forced|<chan>) sets the packed tail of a spec; a DAG model
         validates it and ``fused_unpool`` and leaves both inert, and
-        ignores ``bug_compat`` and ``backward_dtype``."""
+        ignores ``bug_compat`` and ``backward_dtype``.  A ``BatchProgram``,
+        made once per setting (the reference's ``_vis_cache``)."""
+        key = self._vis_key(layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep,
+                            lowc_kpack)
+        fn = self._vis_cache.get(key)
+        if fn is not None:
+            return fn
         self.check_layer(layer)
         if post not in (None, "grid", "tiles"):
             raise ValueError(f"illegal post {post!r}; expected None, 'grid' or 'tiles'")
@@ -174,16 +190,62 @@ class ModelBundle:
                 device=self.device, sweep=sweep,
                 kpack_chan=resolve_kpack_chan(lowc_kpack, top_k),
             )
-        return raw if post is None else _fuse_post(raw, post)
+        fn = self._vis_cache[key] = raw if post is None else _fuse_post(raw, post)
+        return fn
+
+    def _vis_key(self, layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack):
+        """Everything that changes a visualizer, as ``batched_visualizer``
+        resolves it (a DAG model validates the sequential engine's knobs and
+        ignores them)."""
+        fused_unpool, kpack_chan = resolve_fused_unpool(fused_unpool), resolve_kpack_chan(lowc_kpack, top_k)
+        if self.spec is None:
+            return (self.name, layer, mode, top_k, post, sweep)
+        return (self.name, layer, mode, top_k, post, sweep, fused_unpool, kpack_chan, bool(bug_compat),
+                backward_dtype or None)
+
+    def program(
+        self, layer: str, mode: str, top_k: int, bucket: int, *, bug_compat: bool = True,
+        backward_dtype: str | None = None, post: str | None = None,
+        fused_unpool: str = FUSED_DEFAULT, sweep: bool = False, lowc_kpack: str = "off",
+    ) -> CapturedProgram:
+        """The captured ``batched_visualizer`` program of these settings at a
+        batch of ``bucket`` images (``program(batch)`` loads a (bucket, H, W,
+        3) batch and replays), from ``self.programs``: captured at its first
+        use, kept per (program key, bucket).  Replay it and read its outputs
+        inside ``self.programs.replaying()``."""
+        vis = self.batched_visualizer(
+            layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack
+        )
+        shape = (bucket, self.image_size, self.image_size, 3)
+        key = ("deconv", *self._vis_key(layer, mode, top_k, bug_compat, backward_dtype, post,
+                                        fused_unpool, sweep, lowc_kpack), bucket, shape)
+        return self.programs.get(
+            key, lambda: (functools.partial(vis.body, self.params), (vis.static_input(shape),))
+        )
+
+    def dream_program(
+        self, layers: tuple[str, ...], ladder: tuple[tuple[int, int], ...], bucket: int
+    ) -> list[tuple[CapturedProgram, CapturedProgram]]:
+        """The captured programs of a float32 dream of ``layers`` over the
+        octave ``ladder`` (its last rung the image size) at a batch of
+        ``bucket`` images, from ``self.dream_programs``: per rung, its
+        pyramid step and its ascent step (``engine/deepdream.py:
+        dream_programs``), run by ``run_dream_programs`` inside
+        ``self.dream_programs.replaying()``."""
+        layers = tuple(layers)
+        return dream_programs(
+            self.dream_programs, self.dream_forward(layers), self.params, layers, tuple(ladder),
+            (bucket, *ladder[-1], 3), torch.float32,
+        )
 
 
-def _fuse_post(raw, post: str):
+def _fuse_post(raw: BatchProgram, post: str) -> BatchProgram:
     """Compose the visualizer with the device postprocess: each projected
     layer's fp32 ``images`` become its uint8 ``grid`` or ``tiles``."""
 
     def fused(params, batch):
         result = {}
-        for name, entry in raw(params, batch).items():
+        for name, entry in raw.body(params, batch).items():
             out = dict(entry)
             images = out.pop("images")
             if post == "grid":
@@ -193,7 +255,7 @@ def _fuse_post(raw, post: str):
             result[name] = out
         return result
 
-    return fused
+    return dataclasses.replace(raw, body=fused)
 
 
 def _spec_bundle(spec: ModelSpec, dream_layers: tuple[str, ...]):

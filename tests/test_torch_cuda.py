@@ -354,3 +354,198 @@ def test_mobilenet_v1_dream_on_the_card_matches_its_cpu_run(dev):
     out = dream_card_vs_cpu(bundle, x, octaves=2)
     assert out["float32_stepwise"]["compared"] == 22 and out["float64"]["finite"] and out["images"] == 2
     assert not any(ops.launch_counts().values())
+
+
+# --- captured programs ----------------------------------------------------------------
+
+
+def _tiny_bundle(dev):
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    bundle = build_bundle("vgg_tiny", dev)
+    bundle.dream_layers = ("block2_conv2", "block3_conv1")
+    return bundle
+
+
+def _same_tree(got, want):
+    """Equal bits leaf by leaf in a {layer: {name: tensor}} tree."""
+    assert list(got) == list(want)
+    for name in want:
+        for k in want[name]:
+            assert torch.equal(_bits(got[name][k].cpu()), _bits(want[name][k].cpu())), (name, k)
+
+
+@pytest.mark.parametrize("fused_unpool,post", [("off", "grid"), ("auto", "grid"), ("off", None)])
+def test_captured_vgg_tiny_program_holds_the_kernels_and_equals_its_eager_run(dev, fused_unpool, post):
+    bundle = _tiny_bundle(dev)
+    settings = dict(bug_compat=True, backward_dtype="bfloat16", post=post, fused_unpool=fused_unpool)
+    prog = bundle.program("block3_conv1", "all", 4, 2, **settings)
+    eager = bundle.batched_visualizer("block3_conv1", "all", 4, **settings)
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(1)) * 50
+    assert prog.graph is not None and prog.kernels["pool_argmax"] == 2
+    assert prog.kernels.get("fused_unpool_conv" if fused_unpool == "auto" else "unpool_argmax", 0) > 0
+    ops.reset_launch_counts()
+    with bundle.programs.replaying():
+        got = prog(x)
+        counts = ops.launch_counts()  # the replay's, before the eager run adds its own
+        _same_tree(got, eager(bundle.params, x))
+    assert ops.graph_counts == {"captures": 0, "replays": 1}
+    assert all(counts[k] == prog.kernels.get(k, 0) for k in counts)
+
+
+def test_captured_packed_tail_holds_the_grouped_kernels(dev):
+    bundle = _tiny_bundle(dev)
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(2)) * 50
+    for fused_unpool, kernel in (("auto", "fused_unpool_conv_grouped"), ("off", "unpool_argmax_grouped")):
+        settings = dict(backward_dtype="bfloat16", post="tiles", fused_unpool=fused_unpool, lowc_kpack="forced")
+        prog = bundle.program("block3_conv1", "all", 8, 2, **settings)
+        assert prog.kernels.get(kernel, 0) > 0
+        with bundle.programs.replaying():
+            _same_tree(prog(x), bundle.batched_visualizer("block3_conv1", "all", 8, **settings)(bundle.params, x))
+
+
+def test_a_program_captured_once_replays_three_times(dev):
+    bundle = _tiny_bundle(dev)
+    settings = dict(backward_dtype="bfloat16", post="grid")
+    prog = bundle.program("block3_conv1", "all", 4, 2, **settings)
+    eager = bundle.batched_visualizer("block3_conv1", "all", 4, **settings)
+    ops.reset_launch_counts()
+    for seed in range(3):
+        x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(10 + seed)) * 50
+        with bundle.programs.replaying():
+            got = prog(x)
+            _same_tree(got, eager(bundle.params, x))
+    assert ops.graph_counts == {"captures": 0, "replays": 3}
+    # three replays and three eager runs, each launching K1 twice
+    assert ops.launch_counts()["pool_argmax"] == 3 * 2 * prog.kernels["pool_argmax"]
+
+
+def test_two_programs_interleaved_in_a_shared_pool(dev):
+    """Two programs of one cache (one memory pool), replayed in turns,
+    each read before the other replays: both stay right."""
+    bundle = _tiny_bundle(dev)
+    progs = {
+        k: (bundle.program("block3_conv1", "all", k, 2, backward_dtype="bfloat16", post=post),
+            bundle.batched_visualizer("block3_conv1", "all", k, True, "bfloat16", post))
+        for k, post in ((4, "grid"), (8, "tiles"))
+    }
+    for seed in range(2):
+        x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(20 + seed)) * 50
+        for prog, eager in progs.values():
+            with bundle.programs.replaying():
+                _same_tree(prog(x), eager(bundle.params, x))
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: without them two eager runs of a
+    DAG backward or a dream step differ in their last bits on the card, so
+    a capture could not be held to its eager run bit for bit."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = prev
+
+
+def test_captured_dag_program_equals_its_eager_run(dev, deterministic_cudnn):
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    bundle = build_bundle("mobilenet_v2", dev)
+    bundle.image_size = 64
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator().manual_seed(3))
+    for sweep in (False, True):
+        prog = bundle.program("block_6_expand_relu", "all", 4, 2, sweep=sweep)
+        assert prog.graph is not None and not prog.kernels
+        eager = bundle.batched_visualizer("block_6_expand_relu", "all", 4, sweep=sweep)
+        with bundle.programs.replaying():
+            _same_tree(prog(x), eager(bundle.params, x))
+
+
+def test_captured_dream_step_equals_one_eager_step(dev, deterministic_cudnn):
+    from deconv_api_tpu_torch.engine.deepdream import _ascend, run_dream_programs
+
+    bundle = _tiny_bundle(dev)
+    layers = bundle.dream_layers
+    rungs = bundle.dream_program(layers, ((23, 23), (32, 32)), 2)
+    _, step = rungs[1]
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(4), device="cpu").to(dev)
+    with bundle.dream_programs.replaying():
+        step.load(x, torch.tensor(0.01))
+        losses = step.replay().clone()
+        got = step.static[0].clone()
+    want, want_l = _ascend(bundle.dream_forward(layers), bundle.params, x, layers, 1, 0.01)
+    assert torch.equal(got, want) and torch.equal(losses, want_l)
+
+    base = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(5)).to(dev)
+    from deconv_api_tpu_torch.engine.deepdream import deepdream_batch
+
+    with bundle.dream_programs.replaying():
+        got_x, got_l = (t.clone() for t in run_dream_programs(rungs, base, 3, 0.01))
+    want_x, want_l = deepdream_batch(bundle.dream_forward(layers), bundle.params, base, layers=layers,
+                                     steps_per_octave=3, num_octaves=2, min_size=16, device=dev)
+    assert torch.equal(got_x, want_x) and torch.equal(got_l, want_l)
+
+
+def test_const_is_never_made_inside_a_capture(dev):
+    """``ops/activations.py:_const`` raises on a first use inside a
+    capture; a captured body that uses it gets it from its warm-up runs,
+    in every dtype it runs (bf16 too), so the cache holds real values."""
+    from deconv_api_tpu_torch.engine.capture import CapturedProgram
+    from deconv_api_tpu_torch.ops.activations import _const, relu6
+
+    _const.cache_clear()
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="inside a CUDA graph capture"):
+        with torch.cuda.graph(graph):
+            _const(0.0, torch.float32, dev)
+    del graph
+    x32 = torch.zeros((4, 8), device=dev)
+    prog = CapturedProgram(lambda x: (relu6(x * 10), relu6(x.to(torch.bfloat16) * 10)), (x32,))
+    for value in (0.0, 6.0):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert float(_const(value, dtype, dev)) == value
+    v = torch.linspace(-2, 2, 32, device=dev).reshape(4, 8)
+    got32, got16 = prog(v)
+    assert torch.equal(got32, torch.clamp(v * 10, 0, 6))
+    assert torch.equal(got16, torch.clamp(v.to(torch.bfloat16) * 10, 0, 6))
+
+
+def test_two_caches_capture_on_two_threads_at_once(dev):
+    """Two caches (two pools, as the deconv and dream dispatchers have)
+    miss on two threads at the same time, each miss allocating static
+    tensors of a new size while the other thread may be capturing: no
+    capture is invalidated, and every program replays its eager result."""
+    import threading
+
+    from deconv_api_tpu_torch.engine.capture import ProgramCache
+
+    def body(x):
+        return torch.relu(x * 3 - 1) + x.square()
+
+    caches = [ProgramCache(dev), ProgramCache(dev)]
+    start, failures = threading.Barrier(2), []
+
+    def capture(cache, offset):
+        try:
+            start.wait()
+            for i in range(8):
+                n = 512 * (i + 1) + offset  # a new size each miss: new allocations
+                cache.get(n, lambda n=n: (body, (torch.zeros((4, n, 256), device=dev),)))
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(e)
+
+    threads = [threading.Thread(target=capture, args=(c, 16 * k)) for k, c in enumerate(caches)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failures
+    gen = torch.Generator().manual_seed(6)
+    for cache in caches:
+        assert len(cache) == 8
+        for n, prog in cache.programs().items():
+            assert prog.graph is not None
+            x = torch.randn((4, n, 256), generator=gen).to(dev)
+            with cache.replaying():
+                got = prog(x).clone()
+            assert torch.equal(got, body(x))
