@@ -54,7 +54,12 @@ Phases, each printing JSON lines:
    batch-4 and batch-1 InceptionV3 dreams, with one profiled call.  No
    hand-written kernel lies on the dream path: its counts must stay 0.
 9. capture: every captured program against its eager run and each padded
-   row against its solo run (``phase_capture``), and what the graphs hold.
+   row against its solo run (``phase_capture``), and what the graphs hold;
+10. multi_model: one server of vgg16 (default), resnet50 (pinned),
+   inception_v3 and mobilenet_v2 under a weight budget that holds three,
+   whose requests page models out and in, each step's residency held
+   against a CPU replay through the port's manager, then VGG16 paged out
+   and served from graphs captured anew (``phase_multi_model``).
 Every route serves through captured CUDA graphs, one per
 program and bucket (``engine/capture.py``): each server's warmup captures
 every bucket of both route defaults and of the default dream before
@@ -536,27 +541,19 @@ def summed_row(sites: list, source: str, replaces: str) -> dict:
     }
 
 
-def pool_bytes(torch, pool):
-    """Device memory the caching allocator holds in the graph memory pool
-    ``pool`` (its segments' sizes, from ``torch.cuda.memory_snapshot``)."""
-    segments = torch.cuda.memory_snapshot()
-    if not segments or "segment_pool_id" not in segments[0]:
-        return "not measured"
-    return sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) == tuple(pool))
-
-
-def warmup_report(torch, service, reserved_before: int) -> dict:
-    """What a server's warmup captured before ``/ready``: its wall time,
-    the programs of both caches, and the device memory reserved after it
-    (in all, and more than ``reserved_before``, before the boot).
+def warmup_report(torch, service, reserved_before: int, bundle=None) -> dict:
+    """What a server's warmup captured before ``/ready`` for ``bundle``
+    (default: the default model's): its wall time, the programs of both
+    caches, and the device memory reserved after it (in all, and more than
+    ``reserved_before``, before the boot).
     Fails unless every deconv bucket of both route defaults (grid top-4,
     tiles top-8 at the deepest layer) and, where the model has dream
     layers, the default dream at every dream bucket, were captured."""
     from deconv_api_tpu_torch.engine.deepdream import octave_shapes
-    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, DREAM_DEFAULTS, DREAM_MAX_BATCH, STITCH_K
+    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, DREAM_DEFAULTS, DREAM_MAX_BATCH, STITCH_K, pool_bytes
     from deconv_api_tpu_torch.serving.batcher import buckets
 
-    bundle = service.bundle
+    bundle = bundle or service.bundle
     layer, size = bundle.deepest_layer(), bundle.image_size
     deconv = {(k[2], k[4], k[5], k[-2]) for k in bundle.programs.keys()}
     want = {(layer, top_k, post, b) for b in buckets(service.max_batch)
@@ -567,8 +564,8 @@ def warmup_report(torch, service, reserved_before: int) -> dict:
     graphs = [p for c in (bundle.programs, bundle.dream_programs) for p in c.programs().values()]
     out = {"model": bundle.name, "ready": service.ready, "warmup_wall_s": service.warmup_wall_s,
            "deconv_programs": len(bundle.programs), "dream_programs": len(bundle.dream_programs),
-           "deconv_pool_bytes": pool_bytes(torch, bundle.programs.pool),
-           "dream_pool_bytes": pool_bytes(torch, bundle.dream_programs.pool),
+           "deconv_pool_bytes": pool_bytes(bundle.programs.pool),
+           "dream_pool_bytes": pool_bytes(bundle.dream_programs.pool),
            "graphs": sum(p.graph is not None for p in graphs),
            "capture_s": sum(p.capture_s for p in graphs),
            "reserved_bytes": torch.cuda.memory_reserved(),
@@ -1680,6 +1677,218 @@ def phase_capture(torch, vgg16, dag: dict, dream: dict, xs, label: str) -> None:
         raise AssertionError(f"capture phase: {len(failed)} bar(s) missed: {failed}")
 
 
+# --- phase 10 ------------------------------------------------------------------
+
+MULTI_SERVED = ("vgg16", "resnet50", "inception_v3", "mobilenet_v2")
+MULTI_LAYERS = {"vgg16": "block5_conv1", "resnet50": "conv5_block3_out", "inception_v3": "mixed10",
+                "mobilenet_v2": "out_relu"}
+
+
+def pool_blocks(torch, pool) -> list:
+    """The blocks of the graph memory pool ``pool`` still allocated, as
+    (size, state): what keeps its segments from being freed."""
+    return [(b["size"], b["state"]) for seg in torch.cuda.memory_snapshot()
+            if tuple(seg.get("segment_pool_id", ())) == tuple(pool)
+            for b in seg["blocks"] if b["state"] != "inactive"]
+
+
+class _SizedBundle:
+    """A model whose weights are one f32 tensor of ``nbytes`` on the CPU:
+    the stand-in for a served model in the CPU replay of the multi-model
+    server's residency."""
+
+    def __init__(self, torch, name: str, nbytes: int):
+        self.name, self.device = name, torch.device("cpu")
+        self.params = {"w": torch.empty(nbytes // 4)}
+        self.weight_dtype, self.managed, self.stored = "f32", False, None
+
+    def page_out(self) -> None:
+        self.stored = None
+
+
+def phase_multi_model(torch, uris: list, label: str) -> dict:
+    """One server of four models on the card under a budget that holds three
+    (VGG16 the default, ResNet50 pinned, InceptionV3 and MobileNet v2 on
+    demand): requests InceptionV3, MobileNet v2 (which evicts InceptionV3),
+    InceptionV3 (which evicts MobileNet v2), VGG16, ResNet50 and a small
+    InceptionV3 dream, each step's residency and page counts held against
+    a CPU replay of the same sequence through the port's manager; then
+    VGG16 unpinned and paged out under a lowered budget, and served again
+    from graphs captured anew.  Checks: the evicted models' weights, graphs
+    and pools freed, InceptionV3's grid after its page-in against its grid
+    before, VGG16's byte-equal under ``cudnn.deterministic`` (both its
+    captures ran under it), K1 and K2 in VGG16's new graphs, and no model
+    with a batch in flight ever evicted."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
+    from deconv_api_tpu_torch.serving.app import pool_bytes
+    from deconv_api_tpu_torch.serving.models import build_bundle
+    from deconv_api_tpu_torch.serving.weight_manager import WeightManager, tree_nbytes
+
+    sizes = {m: tree_nbytes(build_bundle(m, "cpu").params) for m in MULTI_SERVED}
+    budget = sizes["vgg16"] + sizes["resnet50"] + sizes["inception_v3"] + sizes["mobilenet_v2"] // 2
+    replay = WeightManager({m: (lambda m=m: _SizedBundle(torch, m, sizes[m])) for m in MULTI_SERVED}, "vgg16",
+                           pinned=("resnet50",), budget_bytes=budget)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # VGG16's boot graphs
+    torch.cuda.empty_cache()
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
+    server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda", "--max-batch", str(B),
+                           "--serve-models", ",".join(MULTI_SERVED), "--pinned-models", "resnet50",
+                           "--hbm-budget-bytes", str(budget)])
+    boot_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = deterministic
+    service, port = server.service, server.server_address[1]
+    weights = service.weights
+    warm = {m: warmup_report(torch, service, reserved0, weights.peek_bundle(m)) for m in ("vgg16", "resnet50")}
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    for m in ("vgg16", "resnet50"):  # the warmup's checkouts
+        replay.checkout(m)
+        replay.release(m)
+    steps, per_model = [], {}
+
+    def step(what: str, model: str | None = None) -> None:
+        """``model``'s checkout in the replay, then both snapshots held equal."""
+        if model is not None:
+            replay.checkout(model)
+            replay.release(model)
+        got, want = weights.snapshot(), replay.snapshot()
+        if got != want:
+            raise AssertionError(f"multi_model after {what}: server {got}, CPU replay {want}")
+        steps.append({"step": what, "resident": got["lanes"]["0"]["resident"], "bytes": got["lanes"]["0"]["bytes"],
+                      "page_ins": got["page_ins"], "page_outs": got["page_outs"], "overcommits": got["overcommits"]})
+
+    def serve(model: str, path: str = "/", **form) -> dict:
+        """One request for ``model``; what its model's page-in and captures cost."""
+        bundle = weights.peek_bundle(model)
+        before = {id(p) for b in (bundle,) if b is not None for c in (b.programs, b.dream_programs)
+                  for p in c.programs().values()}
+        ins = weights.page_ins
+        alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        form = {"file": uris[0], "model": model, **form}
+        status, body, secs = _post(port, path, form)
+        if status != 200:
+            raise AssertionError(f"multi_model {model} POST {path}: {status} {str(body)[:300]}")
+        bundle = weights.peek_bundle(model)
+        new = [p for c in (bundle.programs, bundle.dream_programs) for p in c.programs().values()
+               if id(p) not in before]
+        entry = {"model": model, "path": path, "seconds": secs, "paged_in": weights.page_ins > ins,
+                 "page_in_ms": weights.page_in_s[model] * 1e3 if weights.page_ins > ins else 0.0,
+                 "captures": len(new), "capture_s": sum(p.capture_s for p in new),
+                 "allocated_delta": torch.cuda.memory_allocated() - alloc0,
+                 "reserved_delta": torch.cuda.memory_reserved() - res0}
+        per_model.setdefault(model, []).append(entry)
+        step(f"POST {path} {model}", model)
+        return body
+
+    def grid(model: str, xs) -> dict:
+        out = service.visualize_batch(MULTI_LAYERS[model], xs, model=model)
+        replay.checkout(model)
+        replay.release(model)
+        return out
+
+    out = {"phase": "multi_model", "card": label, "served": list(MULTI_SERVED), "default": "vgg16",
+           "pinned": list(weights.pinned), "budget_bytes": budget, "weight_bytes": sizes, "boot_s": boot_s,
+           "warmup": warm, "warmup_wall_s_by_model": dict(service.warmup_wall_s_by_model)}
+    try:
+        step("boot")
+        ops.reset_launch_counts()
+        inc = weights.bundle("inception_v3")
+        x_inc = service.decode_preprocess(uris[1], inc)[None]
+        serve("inception_v3", layer="mixed10")
+        before = grid("inception_v3", x_inc)
+        pools = {"deconv": inc.programs.pool, "dream": inc.dream_programs.pool}
+        pool_before = {k: pool_bytes(p) for k, p in pools.items()}
+        serve("mobilenet_v2", layer="out_relu")  # evicts InceptionV3
+        freed = {k: pool_bytes(p) for k, p in pools.items()}
+        if inc.stored is not None or len(inc.programs) or any(freed.values()):
+            raise AssertionError(f"InceptionV3's page-out left {len(inc.programs)} programs, pools {freed}, "
+                                 f"blocks {[pool_blocks(torch, p) for p in pools.values()]}")
+        out["inception_v3_page_out"] = {"pool_bytes_before": pool_before, "pool_bytes_after": freed,
+                                        "allocated_delta": per_model["mobilenet_v2"][0]["allocated_delta"],
+                                        "reserved_delta": per_model["mobilenet_v2"][0]["reserved_delta"]}
+        serve("inception_v3", layer="mixed10")  # evicts MobileNet v2
+        after = grid("inception_v3", x_inc)
+        repaged = {"min_psnr_db": min(psnr_db(a, b) for a, b in zip(before["grid"], after["grid"])),
+                   "indices_equal": bool((before["indices"] == after["indices"]).all())}
+        out["inception_v3_repaged_vs_before"] = repaged
+        if not repaged["indices_equal"] or repaged["min_psnr_db"] < 65.0:
+            raise AssertionError(f"InceptionV3 after its page-in: {repaged}")
+        serve("vgg16", layer="block5_conv1")
+        vgg = service.bundle
+        xs = np.stack([service.decode_preprocess(u, vgg) for u in uris[:B]])
+        g1 = grid("vgg16", xs)  # from the boot's graph, captured under cudnn.deterministic
+        serve("resnet50", layer="conv5_block3_out")
+        body = serve("inception_v3", "/v1/dream", steps="2", octaves="2")
+        out["dream"] = _check_dream(200, body, "multi_model inception_v3 dream", inc.image_size, inc.dream_layers)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+
+        # VGG16, the least recently used, unpinned and paged out under a
+        # lowered budget, then served again
+        pools = {"deconv": vgg.programs.pool, "dream": vgg.dream_programs.pool}
+        pool_before = {k: pool_bytes(p) for k, p in pools.items()}
+        for m in (weights, replay):
+            m.pinned, m.budget_bytes = ("resnet50",), budget - sizes["vgg16"]
+        torch.cuda.synchronize()
+        alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        evicted = weights.enforce_budget()
+        alloc1, res1 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        if replay.enforce_budget() != evicted or evicted != ["vgg16"]:
+            raise AssertionError(f"the lowered budget evicted {evicted}")
+        step("vgg16 unpinned, budget lowered")
+        page_out = {"allocated_freed": alloc0 - alloc1, "reserved_freed": res0 - res1,
+                    "weight_bytes": sizes["vgg16"], "pool_bytes_before": pool_before,
+                    "pool_bytes_after": {k: pool_bytes(p) for k, p in pools.items()}}
+        out["vgg16_page_out"] = page_out
+        if (page_out["allocated_freed"] < sizes["vgg16"] or page_out["reserved_freed"] < sum(pool_before.values())
+                or any(page_out["pool_bytes_after"].values())):
+            raise AssertionError(f"VGG16's page-out: {page_out}, blocks {[pool_blocks(torch, p) for p in pools.values()]}")
+        for m in (weights, replay):
+            m.pinned, m.budget_bytes = ("vgg16", "resnet50"), budget
+        torch.backends.cudnn.deterministic = True  # VGG16's new graphs
+        ops.reset_launch_counts()
+        serve("vgg16", layer="block5_conv1")
+        torch.cuda.synchronize()
+        vgg_counts = ops.launch_counts()
+        g2 = grid("vgg16", xs)
+        torch.backends.cudnn.deterministic = deterministic
+        recaptured = [p.kernels for p in vgg.programs.programs().values()]
+        same = bool((g1["grid"] == g2["grid"]).all() and (g1["indices"] == g2["indices"]).all())
+        out["vgg16_recaptured"] = {"byte_equal": same, "graph_kernels": recaptured, "launches": vgg_counts}
+        if not same:
+            raise AssertionError("VGG16's grid from its new graphs differs from its boot graphs'")
+        if not (vgg_counts["pool_argmax"] > 0 and vgg_counts["unpool_argmax"] > 0):
+            raise AssertionError(f"VGG16's new graphs launched no K1 or K2: {vgg_counts}")
+
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/readyz", timeout=30) as r:
+            readyz = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/v1/config", timeout=30) as r:
+            config = json.loads(r.read())
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+        inflight = service.metrics.counter("weight_evict_inflight_total")
+        out.update(steps=steps, per_model=per_model, readyz=readyz, graph_pool_bytes=config["graph_pool_bytes"],
+                   weights=config["weights"], evict_inflight_total=inflight, launches=counts,
+                   page_ins=weights.page_ins, page_outs=weights.page_outs)
+        if config["weights"] != weights.snapshot() or readyz["models"] != weights.ready_block() or not readyz["ready"]:
+            raise AssertionError(f"/readyz {readyz}, /v1/config weights {config['weights']}")
+        if inflight != 0 or "deconv_weight_evict_inflight_total 0" not in metrics.splitlines():
+            raise AssertionError(f"a model with a batch in flight was evicted: {inflight}")
+        emit(out)
+        return {"counts": counts, "vgg16_counts": vgg_counts}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        server.shutdown()
+        server.server_close()
+        service.close()
+        thread.join(10)
+
+
 def main() -> int:
     try:
         import torch
@@ -1717,10 +1926,13 @@ def main() -> int:
     dag = timed("dag", phase_dag, torch, ctx["uris"], env["nvidia_smi"])
     dream = timed("dream", phase_dream, torch, ctx["uris"], env["nvidia_smi"])
     timed("capture", phase_capture, torch, ctx["bundle"], dag, dream, ctx["xs"], env["nvidia_smi"])
+    multi = timed("multi_model", phase_multi_model, torch, ctx["uris"], env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
-               "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"], **dream["counts_by_path"]}
+               "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"], **dream["counts_by_path"],
+               "multi_model POST / and /v1/dream": multi["counts"],
+               "multi_model vgg16 POST / (graphs captured after its page-out)": multi["vgg16_counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

@@ -1,18 +1,24 @@
 """``python -m deconv_api_tpu_torch serve --port P [--model vgg16|vgg19|
 resnet50|inception_v3|mobilenet_v1|mobilenet_v2|vgg_tiny] [--device
-cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]``: serve the
-reference's ``POST /``, the JSON API ``POST /v1/deconv`` and DeepDream's
-``POST /v1/dream`` (``file``, optional ``layers``, ``steps``, ``octaves``,
-``lr``; dreams have a dispatcher of their own, up to 4 a batch)."""
+cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]
+[--serve-models all|M1,M2] [--pinned-models M1,M2] [--hbm-budget-bytes N]
+[--weight-dtype f32|bf16|int8]``: serve the reference's ``POST /``, the
+JSON API ``POST /v1/deconv`` and DeepDream's ``POST /v1/dream`` (``file``,
+optional ``layers``, ``steps``, ``octaves``, ``lr``; dreams have a
+dispatcher of their own, up to 4 a batch), for ``--model`` and every model
+of ``--serve-models`` (a request names its model with ``model=`` or
+``x-model``), and the control routes ``/healthz``, ``/readyz``,
+``/metrics``, ``/v1/config`` and ``/v1/models``."""
 
 from __future__ import annotations
 
 import argparse
 import sys
 
+from deconv_api_tpu_torch.config import ServerConfig
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
 from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
-from deconv_api_tpu_torch.serving.models import REGISTRY, build_bundle
+from deconv_api_tpu_torch.serving.models import REGISTRY
 
 
 def _kpack_policy(value: str) -> str:
@@ -24,9 +30,9 @@ def _kpack_policy(value: str) -> str:
 
 
 def build_server(argv=None) -> DeconvHTTPServer:
-    """Parse the command line, build the model on its device, start the
-    dispatcher, warm the program up and bind the HTTP server (not yet
-    serving)."""
+    """Parse the command line, build the default model on its device,
+    start the dispatchers, warm every pinned model's programs up and bind
+    the HTTP server (not yet serving)."""
     ap = argparse.ArgumentParser(prog="python -m deconv_api_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="serve POST /, POST /v1/deconv and POST /v1/dream on HTTP")
@@ -39,12 +45,32 @@ def build_server(argv=None) -> DeconvHTTPServer:
         "--lowc-kpack", type=_kpack_policy, default="off",
         help="packed low-channel backward tail: off|auto|forced|<chan> (default off)",
     )
+    s.add_argument(
+        "--serve-models", default="", metavar="all|M1,M2",
+        help="registry models served per-request via model=/x-model "
+        "('all', a comma list, or unset for single-model)",
+    )
+    s.add_argument(
+        "--pinned-models", default="", metavar="M1,M2",
+        help="models paged in + warmed at boot, never evicted (default: just --model)",
+    )
+    s.add_argument(
+        "--hbm-budget-bytes", type=int, default=0,
+        help="device byte budget for resident model weights (LRU page-out above it; 0 = unlimited)",
+    )
+    s.add_argument(
+        "--weight-dtype", default="f32", metavar="f32|bf16|int8",
+        help="stored weight precision on the device (quantized tiers trade "
+        "PSNR-bounded fidelity for resident models)",
+    )
     args = ap.parse_args(argv)
 
-    service = DeconvService(
-        build_bundle(args.model, args.device), max_batch=args.max_batch,
-        lowc_kpack=args.lowc_kpack,
+    cfg = ServerConfig(
+        model=args.model, max_batch=args.max_batch, lowc_kpack=args.lowc_kpack,
+        serve_models=args.serve_models, pinned_models=args.pinned_models,
+        hbm_budget_bytes=args.hbm_budget_bytes, weight_dtype=args.weight_dtype,
     )
+    service = DeconvService(cfg=cfg, device=args.device)
     service.start()
     try:
         service.warmup()
@@ -52,7 +78,9 @@ def build_server(argv=None) -> DeconvHTTPServer:
     except BaseException:
         service.close()
         raise
-    print(f"serving {args.model} (lowc_kpack={args.lowc_kpack}) on "
+    served = ",".join(sorted(service.weights.served))
+    print(f"serving {served} (default {args.model}, lowc_kpack={args.lowc_kpack}, "
+          f"weight_dtype={args.weight_dtype}) on "
           f"http://{args.host}:{server.server_address[1]}",
           file=sys.stderr, flush=True)
     return server

@@ -6,11 +6,12 @@ models.py`` ``_vis_cache``, ``engine/deconv.py`` ``get_visualizer``,
 A ``CapturedProgram`` records ``body(*static)`` once into a CUDA graph and
 replays it: new inputs are copied into the static tensors, the graph
 replays, and the static outputs hold the result.  Before the capture the
-body runs ``WARMUP_RUNS`` times eagerly on a side stream, as
+body runs ``WARMUP_RUNS`` times eagerly on the capture's side stream, as
 ``torch.cuda.graph`` requires.  That is where every first use happens:
 the kernels build and load, K3 sets its dynamic shared memory, cuDNN picks
-its algorithms, and lazy caches such as ``ops/activations.py:_const`` fill,
-all outside the capture.
+its algorithms, cuBLAS makes its workspace, and lazy caches such as
+``ops/activations.py:_const`` fill, all outside the capture, so a graph's
+pool holds its own allocations only and is freed whole with the graph.
 
 On the CPU the same object runs its body on every replay, through the same
 static inputs, and copies the result into the outputs of its first run, so
@@ -161,16 +162,23 @@ class CapturedProgram:
     def _capture(self, pool) -> None:
         with DEVICE_LOCK.exclusive():
             t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            capture = torch.cuda.graph(graph, pool=pool)
+            # the warm-up runs on the stream every capture runs on (torch's
+            # default capture stream): cuBLAS keeps a workspace per (thread's
+            # handle, stream), made at its first use, so the warm-up makes it
+            # outside the pool.  Made inside a capture it would sit in that
+            # graph's pool for good, and the pool could never be freed.  One
+            # stream for every capture also lets a shared pool reuse blocks.
             current = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
+            side = capture.capture_stream
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_RUNS):
                     self.body(*self.static)
             current.wait_stream(side)
             before = ops.launch_counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
+            with capture:
                 self.outputs = self.body(*self.static)
             after = ops.launch_counts()
             # a wrapper called during the capture recorded its kernel into
@@ -251,6 +259,17 @@ class ProgramCache:
         """Hold while loading, replaying and reading this cache's programs."""
         with DEVICE_LOCK.shared(), self._replay:
             yield
+
+    def clear(self) -> None:
+        """Drop every program and take a new memory pool: the graphs, their
+        outputs and static tensors are freed, and the next
+        ``torch.cuda.empty_cache`` releases the old pool's memory.
+        Never call it inside ``replaying()``; on the card hold
+        ``DEVICE_LOCK`` exclusively."""
+        with self._lock:
+            self._programs.clear()
+            if self.device.type == "cuda":
+                self.pool = torch.cuda.graph_pool_handle()
 
     def keys(self) -> list:
         with self._lock:

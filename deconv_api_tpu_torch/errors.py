@@ -58,3 +58,10 @@ class ModelNotReady(DeconvError):
 class RequestTimeout(DeconvError):
     status = 504
     code = "request_timeout"
+
+
+class Unavailable(DeconvError):
+    """A model's weights could not be brought onto the device in time."""
+
+    status = 503
+    code = "unavailable"

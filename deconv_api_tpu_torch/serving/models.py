@@ -12,7 +12,13 @@ InceptionV3, the MobileNets) run the autodiff engine
 ``lowc_kpack`` and ``fused_unpool`` are inert: the DAG backward stays fp32
 over the saved forward, as in the reference.  A bundle also carries its
 DeepDream surface: default target layers, the smallest octave edge, the
-inverse preprocessing, and ``dream_forward``."""
+inverse preprocessing, and ``dream_forward``.
+
+Under a ``WeightManager`` in managed mode (``serving/weight_manager.py``)
+a bundle's ``params`` is its f32 tree on the host and its programs read
+``stored``, the resident device tree in the weight tier's stored form
+(f32, bf16 or int8), which they dequantize inside their captured graph;
+``page_out`` drops it with every captured program and its memory pool."""
 
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from deconv_api_tpu_torch.models.vgg19 import VGG19_SPEC
 from deconv_api_tpu_torch.models.weights import tree_map
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT, resolve_fused_unpool
 from deconv_api_tpu_torch.serving import codec
+from deconv_api_tpu_torch.serving.weight_manager import dequantize_params
 
 
 @dataclasses.dataclass
@@ -55,6 +62,11 @@ class ModelBundle:
     dream_layers: tuple[str, ...] = ()  # default DeepDream targets
     min_dream_size: int = 16  # smallest octave edge the trunk accepts
     unpreprocess: Callable = codec.unpreprocess_vgg  # model input -> BGR uint8
+    # set by a WeightManager in managed mode: the stored weight tier and
+    # the resident device tree the programs read (None while paged out)
+    weight_dtype: str = "f32"
+    managed: bool = False
+    stored: dict | None = dataclasses.field(default=None, repr=False)
     _acts: tuple[str, ...] | None = dataclasses.field(default=None, repr=False)
     _dream_cache: dict = dataclasses.field(default_factory=dict, repr=False)
     _vis_cache: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -72,6 +84,35 @@ class ModelBundle:
             self.layer_names = self.layer_names or tuple(
                 l.name for l in self.spec.layers if l.kind != "input"
             )
+
+    def program_params(self) -> dict:
+        """The tree the programs read: ``params`` itself, or in managed
+        mode the resident stored tree."""
+        if not self.managed:
+            return self.params
+        if self.stored is None:
+            raise RuntimeError(f"model {self.name!r} is not resident on the device: check it out first")
+        return self.stored
+
+    def page_out(self) -> None:
+        """Drop the resident tree and every captured program with its
+        memory pool (the caller holds ``DEVICE_LOCK`` exclusively, and
+        ``torch.cuda.empty_cache`` then releases the pools)."""
+        self.stored = None
+        self.programs.clear()
+        self.dream_programs.clear()
+
+    def _wrap_weight_dtype(self, fn):
+        """``fn(params, x, ...)`` reading the stored tier: it dequantizes
+        first (stored -> f32), then runs ``fn``, which casts as it always
+        does (the bf16 backward).  ``fn`` itself in the f32 tier."""
+        if self.weight_dtype == "f32":
+            return fn
+
+        def fn_q(params, x, *args, **kwargs):
+            return fn(dequantize_params(params), x, *args, **kwargs)
+
+        return fn_q
 
     def activation_names(self) -> tuple[str, ...]:
         """A DAG model's named activations in forward order: the insertion
@@ -143,7 +184,8 @@ class ModelBundle:
                         )
                 names = self.spec.layer_names()
                 fwd = spec_forward(self.spec.truncated(max(layers, key=names.index)))
-            self._dream_cache[layers] = fwd
+            # one wrapper per layer set: the step programs key on its identity
+            self._dream_cache[layers] = self._wrap_weight_dtype(fwd)
         return self._dream_cache[layers]
 
     def batched_visualizer(
@@ -190,6 +232,10 @@ class ModelBundle:
                 device=self.device, sweep=sweep,
                 kpack_chan=resolve_kpack_chan(lowc_kpack, top_k),
             )
+        if self.weight_dtype != "f32":
+            # the program reads the stored tree and dequantizes inside its
+            # own graph: the card holds the stored bytes
+            raw = dataclasses.replace(raw, body=self._wrap_weight_dtype(raw.body))
         fn = self._vis_cache[key] = raw if post is None else _fuse_post(raw, post)
         return fn
 
@@ -220,7 +266,7 @@ class ModelBundle:
         key = ("deconv", *self._vis_key(layer, mode, top_k, bug_compat, backward_dtype, post,
                                         fused_unpool, sweep, lowc_kpack), bucket, shape)
         return self.programs.get(
-            key, lambda: (functools.partial(vis.body, self.params), (vis.static_input(shape),))
+            key, lambda: (functools.partial(vis.body, self.program_params()), (vis.static_input(shape),))
         )
 
     def dream_program(
@@ -234,7 +280,7 @@ class ModelBundle:
         ``self.dream_programs.replaying()``."""
         layers = tuple(layers)
         return dream_programs(
-            self.dream_programs, self.dream_forward(layers), self.params, layers, tuple(ladder),
+            self.dream_programs, self.dream_forward(layers), self.program_params(), layers, tuple(ladder),
             (bucket, *ladder[-1], 3), torch.float32,
         )
 
@@ -309,3 +355,30 @@ def build_bundle(model: str, device=None, seed: int = 0) -> ModelBundle:
         raise ValueError(f"unknown model {model!r}; known: {sorted(REGISTRY)}")
     dev = resolve_device(device)
     return REGISTRY[model](torch.Generator(device=dev).manual_seed(seed), dev)
+
+
+def registry_info() -> list[dict]:
+    """Static metadata of each registered model, with no weight init and no
+    device touch (``deconv_api_tpu/serving/models.py:registry_info``)."""
+    seq, dag = "switch-deconv (sequential spec)", "autodiff-deconv (DAG)"
+
+    def layers(spec: ModelSpec) -> list[str]:
+        return [l.name for l in spec.layers if l.kind != "input"]
+
+    return [
+        {"model": "vgg16", "image_size": 224, "engine": seq, "layers": layers(VGG16_SPEC),
+         "dream_layers": ["block4_conv3", "block5_conv1"]},
+        {"model": "vgg19", "image_size": 224, "engine": seq, "layers": layers(VGG19_SPEC),
+         "dream_layers": ["block4_conv4", "block5_conv1"]},
+        {"model": "resnet50", "image_size": 224, "engine": dag, "layers": list(resnet50.DECONV_LAYERS),
+         "dream_layers": ["conv4_block3_out", "conv4_block6_out"]},
+        {"model": "inception_v3", "image_size": 299, "engine": dag, "layers": list(inception_v3.DECONV_LAYERS),
+         "dream_layers": list(inception_v3.DREAM_LAYERS)},
+        {"model": "mobilenet_v1", "image_size": 224, "engine": "autodiff-deconv (DAG, depthwise-separable)",
+         "layers": list(mobilenet_v1.DECONV_LAYERS), "dream_layers": list(mobilenet_v1.DREAM_LAYERS)},
+        {"model": "mobilenet_v2", "image_size": 224, "engine": "autodiff-deconv (DAG, inverted residuals)",
+         "layers": list(mobilenet_v2.DECONV_LAYERS), "dream_layers": list(mobilenet_v2.DREAM_LAYERS)},
+        {"model": "vgg_tiny", "image_size": VGG_TINY_SPEC.input_shape[0],
+         "engine": "switch-deconv (sequential spec, CI-scale)", "layers": layers(VGG_TINY_SPEC),
+         "dream_layers": ["block2_conv2", "block3_conv1"]},
+    ]

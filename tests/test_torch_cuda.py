@@ -549,3 +549,165 @@ def test_two_caches_capture_on_two_threads_at_once(dev):
             with cache.replaying():
                 got = prog(x).clone()
             assert torch.equal(got, body(x))
+
+
+# --- several models on one card (serving/weight_manager.py) --------------------
+
+
+def _mix_service(dev, **cfg):
+    """A two-model server of the ``_mix_spec`` shape (16x16 input, conv,
+    pool, conv; widths 8/16 and 16/32) on the card, mixa the default."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.models.spec import Layer, ModelSpec
+    from deconv_api_tpu_torch.serving.app import DeconvService
+    from deconv_api_tpu_torch.serving.models import ModelBundle
+
+    def build(name, f1, f2, seed):
+        spec = ModelSpec(name, (16, 16, 3), (
+            Layer("in0", "input"), Layer("b1c1", "conv", activation="relu", filters=f1),
+            Layer("b1p", "pool"), Layer("b2c1", "conv", activation="relu", filters=f2),
+        ))
+        return ModelBundle(spec, init_params(spec, torch.Generator().manual_seed(seed), torch.device("cpu")), dev)
+
+    registry = {"mixa": lambda: _to(build("mixa", 8, 16, 100), dev), "mixb": lambda: _to(build("mixb", 16, 32, 101), dev)}
+    cfg = {"model": "mixa", "serve_models": "mixa,mixb", "max_batch": 4, **cfg}
+    xs = np.random.default_rng(4).normal(0, 50, (3, 16, 16, 3)).astype(np.float32)
+    return DeconvService(cfg=ServerConfig(**cfg), registry=registry), xs
+
+
+def _to(bundle, dev):
+    from deconv_api_tpu_torch.models.weights import tree_map
+
+    bundle.params = tree_map(lambda t: t.to(dev), bundle.params)
+    return bundle
+
+
+def test_page_out_frees_weights_and_pools_and_page_in_recaptures_byte_equal(dev, deterministic_cudnn):
+    """mixb paged out under a lowered budget: its stored tree, graphs and
+    pools leave the card (allocated memory falls by at least its weights,
+    its pools hold nothing); paged in again, its programs are captured anew
+    and answer byte for byte as before."""
+    from deconv_api_tpu_torch.serving.app import pool_bytes
+    from deconv_api_tpu_torch.serving.weight_manager import tree_nbytes
+
+    service, xs = _mix_service(dev)
+    weights = service.weights
+    service.visualize_batch("b2c1", xs, model="mixa")
+    first = service.visualize_batch("b2c1", xs, model="mixb")
+    mixb = weights.peek_bundle("mixb")
+    pools = (mixb.programs.pool, mixb.dream_programs.pool)
+    stored_bytes = tree_nbytes(mixb.stored)
+    assert stored_bytes > 0 and len(mixb.programs) == 1 and pool_bytes(pools[0]) > 0
+    weights.budget_bytes = tree_nbytes(weights.peek_bundle("mixa").stored)  # mixa is pinned
+    torch.cuda.synchronize()
+    alloc0, res0, held = torch.cuda.memory_allocated(), torch.cuda.memory_reserved(), pool_bytes(pools[0])
+    assert weights.enforce_budget() == ["mixb"]
+    assert torch.cuda.memory_allocated() <= alloc0 - stored_bytes
+    assert torch.cuda.memory_reserved() <= res0 - held
+    assert mixb.stored is None and len(mixb.programs) == 0 and pool_bytes(pools[0]) == pool_bytes(pools[1]) == 0
+    weights.budget_bytes = 0
+    again = service.visualize_batch("b2c1", xs, model="mixb")
+    assert weights.page_ins == 3 and weights.page_outs == 1 and len(mixb.programs) == 1
+    assert next(iter(mixb.programs.programs().values())).kernels["pool_argmax"] == 1
+    for k in ("grid", "valid", "indices"):
+        assert (first[k] == again[k]).all(), k
+    assert service.metrics.counter("weight_evict_inflight_total") == 0
+
+
+def test_page_in_on_one_thread_while_the_other_captures(dev):
+    """One thread pages mixb in and out again and again (each page-in
+    allocates on the card, each page-out frees and empties the cache)
+    while another captures new deconv programs of mixa: every capture
+    holds, and each replays its eager run."""
+    import threading
+
+    service, xs = _mix_service(dev, hbm_budget_bytes=1)  # only the pinned default stays
+    weights = service.weights
+    mixa = weights.bundle("mixa")
+    weights.checkout("mixa")  # resident and pinned for the test
+    start, failures = threading.Barrier(2), []
+
+    def page():
+        try:
+            start.wait()
+            for _ in range(6):
+                service.visualize_batch("b2c1", xs[:1], model="mixb")  # page-in, capture, replay
+                assert weights.enforce_budget() == ["mixb"]  # page-out
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(e)
+
+    def capture():
+        try:
+            start.wait()
+            for k in range(1, 7):
+                mixa.program("b2c1", "all", k, 2, backward_dtype="bfloat16", post="grid")
+        except Exception as e:  # noqa: BLE001 - reported below
+            failures.append(e)
+
+    threads = [threading.Thread(target=page), threading.Thread(target=capture)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not failures, failures
+    assert weights.page_ins == 7 and weights.page_outs == 6
+    x = torch.from_numpy(xs[:2])
+    for k in range(1, 7):
+        prog = mixa.program("b2c1", "all", k, 2, backward_dtype="bfloat16", post="grid")
+        eager = mixa.batched_visualizer("b2c1", "all", k, True, "bfloat16", "grid")
+        with mixa.programs.replaying():
+            _same_tree(prog(x), eager(mixa.program_params(), x))
+    weights.release("mixa")
+    assert service.metrics.counter("weight_evict_inflight_total") == 0
+
+
+def test_int8_tier_grid_on_the_card_matches_its_cpu_run(dev):
+    """vgg_tiny at ``weight_dtype=int8`` served on the card and on the CPU
+    from the same params: equal channels, and grids within the JAX
+    package's int8 output floor (20 dB)."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
+    from deconv_api_tpu_torch.serving.app import DeconvService
+    from deconv_api_tpu_torch.serving.models import ModelBundle
+    from deconv_api_tpu_torch.serving.weight_manager import tree_nbytes
+
+    params = init_params(VGG_TINY_SPEC, torch.Generator().manual_seed(7), torch.device("cpu"))
+    xs = np.random.default_rng(8).normal(0, 50, (2, 32, 32, 3)).astype(np.float32)
+    out = {}
+    for device in (torch.device("cpu"), dev):
+        registry = {"vgg_tiny": lambda device=device: _to(ModelBundle(VGG_TINY_SPEC, params, device), device)}
+        service = DeconvService(cfg=ServerConfig(model="vgg_tiny", weight_dtype="int8"), registry=registry)
+        out[device.type] = service.visualize_batch("block3_conv1", xs)
+        resident = service.weights.snapshot()["lanes"]["0"]["bytes"]
+        assert resident == tree_nbytes(service.bundle.stored) < tree_nbytes(params) / 3
+    np.testing.assert_array_equal(out["cuda"]["indices"], out["cpu"]["indices"])
+    for a, b in zip(out["cuda"]["grid"], out["cpu"]["grid"]):
+        assert psnr_db(a, b) >= 20.0
+
+
+def test_a_cleared_cache_frees_its_pool_after_a_cublas_capture(dev):
+    """A capture that runs cuBLAS on a thread of its own: the workspace
+    cuBLAS makes at its first use on the capture stream is made by the
+    warm-up, outside the pool, so clearing the cache frees the pool whole
+    (a page-out's promise)."""
+    import threading
+
+    from deconv_api_tpu_torch.engine.capture import DEVICE_LOCK, ProgramCache
+    from deconv_api_tpu_torch.serving.app import pool_bytes
+
+    cache = ProgramCache(dev)
+    w = torch.randn((256, 256), generator=torch.Generator().manual_seed(9)).to(dev)
+    thread = threading.Thread(target=lambda: cache.get(
+        "mm", lambda: ((lambda x: torch.relu(x @ w)), (torch.zeros((64, 256), device=dev),))))
+    thread.start()
+    thread.join()
+    pool = cache.pool
+    assert len(cache) == 1 and pool_bytes(pool) > 0
+    with DEVICE_LOCK.exclusive():
+        cache.clear()
+        torch.cuda.empty_cache()
+    assert pool_bytes(pool) == 0 and cache.pool != pool and len(cache) == 0

@@ -39,6 +39,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "import deconv_api_tpu_torch, deconv_api_tpu_torch.__main__\n"
         "import deconv_api_tpu_torch.ops, deconv_api_tpu_torch.engine\n"
         "import deconv_api_tpu_torch.serving.app, deconv_api_tpu_torch.models.weights\n"
+        "import deconv_api_tpu_torch.config, deconv_api_tpu_torch.utils.quantize\n"
+        "import deconv_api_tpu_torch.serving.metrics, deconv_api_tpu_torch.serving.weight_manager\n"
         "import deconv_api_tpu_torch.engine.autodeconv, deconv_api_tpu_torch.models.apply\n"
         "from deconv_api_tpu_torch.models import blocks, resnet50, inception_v3, mobilenet_v1, mobilenet_v2, vgg19\n"
         "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv\n"
@@ -75,6 +77,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
     from deconv_api_tpu_torch.__main__ import main
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.serving.app import DeconvService
     from deconv_api_tpu_torch._device import resolve_device
     from deconv_api_tpu_torch.engine.autodeconv import autodeconv_visualizer
     from deconv_api_tpu_torch.engine.deconv import get_visualizer
@@ -92,10 +96,13 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         lambda: build_bundle("resnet50"),
         lambda: main(["serve", "--model", "vgg_tiny", "--port", "0"]),
         lambda: main(["serve", "--model", "mobilenet_v1", "--port", "0"]),
+        lambda: main(["serve", "--model", "vgg_tiny", "--serve-models", "vgg_tiny,mobilenet_v2", "--port", "0"]),
+        lambda: DeconvService(cfg=ServerConfig(model="vgg_tiny", serve_models="all", weight_dtype="int8")),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
     assert build_bundle("vgg_tiny", "cpu").device.type == "cpu"
+    assert DeconvService(cfg=ServerConfig(model="vgg_tiny"), device="cpu").bundle.device.type == "cpu"
     get_visualizer(VGG_TINY_SPEC, "fc1", device="cpu")
     autodeconv_visualizer(resnet50_forward, "conv1_relu", device="cpu")
