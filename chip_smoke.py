@@ -59,7 +59,17 @@ Phases, each printing JSON lines:
    inception_v3 and mobilenet_v2 under a weight budget that holds three,
    whose requests page models out and in, each step's residency held
    against a CPU replay through the port's manager, then VGG16 paged out
-   and served from graphs captured anew (``phase_multi_model``).
+   and served from graphs captured anew (``phase_multi_model``);
+11. load (BASELINE.json config 5): 256 concurrent keep-alive clients in 4
+   spawned processes post ``POST /`` (16 distinct 256x240 PNGs) to a VGG16
+   server at every default, block5_conv1, 2048 requests a run at
+   ``pipeline_depth`` 1, 2, 2, 1; each run prints images/s, latency
+   quantiles, the 503/504 counts, the batch-size histogram, the device's
+   busy share (a profiled slice) and the host's CPU count, and every 200
+   answer is held against its own image's grid served alone at every
+   bucket; then one dispatch step each of the grid, tiles and dream
+   programs under ``torch.cuda.set_sync_debug_mode("error")``, and the
+   deadline, shed and breaker drills (``phase_load``).
 Every route serves through captured CUDA graphs, one per
 program and bucket (``engine/capture.py``): each server's warmup captures
 every bucket of both route defaults and of the default dream before
@@ -73,7 +83,10 @@ before the last is the kernels line, the last the result line.
 from __future__ import annotations
 
 import base64
+import collections
+import contextlib
 import json
+import logging
 import os
 import statistics
 import struct
@@ -550,7 +563,7 @@ def warmup_report(torch, service, reserved_before: int, bundle=None) -> dict:
     tiles top-8 at the deepest layer) and, where the model has dream
     layers, the default dream at every dream bucket, were captured."""
     from deconv_api_tpu_torch.engine.deepdream import octave_shapes
-    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, DREAM_DEFAULTS, DREAM_MAX_BATCH, STITCH_K, pool_bytes
+    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, DREAM_DEFAULTS, STITCH_K, pool_bytes
     from deconv_api_tpu_torch.serving.batcher import buckets
 
     bundle = bundle or service.bundle
@@ -560,7 +573,8 @@ def warmup_report(torch, service, reserved_before: int, bundle=None) -> dict:
             for top_k, post in ((STITCH_K, "grid"), (DEFAULT_TOP_K, "tiles"))}
     ladder = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, bundle.min_dream_size)
     dreams = {(k[1], k[2]) for k in bundle.dream_programs.keys() if k[0] == "step"}
-    want_dreams = {(hw, b) for hw in ladder for b in buckets(DREAM_MAX_BATCH)} if bundle.dream_layers else set()
+    want_dreams = ({(hw, b) for hw in ladder for b in buckets(service.cfg.dream_max_batch)}
+                   if bundle.dream_layers else set())
     graphs = [p for c in (bundle.programs, bundle.dream_programs) for p in c.programs().values()]
     out = {"model": bundle.name, "ready": service.ready, "warmup_wall_s": service.warmup_wall_s,
            "deconv_programs": len(bundle.programs), "dream_programs": len(bundle.dream_programs),
@@ -1889,6 +1903,554 @@ def phase_multi_model(torch, uris: list, label: str) -> dict:
         thread.join(10)
 
 
+# --- phase 11 ------------------------------------------------------------------
+
+LOAD_LAYER = "block5_conv1"
+LOAD_CLIENTS = 256  # concurrent keep-alive clients (BASELINE.json config 5)
+LOAD_PROCS = 4  # client processes, LOAD_CLIENTS / LOAD_PROCS threads each
+LOAD_IMAGES = 16  # distinct 256x240 PNGs
+LOAD_RUNS = (1, 2, 2, 1)  # pipeline_depth of each run, in turns
+LOAD_REQUESTS = 2048  # per run: 4096 at each depth over its two turns
+OWN_PSNR_DB = 52.0  # an answer against its own image's reference
+OTHER_PSNR_DB = 30.0  # ... and against every other image's, at most
+SHED_BURST, SHED_TIMEOUT_S = 512, 15.0  # the shed drill's burst and request timeout
+
+
+def _load_client(port: int, bodies: list, refs_path: str, n_threads: int, n_requests: int, first: int,
+                 ready, go, out_q) -> None:
+    """One client process: ``n_threads`` keep-alive ``http.client``
+    connections share ``n_requests`` ``POST /`` (request k posts image
+    ``(first + k) % len(bodies)``).  After the timed part it checks every
+    200 answer against the references in ``refs_path``, the data URLs the
+    server sends for each image alone at each bucket and row: the same data URL as
+    one of its own image's, else its decoded JPEG within OWN_PSNR_DB of one
+    of them (JPEG against JPEG: against the raw grid the encode alone costs
+    some 24 dB) and at most OTHER_PSNR_DB of every other image's.  Puts one
+    summary dict on ``out_q``."""
+    import http.client
+    import itertools
+
+    import numpy as np
+
+    counter, lock = itertools.count(), threading.Lock()
+    records = []
+    # connected one by one before the start: a storm of simultaneous
+    # connects would overflow the listen backlog (asyncio's default, 100)
+    conns = []
+    for _ in range(n_threads):
+        conns.append(http.client.HTTPConnection("127.0.0.1", port, timeout=120))
+        conns[-1].connect()
+
+    def worker(conn):
+        go.wait()
+        while True:
+            with lock:
+                k = next(counter)
+            if k >= n_requests:
+                break
+            img = (first + k) % len(bodies)
+            t0 = time.perf_counter()
+            try:
+                conn.request("POST", "/", body=bodies[img],
+                             headers={"content-type": "application/x-www-form-urlencoded"})
+                resp = conn.getresponse()
+                body = resp.read()
+                status, retry = resp.status, resp.getheader("retry-after")
+            except (OSError, http.client.HTTPException) as e:
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                status, body, retry = -1, repr(e).encode(), None
+            records.append((img, status, time.perf_counter() - t0, time.time(), body, retry))
+        conn.close()
+
+    threads = [threading.Thread(target=worker, args=(c,)) for c in conns]
+    for t in threads:
+        t.start()
+    ready.put(os.getpid())
+    go.wait()
+    t_start = time.time()
+    cpu0 = time.process_time()
+    for t in threads:
+        t.join()
+    cpu_s = time.process_time() - cpu0
+    with open(refs_path) as f:
+        ref_urls = json.load(f)
+    exact = {img: set(urls) for img, urls in enumerate(ref_urls)}
+    decoded = {}  # (image, bucket) -> the reference's decoded JPEG
+    out = {"pid": os.getpid(), "t_start": t_start, "t_end": max(r[3] for r in records), "cpu_s": cpu_s, "statuses": {},
+           "errors": {}, "latency_s": [], "exact": 0, "psnr_checked": 0, "min_own_psnr": None,
+           "max_other_psnr": None, "failures": [], "retry_after": []}
+    for img, status, secs, _, body, retry in records:
+        out["statuses"][status] = out["statuses"].get(status, 0) + 1
+        if status != 200:
+            try:
+                code = json.loads(body).get("error")
+            except (ValueError, AttributeError):
+                code = body[:80].decode("utf-8", "replace")
+            out["errors"][f"{status} {code}"] = out["errors"].get(f"{status} {code}", 0) + 1
+            if retry is not None:
+                out["retry_after"].append(int(retry))
+            continue
+        out["latency_s"].append(secs)
+        url = json.loads(body)
+        if url in exact[img]:
+            out["exact"] += 1
+            continue
+        for j, urls_j in enumerate(ref_urls):
+            for b, u in enumerate(urls_j):
+                if (j, b) not in decoded:
+                    decoded[j, b] = _decode_jpeg_url(u)
+        got = _decode_jpeg_url(url)
+        psnr = [[_psnr(got, decoded[j, b]) for b in range(len(urls_j))] for j, urls_j in enumerate(ref_urls)]
+        own = max(psnr[img])
+        other = max(max(p) for j, p in enumerate(psnr) if j != img)
+        out["psnr_checked"] += 1
+        out["min_own_psnr"] = own if out["min_own_psnr"] is None else min(out["min_own_psnr"], own)
+        out["max_other_psnr"] = other if out["max_other_psnr"] is None else max(out["max_other_psnr"], other)
+        if own < OWN_PSNR_DB or other > OTHER_PSNR_DB:
+            out["failures"].append({"image": img, "own_psnr": own, "other_psnr": other})
+    out_q.put(out)
+
+
+def _decode_jpeg_url(url: str):
+    """A served data URL's JPEG as float64 BGR pixels."""
+    import cv2
+    import numpy as np
+
+    raw = base64.b64decode(urllib.parse.unquote(url.split(",", 1)[1]))
+    return cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR).astype(np.float64)
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((np.asarray(a, np.float64) - b) ** 2))
+    return float("inf") if mse == 0 else 10 * float(np.log10(255.0**2 / mse))
+
+
+def _quantiles(values: list) -> dict:
+    import numpy as np
+
+    if not values:
+        return {}
+    ms = np.asarray(values) * 1e3
+    return {f"p{q}_ms": float(np.percentile(ms, q)) for q in (50, 90, 99)}
+
+
+@contextlib.contextmanager
+def replay_events(torch):
+    """A CUDA event pair recorded around every graph replay while the block
+    runs (on the replaying thread's stream, inside the dispatch step):
+    yields the list of (start, end) pairs, whose elapsed times sum to the
+    card's time in the replays."""
+    from deconv_api_tpu_torch.engine.capture import CapturedProgram
+
+    pairs, real = [], CapturedProgram.replay
+
+    def replay(self):
+        if self.graph is None:
+            return real(self)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(self)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    CapturedProgram.replay = replay
+    try:
+        yield pairs
+    finally:
+        CapturedProgram.replay = real
+
+
+def _span_totals(service) -> dict:
+    """The flight recorder's per-span (count, seconds) totals so far."""
+    with service.recorder._lock:
+        return {k: (v[0], v[1]) for k, v in service.recorder._span_stats.items()}
+
+
+def _drive_load(torch, server, bodies: list, refs_path: str, n_requests: int, first: int = 0,
+                clients: int = LOAD_CLIENTS) -> dict:
+    """``n_requests`` ``POST /`` from ``clients`` keep-alive clients in
+    LOAD_PROCS spawned processes, all started together.  Returns the run's
+    images/s, latency quantiles, status counts, batch-size histogram, the
+    card's busy share (CUDA events around the replays), the server
+    process's CPU time, each request span's mean, and the clients' checks
+    of every 200 answer."""
+    import multiprocessing
+
+    service, port = server.service, server.server_address[1]
+    deadline = time.monotonic() + 10
+    while service.server._nconn and time.monotonic() < deadline:  # the last run's sockets closed
+        time.sleep(0.05)
+    ctx = multiprocessing.get_context("spawn")
+    ready, out_q, go = ctx.Queue(), ctx.Queue(), ctx.Event()
+    per = clients // LOAD_PROCS
+    share = [n_requests // LOAD_PROCS + (i < n_requests % LOAD_PROCS) for i in range(LOAD_PROCS)]
+    procs = [ctx.Process(target=_load_client, args=(port, bodies, refs_path, per, share[i], first + i, ready, go,
+                                                    out_q), daemon=True) for i in range(LOAD_PROCS)]
+    try:
+        for p in procs:
+            p.start()
+        for _ in procs:
+            ready.get(timeout=120)
+        service.batch_sizes.clear()
+        replays0, spans0 = ops_graph_replays(), _span_totals(service)
+        with replay_events(torch) as pairs:
+            cpu0 = time.process_time()
+            go.set()
+            results = [out_q.get(timeout=600) for _ in procs]
+            cpu_s = time.process_time() - cpu0
+        torch.cuda.synchronize()
+        replay_ms = sum(start.elapsed_time(end) for start, end in pairs)
+        spans1 = _span_totals(service)
+        for p in procs:
+            p.join(60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    statuses, errors_ = collections.Counter(), collections.Counter()
+    latencies, failures, retry = [], [], []
+    for r in results:
+        statuses.update({int(k): v for k, v in r["statuses"].items()})
+        errors_.update(r["errors"])
+        latencies += r["latency_s"]
+        failures += r["failures"]
+        retry += r["retry_after"]
+    wall = max(r["t_end"] for r in results) - min(r["t_start"] for r in results)
+    spans = {k: (n - spans0.get(k, (0, 0.0))[0], t - spans0.get(k, (0, 0.0))[1]) for k, (n, t) in spans1.items()}
+    own = [r["min_own_psnr"] for r in results if r["min_own_psnr"] is not None]
+    other = [r["max_other_psnr"] for r in results if r["max_other_psnr"] is not None]
+    return {
+        "requests": n_requests, "wall_s": wall, "images_per_s": statuses[200] / wall,
+        **_quantiles(latencies), "statuses": dict(statuses), "errors": dict(errors_),
+        "n_503": statuses[503], "n_504": statuses[504],
+        "batch_size_histogram": dict(sorted(collections.Counter(service.batch_sizes).items())),
+        "replays": ops_graph_replays() - replays0, "replay_ms": replay_ms,
+        "device_busy_share": replay_ms / 1e3 / wall, "host_cpus": os.cpu_count(),
+        "server_cpu_cores": cpu_s / wall, "server_cpu_ms_per_request": cpu_s * 1e3 / n_requests,
+        "client_cpu_cores": sum(r["cpu_s"] for r in results) / wall,
+        "span_mean_ms": {k: t * 1e3 / n for k, (n, t) in sorted(spans.items()) if n},
+        "answers_exact": sum(r["exact"] for r in results), "answers_psnr_checked": sum(r["psnr_checked"] for r in results),
+        "min_own_psnr_db": min(own) if own else None, "max_other_psnr_db": max(other) if other else None,
+        "failures": failures[:10], "n_failures": len(failures), "retry_after": sorted(set(retry)),
+    }
+
+
+def ops_graph_replays() -> int:
+    from deconv_api_tpu_torch import ops
+
+    return ops.graph_counts["replays"]
+
+
+def _second_server(torch, bundle, **cfg):
+    """A warmed, started server of the same VGG16 bundle (its captured
+    programs are the bundle's, so the warmup only fills the rings) with
+    ``cfg`` over the defaults."""
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
+
+    service = DeconvService(bundle, ServerConfig(model=bundle.name, max_batch=B, **cfg))
+    service.start()
+    service.warmup()
+    return DeconvHTTPServer(service, "127.0.0.1", 0)
+
+
+def _request(port: int, path: str, method: str = "GET", form: dict | None = None, headers=None):
+    """(status, JSON body, headers) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        body = urllib.parse.urlencode(form).encode() if form is not None else None
+        conn.request(method, path, body=body, headers={"content-type": "application/x-www-form-urlencoded",
+                                                       **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read()), dict(resp.getheaders())
+    finally:
+        conn.close()
+
+
+def _burst(port: int, bodies: list, n: int, threads: int) -> list:
+    """``n`` concurrent ``POST /`` over ``threads`` connections of this
+    process: [(status, error code, retry-after, seconds)]."""
+    import concurrent.futures
+    import http.client
+
+    def one(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        t0 = time.perf_counter()
+        try:
+            conn.request("POST", "/", body=bodies[i % len(bodies)],
+                         headers={"content-type": "application/x-www-form-urlencoded"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            return (resp.status, body.get("error") if isinstance(body, dict) else None, resp.getheader("retry-after"),
+                    time.perf_counter() - t0)
+        finally:
+            conn.close()
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        return list(pool.map(one, range(n)))
+
+
+def cold_capture_stall(torch, server, uris: list, bodies: list) -> dict:
+    """What one cold capture does to concurrent ``POST /``: a burst of 128
+    over 32 connections of this process alone, then the same burst with a
+    ``/v1/deconv sweep=true`` whose program no warmup captured posted 0.3 s
+    in.  The capture holds ``DEVICE_LOCK`` exclusively, so every
+    dispatcher's device work and every fetch's event poll waits for it."""
+    from deconv_api_tpu_torch import ops
+
+    port = server.server_address[1]
+    alone = [r[3] for r in _burst(port, bodies, 128, 32)]
+    sweep, captures0 = {}, ops.graph_counts["captures"]
+
+    def post_sweep():
+        time.sleep(0.3)
+        t0 = time.perf_counter()
+        status, body, _ = _request(port, "/v1/deconv", "POST", {"file": uris[0], "layer": LOAD_LAYER, "sweep": "true"})
+        sweep.update(status=status, seconds=time.perf_counter() - t0, layers=len(body.get("layers", {})))
+
+    thread = threading.Thread(target=post_sweep)
+    thread.start()
+    during = [r[3] for r in _burst(port, bodies, 128, 32)]
+    thread.join(300)
+    return {"sweep": sweep, "captures": ops.graph_counts["captures"] - captures0,
+            "post_alone": {**_quantiles(alone), "max_ms": max(alone) * 1e3},
+            "post_during_capture": {**_quantiles(during), "max_ms": max(during) * 1e3}}
+
+
+def host_costs_ms(service, uri: str, body: bytes, grid) -> dict:
+    """The server's per-request host work, one call at a time on this
+    process's main thread (median of 20): the form parse of a request body,
+    the image's decode and preprocess, and the grid's JPEG data URL."""
+    from deconv_api_tpu_torch.serving import codec
+
+    def median_ms(fn):
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return {"form_parse": median_ms(lambda: urllib.parse.parse_qsl(body.decode(), keep_blank_values=True)),
+            "decode_preprocess": median_ms(lambda: service.decode_preprocess(uri)),
+            "encode_data_url": median_ms(lambda: codec.encode_data_url(grid)),
+            "body_bytes": len(body)}
+
+
+def _stop(server) -> None:
+    server.shutdown()
+    server.server_close()
+    server.service.close()
+
+
+def load_drills(torch, bundle, uris: list, bodies: list, refs_path: str) -> dict:
+    """The deadline, shed and breaker drills on servers of the same bundle;
+    each fails the phase unless it answers as it should."""
+    out = {}
+    form = {"file": uris[0], "layer": LOAD_LAYER}
+    # deadline: x-deadline-ms 1 while a burst fills the queue
+    server = _second_server(torch, bundle)
+    port, service = server.server_address[1], server.service
+    try:
+        before = service.metrics.counter("deadline_expired_total")
+        burst = threading.Thread(target=_burst, args=(port, bodies, 256, 128))
+        burst.start()
+        time.sleep(0.05)
+        status, body, _ = _request(port, "/", "POST", form, {"x-deadline-ms": "1"})
+        burst.join(120)
+        after = service.metrics.counter("deadline_expired_total")
+        out["deadline"] = {"status": status, "error": body.get("error"), "deadline_expired_total": [before, after]}
+        if (status, body.get("error")) != (504, "deadline_expired") or after <= before:
+            raise AssertionError(f"deadline drill: {out['deadline']}")
+    finally:
+        _stop(server)
+    # shed: SHED_BURST concurrent clients against a SHED_TIMEOUT_S request
+    # timeout, shedding at a 1 s drain estimate, once the server has
+    # measured its batches.  Each dispatch is held 100 ms
+    # (device.dispatch_delay_ms), so the queue in front of the dispatcher
+    # grows: without it the host's parse and decode, which come before the
+    # queue, bound the rate below the card's and the queue never fills.  A
+    # request is shed after its decode, and an admitted batch's grid
+    # encodes wait on the codec pool behind the burst's decodes (6 s for
+    # the whole burst on the H100's host): the timeout leaves room for both.
+    server = _second_server(torch, bundle, request_timeout_s=SHED_TIMEOUT_S, shed_factor=1.0 / SHED_TIMEOUT_S,
+                            max_connections=2 * SHED_BURST, faults="device.dispatch_delay_ms=p1:100")
+    try:
+        _drive_load(torch, server, bodies, refs_path, 256, clients=64)
+        burst = _drive_load(torch, server, bodies, refs_path, SHED_BURST, clients=SHED_BURST)
+        out["shed"] = {k: burst[k] for k in ("statuses", "errors", "retry_after", "n_failures", "wall_s")}
+        if (not burst["errors"].get("503 overloaded") or not burst["retry_after"] or min(burst["retry_after"]) < 1
+                or burst["errors"].get("504 request_timeout") or burst["n_failures"]):
+            raise AssertionError(f"shed drill: {out['shed']}")
+    finally:
+        _stop(server)
+    # breaker: device.dispatch_error armed for breaker_threshold dispatches
+    server = _second_server(torch, bundle, fault_injection=True, breaker_cooldown_s=1.0)
+    port, service = server.server_address[1], server.service
+    try:
+        threshold = service.cfg.breaker_threshold
+        service.faults.arm("device.dispatch_error", f"n{threshold}")
+        failed = [_request(port, "/", "POST", form)[:2] for _ in range(threshold)]
+        ready_open = _request(port, "/readyz")
+        rejected = _request(port, "/", "POST", form)
+        time.sleep(service.cfg.breaker_cooldown_s + 0.1)
+        probe = _request(port, "/", "POST", form)
+        ready_closed = _request(port, "/readyz")
+        b = out["breaker"] = {
+            "threshold": threshold, "failed": [[s, body.get("error")] for s, body in failed],
+            "readyz_open": [ready_open[0], ready_open[1]["checks"]["breaker_not_open"]],
+            "rejected": [rejected[0], rejected[1].get("error"), rejected[2].get("retry-after")],
+            "probe": probe[0], "readyz_closed": ready_closed[0], "state": service.lane_pool.state_name(),
+            "breaker_open_total": service.metrics.counter("breaker_open_total"),
+        }
+        if (any(f != [500, "fault_injected"] for f in b["failed"]) or b["readyz_open"] != [503, False]
+                or b["rejected"][:2] != [503, "breaker_open"] or int(b["rejected"][2] or 0) < 1
+                or b["probe"] != 200 or b["readyz_closed"] != 200 or b["state"] != "closed"):
+            raise AssertionError(f"breaker drill: {b}")
+    finally:
+        _stop(server)
+    return out
+
+
+def sync_check(torch, service, uris: list) -> dict:
+    """One dispatch step each of the grid, tiles and dream programs under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync in them
+    raises.  Their fetches must return what a plain run returns."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, Dream, Program
+
+    bundle = service.bundle
+    xs = np.stack([service.decode_preprocess(u) for u in uris[:B]])
+    grid, tiles = Program(LOAD_LAYER), Program(LOAD_LAYER, top_k=DEFAULT_TOP_K, post="tiles")
+    dream = Dream(bundle.dream_layers)
+    steps = {"grid": (lambda: service._enqueue_program(grid, xs), lambda: service.run_program(grid, xs)),
+             "tiles": (lambda: service._enqueue_program(tiles, xs), lambda: service.run_program(tiles, xs)),
+             "dream": (lambda: service._enqueue_dream(dream, xs[:4]), lambda: service.run_dream(dream, xs[:4]))}
+    out = {}
+    for name, (dispatch, plain) in steps.items():
+        want = plain()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            fetch = dispatch()
+            dispatch_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = fetch()
+        if name == "dream":
+            ok = bool(np.isfinite(got[0]).all() and got[0].shape == want[0].shape)
+        else:
+            ok = all(np.array_equal(got[LOAD_LAYER][k], want[LOAD_LAYER][k]) for k in want[LOAD_LAYER])
+        out[name] = {"dispatch_ms": dispatch_ms, "equal_to_plain_run": ok}
+        if not ok:
+            raise AssertionError(f"sync check {name}: the fetched rows differ from a plain run")
+    return out
+
+
+def phase_load(torch, label: str) -> dict:
+    """BASELINE.json config 5 on one card: 256 concurrent keep-alive
+    clients post ``POST /`` (16 distinct 256x240 PNGs) to a VGG16 server at
+    every default, block5_conv1, at ``pipeline_depth`` 1 and 2 in turns;
+    every 200 answer is checked against its own image's grid served alone
+    at every bucket and row.  Then the dispatch step under sync-debug "error", and
+    the deadline, shed and breaker drills."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.serving import codec
+    from deconv_api_tpu_torch.serving.app import Program
+    from deconv_api_tpu_torch.serving.batcher import buckets
+
+    # the servers log each shed and timeout at WARNING: kept off stderr here
+    logging.getLogger("deconv").setLevel(logging.ERROR)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    servers = {2: build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda"])}
+    boot_s = time.perf_counter() - t0
+    bundle = servers[2].service.bundle
+    servers[1] = _second_server(torch, bundle, pipeline_depth=1)
+    out = {"phase": "load", "card": label, "model": "vgg16", "layer": LOAD_LAYER, "clients": LOAD_CLIENTS,
+           "client_processes": LOAD_PROCS, "images": LOAD_IMAGES, "boot_s": boot_s, "runs": []}
+    try:
+        uris = image_uris(LOAD_IMAGES)
+        bodies = [urllib.parse.urlencode({"file": u, "layer": LOAD_LAYER}).encode() for u in uris]
+        # each image's grid served alone at every bucket, at every row of
+        # the batch: a row's bits may depend on its position (the last row
+        # of a bucket-4 batch differs from the others by up to 2 levels),
+        # never on its batch-mates
+        service = servers[2].service
+        xs = np.stack([service.decode_preprocess(u) for u in uris])
+        sizes = buckets(service.max_batch)
+        alone = [{b: service.run_program(Program(LOAD_LAYER), np.repeat(xs[i : i + 1], b, 0))[LOAD_LAYER]["grid"]
+                  for b in sizes} for i in range(LOAD_IMAGES)]
+        refs = [[g for b in sizes for g in a[b]] for a in alone]
+        urls = [sorted({codec.encode_data_url(g) for g in r}) for r in refs]
+        # per bucket: the rows whose grid differs from row 0's for some
+        # image, and by how many levels at most
+        rows_unlike = {b: sorted({r for a in alone for r in range(b) if not np.array_equal(a[b][r], a[b][0])})
+                       for b in sizes}
+        level_diff = {b: max(int(np.abs(a[b].astype(np.int16) - a[b][0]).max()) for a in alone) for b in sizes}
+        jpegs = [_decode_jpeg_url(r[0]) for r in urls]
+        cross = max(_psnr(jpegs[i], jpegs[j]) for i in range(LOAD_IMAGES) for j in range(LOAD_IMAGES) if i != j)
+        out["references"] = {"buckets": sizes, "distinct_urls_per_image": [len(u) for u in urls],
+                             "rows_unlike_row0": rows_unlike, "max_level_diff_from_row0": level_diff,
+                             "max_cross_image_psnr_db": cross}
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        refs_path = os.path.join(ROOT, "build", "load_refs.json")
+        with open(refs_path, "w") as f:
+            json.dump(urls, f)
+        if cross > OTHER_PSNR_DB:
+            raise AssertionError(f"two load images' grids lie within {cross:.1f} dB of each other")
+
+        out["host_costs_ms"] = host_costs_ms(service, uris[0], bodies[0], refs[0][0])
+        for depth in (2, 1):  # a warm-up run of each server, not reported as a turn
+            warm = _drive_load(torch, servers[depth], bodies, refs_path, 256)
+            emit({"phase": "load_warmup", "card": label, "pipeline_depth": depth,
+                  **{k: warm[k] for k in ("images_per_s", "statuses", "n_failures")}})
+        ops.reset_launch_counts()
+        for k, depth in enumerate(LOAD_RUNS):
+            run = {"pipeline_depth": depth, **_drive_load(torch, servers[depth], bodies, refs_path, LOAD_REQUESTS,
+                                                         first=k)}
+            out["runs"].append(run)
+            emit({"phase": "load_run", "card": label, **run})
+        torch.cuda.synchronize()
+        counts, graph_counts = ops.launch_counts(), dict(ops.graph_counts)
+        out["launches"], out["graph_counts"] = counts, graph_counts
+        out["by_depth"] = {
+            d: {"images_per_s": [r["images_per_s"] for r in out["runs"] if r["pipeline_depth"] == d],
+                "p50_ms": [r.get("p50_ms") for r in out["runs"] if r["pipeline_depth"] == d],
+                "p99_ms": [r.get("p99_ms") for r in out["runs"] if r["pipeline_depth"] == d],
+                "device_busy_share": [r["device_busy_share"] for r in out["runs"] if r["pipeline_depth"] == d]}
+            for d in sorted(set(LOAD_RUNS))}
+        out["weight_evict_inflight_total"] = sum(s.service.metrics.counter("weight_evict_inflight_total")
+                                                 for s in servers.values())
+        out["cold_capture"] = cold_capture_stall(torch, servers[2], uris, bodies)
+        out["sync_check"] = sync_check(torch, servers[2].service, uris)
+        out["drills"] = load_drills(torch, bundle, uris, bodies, refs_path)
+        emit(out)
+        bad = [r for r in out["runs"] if r["statuses"].get(200) != r["requests"] or r["n_failures"]]
+        if bad:
+            raise AssertionError(f"load: runs with a non-200 answer or a wrong grid: {bad}")
+        if counts["pool_argmax"] != 4 * graph_counts["replays"] or counts["unpool_argmax"] != 4 * graph_counts["replays"]:
+            raise AssertionError(f"load: K1/K2 launches {counts} are not 4 x the {graph_counts['replays']} replays")
+        if out["weight_evict_inflight_total"]:
+            raise AssertionError("load: a page-out hit a batch in flight")
+        return {"counts": counts}
+    finally:
+        for server in servers.values():
+            _stop(server)
+
+
 def main() -> int:
     try:
         import torch
@@ -1927,12 +2489,14 @@ def main() -> int:
     dream = timed("dream", phase_dream, torch, ctx["uris"], env["nvidia_smi"])
     timed("capture", phase_capture, torch, ctx["bundle"], dag, dream, ctx["xs"], env["nvidia_smi"])
     multi = timed("multi_model", phase_multi_model, torch, ctx["uris"], env["nvidia_smi"])
+    load = timed("load", phase_load, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
                "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"], **dream["counts_by_path"],
                "multi_model POST / and /v1/dream": multi["counts"],
-               "multi_model vgg16 POST / (graphs captured after its page-out)": multi["vgg16_counts"]}
+               "multi_model vgg16 POST / (graphs captured after its page-out)": multi["vgg16_counts"],
+               "load POST /": load["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

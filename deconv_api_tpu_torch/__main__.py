@@ -2,23 +2,29 @@
 resnet50|inception_v3|mobilenet_v1|mobilenet_v2|vgg_tiny] [--device
 cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]
 [--serve-models all|M1,M2] [--pinned-models M1,M2] [--hbm-budget-bytes N]
-[--weight-dtype f32|bf16|int8]``: serve the reference's ``POST /``, the
+[--weight-dtype f32|bf16|int8] [--pipeline-depth 2] [--request-timeout-s 60]
+[--fault SITE=SPEC] [--trace-ring 256] ...``: serve the reference's ``POST /``, the
 JSON API ``POST /v1/deconv`` and DeepDream's ``POST /v1/dream`` (``file``,
 optional ``layers``, ``steps``, ``octaves``, ``lr``; dreams have a
 dispatcher of their own, up to 4 a batch), for ``--model`` and every model
 of ``--serve-models`` (a request names its model with ``model=`` or
 ``x-model``), and the control routes ``/healthz``, ``/readyz``,
-``/metrics``, ``/v1/config`` and ``/v1/models``."""
+``/metrics``, ``/v1/config``, ``/v1/models`` and ``/v1/debug/requests``.
+The request pipeline's fields of ``config.ServerConfig`` (timeouts,
+connection limits, shedding, pipeline depth, codec pool, tracing, faults
+and the breaker) each have a flag of the field's name."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from deconv_api_tpu_torch.config import ServerConfig
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
 from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
 from deconv_api_tpu_torch.serving.models import REGISTRY
+from deconv_api_tpu_torch.utils import slog
 
 
 def _kpack_policy(value: str) -> str:
@@ -27,6 +33,33 @@ def _kpack_policy(value: str) -> str:
     except ValueError as e:
         raise argparse.ArgumentTypeError(str(e)) from None
     return value
+
+
+_TYPES = {"int": int, "float": float}  # ServerConfig's annotations are strings
+_PIPELINE_FIELDS = {
+    "request_timeout_s": "seconds a POST / or /v1/deconv request may wait for its batch",
+    "sweep_timeout_s": "the same for a sweep=true request",
+    "dream_timeout_s": "the same for a /v1/dream request",
+    "dream_max_batch": "images per dream batch",
+    "dream_window_ms": "the dream dispatcher's straggler window",
+    "conn_idle_timeout_s": "seconds an idle or slow-header connection is kept (0 = forever)",
+    "body_read_timeout_s": "seconds a request body may take to arrive, else 408 (0 = forever)",
+    "max_connections": "concurrent connections; excess ones get 503 and are closed",
+    "shed_factor": "shed (503 overloaded) when the queue's drain estimate exceeds this times "
+                   "the request timeout (0 disables)",
+    "pipeline_depth": "dispatched but unfetched batches a dispatcher may hold (1 = serial)",
+    "codec_workers": "decode/encode worker threads (0 = auto)",
+    "codec_queue_depth": "queued-or-running codec jobs before callers wait",
+    "codec_inline_bytes": "bodies of at most this many bytes decode on the event loop",
+    "input_ring_depth": "reusable staging buffers per batch shape",
+    "trace_ring": "flight-recorder ring size per class (0 disables tracing)",
+    "trace_slow_ms": "latency threshold for the slow-trace ring (ms)",
+    "trace_sample": "head-sample rate for the recent-trace ring (0..1)",
+    "fault_injection": "enable the fault-injection registry",
+    "fault_seed": "seed for the fault registry's deterministic RNG",
+    "breaker_threshold": "consecutive batch failures that open the device circuit breaker (0 disables)",
+    "breaker_cooldown_s": "seconds the breaker stays open before a half-open probe",
+}
 
 
 def build_server(argv=None) -> DeconvHTTPServer:
@@ -63,12 +96,29 @@ def build_server(argv=None) -> DeconvHTTPServer:
         help="stored weight precision on the device (quantized tiers trade "
         "PSNR-bounded fidelity for resident models)",
     )
+    # the request pipeline's fields, each named after its ServerConfig
+    # field (the JAX CLI's names where it has one)
+    for field in dataclasses.fields(ServerConfig):
+        if field.name in _PIPELINE_FIELDS:
+            flag = "--" + field.name.replace("_", "-")
+            if field.type == "bool":
+                s.add_argument(flag, action="store_true", help=_PIPELINE_FIELDS[field.name])
+            else:
+                s.add_argument(flag, type=_TYPES[field.type], default=field.default,
+                               help=f"{_PIPELINE_FIELDS[field.name]} (default {field.default})")
+    s.add_argument(
+        "--fault", action="append", default=None, metavar="SITE=SPEC",
+        help="arm a fault-injection site at startup (repeatable; implies "
+        "fault injection enabled — see serving/faults.py for sites/specs)",
+    )
     args = ap.parse_args(argv)
 
     cfg = ServerConfig(
         model=args.model, max_batch=args.max_batch, lowc_kpack=args.lowc_kpack,
         serve_models=args.serve_models, pinned_models=args.pinned_models,
         hbm_budget_bytes=args.hbm_budget_bytes, weight_dtype=args.weight_dtype,
+        faults=",".join(args.fault or ()),
+        **{name: getattr(args, name) for name in _PIPELINE_FIELDS},
     )
     service = DeconvService(cfg=cfg, device=args.device)
     service.start()
@@ -87,6 +137,7 @@ def build_server(argv=None) -> DeconvHTTPServer:
 
 
 def main(argv=None) -> int:
+    slog.configure()  # the server entry point owns the logging setup (embedders don't)
     server = build_server(argv)
     try:
         server.serve_forever()

@@ -14,6 +14,74 @@ class ServerConfig:
     # batching dispatcher (fixes the reference's 1-concurrency)
     max_batch: int = 8
     batch_window_ms: float = 3.0
+    request_timeout_s: float = 60.0
+    dream_timeout_s: float = 300.0  # dreams run minutes; own queue + timeout
+    # Layer sweeps project ~13x a single-layer request; they ride their own
+    # dispatcher + metrics stream (like dreams) so interactive traffic is
+    # never head-of-line blocked and the shed estimator's p50 stays clean.
+    sweep_timeout_s: float = 300.0
+    # Connection-level abuse hardening: a slowloris client may hold a
+    # socket (and body buffer) only this long; idle keep-alive
+    # connections are reaped on the same clock.  0 disables (tests).
+    conn_idle_timeout_s: float = 30.0
+    body_read_timeout_s: float = 20.0
+    max_connections: int = 256  # concurrent sockets; excess get 503 + close
+    # Load shedding: reject immediately (503) when the estimated queue
+    # drain time exceeds this multiple of request_timeout_s (callers would
+    # only wait out the timeout and 504 anyway).  0 disables shedding.
+    shed_factor: float = 1.0
+    # Batch pipelining: how many dispatched-but-unfetched device batches a
+    # dispatcher may hold (serving/batcher.py).  2 overlaps batch N's
+    # device-to-host copy, JPEG encode and resolve with batch N+1's replay;
+    # 1 restores the serial dispatch->fetch loop.
+    pipeline_depth: int = 2
+    # Concurrent dreams with identical (layers, steps, octaves, lr) batch
+    # into one octave pyramid; the window is wide because dreams run for
+    # seconds anyway.
+    dream_max_batch: int = 4
+    dream_window_ms: float = 50.0
+    # --- host I/O pipeline (serving/codec_pool.py) ---
+    # Codec worker pool: decodes request payloads and encodes response
+    # JPEGs off the event loop on persistent daemon threads.  0 workers =
+    # auto (min(8, cpu/2)); codec_queue_depth bounds queued-or-running
+    # codec jobs — the bound is the decode/encode stages' backpressure.
+    codec_workers: int = 0
+    codec_queue_depth: int = 256
+    # Payloads at or under this many bytes decode INLINE on the event
+    # loop: a pool handoff costs more than a small image's decode.  0
+    # sends everything to the pool.
+    codec_inline_bytes: int = 16384
+    # Reusable host staging buffers per padded batch shape (pinned on the
+    # card): batch N+1 assembles into a different buffer than in-flight
+    # batch N.  >= 2; 3 leaves one spare for the fetch tail.
+    input_ring_depth: int = 3
+    # --- per-request tracing (serving/trace.py) ---
+    # Flight-recorder ring size: the last N completed traces, N
+    # tail-sampled slow traces, and N error traces, served at
+    # GET /v1/debug/requests.  0 disables tracing (responses still carry
+    # x-request-id).
+    trace_ring: int = 256
+    # A completed request slower than this lands in the slow ring
+    # regardless of trace_sample (tail sampling).
+    trace_slow_ms: float = 100.0
+    # Head-sample rate for the RECENT ring (1.0 = every request, 0 = only
+    # slow/error traces are retained).
+    trace_sample: float = 1.0
+    # --- robustness (serving/faults.py, the batcher's breaker) ---
+    # Fault injection master switch: enables the registry and the module
+    # hook.  Never enable on a server an untrusted party can reach.
+    fault_injection: bool = False
+    # Faults armed at startup: "site=spec,site=spec" (see serving/
+    # faults.py for the grammar).  Non-empty implies fault_injection.
+    faults: str = ""
+    # Seed for the registry's deterministic RNG: probabilistic chaos
+    # runs replay the same firing sequence.
+    fault_seed: int = 0
+    # Device circuit breaker: open after this many CONSECUTIVE batch
+    # failures (fail-fast 503 breaker_open + Retry-After while open,
+    # half-open single-probe recovery after the cooldown).  0 disables.
+    breaker_threshold: int = 5
+    breaker_cooldown_s: float = 5.0
     # Low-channel backward-tail packing of the sequential engine: 'off'
     # (default) | 'auto' (pack the C<=64 tail when top_k > 1) | 'forced'
     # (whole certified C<=128 tail) | an explicit channel threshold.  DAG

@@ -189,12 +189,14 @@ class CapturedProgram:
             self.capture_s = time.perf_counter() - t0
             ops.graph_counts["captures"] += 1
 
-    def load(self, *inputs) -> None:
+    def load(self, *inputs, non_blocking: bool = False) -> None:
         """Copy ``inputs`` into the static tensors (a host tensor is copied
-        to the device here, outside any capture)."""
+        to the device here, outside any capture).  With ``non_blocking`` a
+        pinned host tensor is copied asynchronously on the current stream:
+        keep it unchanged until that stream has passed the copy."""
         with torch.no_grad():
             for s, x in zip(self.static, inputs):
-                s.copy_(x)
+                s.copy_(x, non_blocking=non_blocking)
 
     def replay(self):
         """Run the program on the static tensors' contents; returns the

@@ -1,8 +1,13 @@
 """The HTTP error taxonomy the slice serves (the codes of
 ``deconv_api_tpu/errors.py``): each error maps to a status and a
-machine-readable code, served as ``{"error": code, "detail": message}``."""
+machine-readable code, served as ``{"error": code, "detail": message}``
+(``to_payload`` adds the request id).  An error that carries
+``retry_after_s`` is answered with a ``Retry-After`` header
+(``retry_after_value``)."""
 
 from __future__ import annotations
+
+import math
 
 
 class DeconvError(Exception):
@@ -12,9 +17,6 @@ class DeconvError(Exception):
     def __init__(self, message: str):
         super().__init__(message)
         self.message = message
-
-    def payload(self) -> dict:
-        return {"error": self.code, "detail": self.message}
 
 
 class BadRequest(DeconvError):
@@ -55,13 +57,82 @@ class ModelNotReady(DeconvError):
     code = "model_not_ready"
 
 
+class Overloaded(DeconvError):
+    """The queue's drain estimate exceeds the request timeout: shed now with
+    a 503 rather than make the caller wait out a certain 504
+    (``serving/batcher.py:BatchingDispatcher.submit``).  Carries the drain
+    estimate for the ``Retry-After`` header."""
+
+    status = 503
+    code = "overloaded"
+
+    def __init__(self, message: str, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
 class RequestTimeout(DeconvError):
     status = 504
     code = "request_timeout"
 
 
 class Unavailable(DeconvError):
-    """A model's weights could not be brought onto the device in time."""
+    """The dispatcher is shutting down, a worker pool has no live worker, or
+    a model's weights could not be brought onto the device in time."""
 
     status = 503
     code = "unavailable"
+
+
+class DeadlineExpired(DeconvError):
+    """The request's own ``x-deadline-ms`` budget lapsed: queued work whose
+    caller has given up is dropped before any device work."""
+
+    status = 504
+    code = "deadline_expired"
+
+
+class BreakerOpen(DeconvError):
+    """The device circuit breaker is open: requests fail fast with a
+    ``Retry-After`` from the breaker's remaining cooldown."""
+
+    status = 503
+    code = "breaker_open"
+
+    def __init__(self, message: str, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class FaultInjected(DeconvError):
+    """An armed fault-injection site fired (``serving/faults.py``)."""
+
+    status = 500
+    code = "fault_injected"
+
+
+def to_payload(e: DeconvError, request_id: str | None = None) -> dict:
+    """The JSON error body of every route: the code and the detail, and the
+    request id that joins it to the server's logs and traces."""
+    payload = {"error": e.code, "detail": e.message}
+    if request_id:
+        payload["request_id"] = request_id
+    return payload
+
+
+def code_from_body(body: bytes) -> str | None:
+    """The error code of a JSON error body, or None."""
+    import json
+
+    try:
+        return json.loads(body).get("error")
+    except (ValueError, AttributeError):
+        return None
+
+
+def retry_after_value(retry_after_s: float | None) -> str | None:
+    """A ``Retry-After`` header value: whole seconds, at least 1; None for
+    no header."""
+    if not retry_after_s or retry_after_s <= 0:
+        return None
+    return str(max(1, math.ceil(retry_after_s)))

@@ -4,7 +4,7 @@ paths of ``deconv_api_tpu/serving/app.py``).
 
 Routes: ``GET /health-check`` -> ``{"healthy": "true"}``, ``GET /ready``,
 ``POST /`` with form fields ``file`` (a data-URL image) and ``layer``,
-urlencoded or multipart, answered with the JSON-encoded
+urlencoded, multipart or JSON, answered with the JSON-encoded
 ``data:image/webp;base64,...`` string of the 2x2 grid of the top-4
 projections; ``POST /v1/deconv`` with ``file``, ``layer``, ``mode``
 (all|max), ``top_k`` (1..64) and ``sweep``, answered with the data URLs of
@@ -14,48 +14,54 @@ down with ``sweep``); and ``POST /v1/dream`` with ``file`` and optional
 (1..100), ``octaves`` (1..16, steps x octaves <= 500) and ``lr`` (0, 1],
 answered with ``{"layers", "loss", "image"}``.  Every POST also takes
 ``model`` (form field, else the ``x-model`` header): empty (the default
-model) or a served model's name, else 422 ``unknown_model``.
+model) or a served model's name, else 422 ``unknown_model``, and
+``x-deadline-ms``, the caller's budget: a request still queued when it
+lapses is answered 504 ``deadline_expired`` before any device work.
 
 Control routes: ``GET /healthz`` (liveness), ``GET /readyz`` (readiness,
 with each check named, and the residency block when several models are
-served), ``GET /metrics`` and ``GET /v1/metrics`` (the Prometheus text of
-the deconv and dream streams), ``GET /v1/config`` (the effective
-configuration and the weight manager's residency) and ``GET /v1/models``
-(the registry, with the default and the served models marked).
+served; 503 while draining), ``GET /metrics`` and ``GET /v1/metrics`` (the
+Prometheus text of the deconv, dream and sweep streams and of the request
+traces), ``GET /v1/config`` (the effective configuration and the weight
+manager's residency), ``GET /v1/models`` (the registry, with the default
+and the served models marked) and ``GET /v1/debug/requests`` (the flight
+recorder: recent, slow and error traces with their spans).
 
-Several models are served from one card through a ``WeightManager``
-(``serving/weight_manager.py``): each batch checks its model's weights out
-(paging them in if cold) before its replay and releases them after its
-outputs are on the host.
+The request pipeline (as the JAX service's): an asyncio HTTP server
+(``serving/http.py``) on the service's event-loop thread; decode on the
+codec worker pool (``serving/codec_pool.py``; small bodies inline); three
+``BatchingDispatcher``s (``serving/batcher.py``: deconv, dream, sweep) on
+one ``LanePool`` whose lane is the card, each coalescing requests of one
+(model, program) into batches of its power-of-two bucket, shedding load,
+dropping expired deadlines and failing fast while the breaker is open.
 
-Request threads decode and preprocess on the host, then hand the image to
-a dispatcher thread, which coalesces concurrent requests for the same
-program into one batch of up to ``max_batch`` within a window and runs it
-on the device as the captured program of its power-of-two bucket
-(``serving/batcher.py``, ``engine/capture.py``); a batch holds one model.
-Deconv programs (layer, mode, top_k, presentation, sweep)
-and dreams (layers, steps, octaves, lr) have a dispatcher each, so a dream
-that runs for seconds never holds a ``POST /`` back.  The request thread
-encodes its own images.  The service's ``lowc_kpack`` policy applies to
-every deconv program.
+Device work is pipelined.  A dispatcher's dispatch step (``_enqueue_*``,
+on its lane's dispatch worker thread) checks the model's weights out,
+assembles the padded batch in a pinned staging buffer, copies it into the
+captured program's static input without blocking, replays the graph,
+enqueues non-blocking copies of the real rows of every output into pinned
+output buffers and records a CUDA event; it makes no host sync.  The fetch
+(the thunk it returns, on a fetch thread) polls the event in short slices
+holding ``DEVICE_LOCK`` shared, reads the host rows, JPEG-encodes the
+grids, returns the buffers to their rings and only then releases the
+checkout, so a page-out never frees a model with a batch in flight.
+Stream order keeps the next replay from overwriting outputs whose copies
+are queued before it.  On the CPU the dispatch step computes at once and
+the fetch reads the copied rows: the same code path, not a fallback.
 """
 
 from __future__ import annotations
 
-import collections
+import asyncio
 import concurrent.futures
 import contextlib
 import dataclasses
 import functools
-import json
 import logging
 import math
-import re
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Callable, Hashable, NamedTuple
-from urllib.parse import parse_qsl
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -67,9 +73,14 @@ from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
 from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_programs
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
-from deconv_api_tpu_torch.serving.batcher import buckets, pad_bucket, pad_to_bucket
+from deconv_api_tpu_torch.serving import faults as faults_mod
+from deconv_api_tpu_torch.serving import trace as trace_mod
+from deconv_api_tpu_torch.serving.batcher import BatchingDispatcher, CircuitBreaker, LanePool, buckets, pad_bucket
+from deconv_api_tpu_torch.serving.codec_pool import HostBufferRing, WorkerPool
+from deconv_api_tpu_torch.serving.http import HttpServer, Request, Response
 from deconv_api_tpu_torch.serving.metrics import Metrics
 from deconv_api_tpu_torch.serving.models import REGISTRY, ModelBundle, build_bundle, registry_info
+from deconv_api_tpu_torch.serving.trace import FlightRecorder, RequestTrace
 from deconv_api_tpu_torch.serving.weight_manager import WEIGHT_DTYPES, WeightManager
 
 log = logging.getLogger(__name__)
@@ -78,14 +89,12 @@ log = logging.getLogger(__name__)
 # only those 4 projections gives the same grid.
 STITCH_K = 4
 DEFAULT_TOP_K = 8  # /v1/deconv's default
-REQUEST_TIMEOUT_S = 60.0
-# /v1/dream's defaults and its own dispatcher's (deconv_api_tpu/config.py)
+# /v1/dream's defaults (deconv_api_tpu/config.py)
 DREAM_DEFAULTS = {"steps": 10, "octaves": 10, "lr": 0.01}
-DREAM_MAX_BATCH = 4
-DREAM_WINDOW_MS = 50.0
-DREAM_TIMEOUT_S = 300.0
-MAX_BODY_BYTES = 64 * 1024 * 1024  # a form carrying one base64 image
 _TRUTHY = ("1", "true", "yes", "on")
+# a fetch polls its batch's CUDA event at most this often, backing off
+# from the first interval to the last
+_POLL_S = (5e-5, 1e-3)
 
 
 class Program(NamedTuple):
@@ -108,115 +117,40 @@ class Dream(NamedTuple):
     lr: float = DREAM_DEFAULTS["lr"]
 
 
-@dataclasses.dataclass
-class _Job:
-    key: Hashable
-    x: np.ndarray
-    future: concurrent.futures.Future
-    enqueued_at: float = dataclasses.field(default_factory=time.perf_counter)
-
-
-class Dispatcher:
-    """One thread that coalesces jobs of equal key: it takes the oldest job,
-    gathers jobs with its key until ``max_batch`` or the window closes, and
-    runs ``run_batch(key, xs)`` on the stacked images, whose result holds
-    one entry per image.  Each batch is observed on ``metrics``: its size,
-    its run's seconds and its oldest job's wait."""
-
-    def __init__(
-        self, run_batch: Callable[[Hashable, np.ndarray], list], *, max_batch: int,
-        window_ms: float, name: str, metrics: Metrics | None = None,
-    ):
-        if max_batch < 1:
-            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-        self.run_batch = run_batch
-        self.max_batch = max_batch
-        self.window_s = window_ms / 1000.0
-        self.name = name
-        self.metrics = metrics
-        # images per dispatched batch, the most recent ones
-        self.batch_sizes: collections.deque[int] = collections.deque(maxlen=1024)
-        self._pending: collections.deque[_Job] = collections.deque()
-        self._cv = threading.Condition()
-        self._closed = False
-        self._thread: threading.Thread | None = None
-
-    def start(self) -> None:
-        self._thread = threading.Thread(target=self._loop, name=self.name, daemon=True)
-        self._thread.start()
-
-    def close(self, timeout: float = 10.0) -> None:
-        with self._cv:
-            self._closed = True
-            self._cv.notify_all()
-        if self._thread is not None:
-            self._thread.join(timeout)
-
-    def alive(self) -> bool:
-        """The dispatcher thread runs (the /readyz ``batcher_tasks`` check)."""
-        return self._thread is not None and self._thread.is_alive()
-
-    def submit(self, key: Hashable, x: np.ndarray) -> concurrent.futures.Future:
-        job = _Job(key, x, concurrent.futures.Future())
-        with self._cv:
-            if self._closed:
-                raise errors.ModelNotReady("service is shutting down")
-            self._pending.append(job)
-            self._cv.notify_all()
-        return job.future
-
-    def _next_batch(self) -> list[_Job] | None:
-        """Block for the oldest job, then gather jobs for its key until the
-        batch is full or the window closes."""
-        with self._cv:
-            while not self._pending and not self._closed:
-                self._cv.wait()
-            if not self._pending:
-                return None
-            key = self._pending[0].key
-            deadline = time.monotonic() + self.window_s
-            while True:
-                same = [j for j in self._pending if j.key == key]
-                left = deadline - time.monotonic()
-                if len(same) >= self.max_batch or left <= 0 or self._closed:
-                    break
-                self._cv.wait(left)
-            batch = same[: self.max_batch]
-            for job in batch:
-                self._pending.remove(job)
-            return batch
-
-    def _loop(self) -> None:
-        while (batch := self._next_batch()) is not None:
-            self.batch_sizes.append(len(batch))
-            t0 = time.perf_counter()
-            try:
-                out = self.run_batch(batch[0].key, np.stack([j.x for j in batch]))
-            except Exception as e:  # the dispatcher must outlive a failed batch
-                for job in batch:
-                    job.future.set_exception(e)
-                continue
-            if self.metrics is not None:
-                self.metrics.observe_batch(len(batch), time.perf_counter() - t0,
-                                           t0 - min(j.enqueued_at for j in batch))
-            for job, result in zip(batch, out):
-                job.future.set_result(result)
+@contextlib.contextmanager
+def stage(metrics: Metrics, name: str):
+    """Time a pipeline stage into ``metrics`` and onto the active request
+    trace (``deconv_api_tpu/utils/tracing.py:stage``)."""
+    tr = trace_mod.current_trace()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        metrics.observe_stage(name, dt)
+        if tr is not None:
+            tr.add_span(name, t0, dt)
 
 
 class DeconvService:
-    """The batching dispatchers, the weight manager and the request logic,
-    independent of the HTTP server that drives them (the counterpart of
-    ``deconv_api_tpu/serving/app.py:DeconvService`` for what the port
-    serves).  ``cfg`` (``config.ServerConfig``, its fields also given as
-    keyword ``overrides``) is validated here, at boot, with the JAX
-    package's messages.
+    """The dispatchers, the weight manager, the codec pool and the routes
+    (the counterpart of ``deconv_api_tpu/serving/app.py:DeconvService`` for
+    what the port serves).  ``cfg`` (``config.ServerConfig``, its fields
+    also given as keyword ``overrides``) is validated here, at boot, with
+    the JAX package's messages.
 
     ``registry`` maps model name -> zero-arg ``ModelBundle`` factory; it
     defaults to ``serving/models.py:REGISTRY`` on ``device``.  An injected
     ``bundle`` is the default model and joins the served set under its own
     name (alone when no registry is given).  The served set
     (``cfg.serve_models``) and its residency on the card live in
-    ``weights``, a ``WeightManager``; ``bundle`` is the default model's."""
+    ``weights``, a ``WeightManager``; ``bundle`` is the default model's.
+
+    The service runs an asyncio event loop on a thread of its own, made at
+    the first ``start``, ``submit`` or route call: the dispatchers, the
+    codec pool's callers and the HTTP server (``listen``) live on it.  The
+    blocking methods (``compat``, ``deconv_v1``, ``dream_v1``, ``submit``)
+    run their coroutines there from any other thread."""
 
     def __init__(
         self, bundle: ModelBundle | None = None, cfg: ServerConfig | None = None, *,
@@ -239,6 +173,15 @@ class DeconvService:
         pinned = self._parse_model_list(cfg.pinned_models, cfg.model, "pinned_models")
         self.metrics = Metrics("deconv")
         self.dream_metrics = Metrics("dream")
+        self.sweep_metrics = Metrics("sweep")
+        # fault injection: a default-configured server pays one global load
+        # and a None test per site consultation
+        self.faults = None
+        if cfg.fault_injection or cfg.faults:
+            self.faults = faults_mod.FaultRegistry(seed=cfg.fault_seed, metrics=self.metrics)
+            if cfg.faults:
+                self.faults.arm_string(cfg.faults)
+            faults_mod.install(self.faults)
         self.bundle = bundle if bundle is not None else self._registry[cfg.model]()
         self.weights = WeightManager(
             {name: self._registry[name] for name in served}, cfg.model, default_bundle=self.bundle,
@@ -252,13 +195,50 @@ class DeconvService:
         self.draining = False
         self.warmup_wall_s: float | None = None
         self.warmup_wall_s_by_model: dict[str, float] = {}
-        self.dispatcher = Dispatcher(
-            self._run_deconv_batch, max_batch=cfg.max_batch, window_ms=cfg.batch_window_ms,
-            name="deconv-dispatch", metrics=self.metrics,
+        # one lane, the card, shared by the three dispatchers: they fail
+        # together, so one breaker opens for all of them
+        self.lane_pool = LanePool(
+            1,
+            breaker_factory=lambda: (
+                CircuitBreaker(cfg.breaker_threshold, cfg.breaker_cooldown_s)
+                if cfg.breaker_threshold > 0 else None
+            ),
+            metrics=self.metrics,
         )
-        self.dream_dispatcher = Dispatcher(
-            self._run_dream_batch, max_batch=DREAM_MAX_BATCH, window_ms=DREAM_WINDOW_MS,
-            name="dream-dispatch", metrics=self.dream_metrics,
+        self.breaker = self.lane_pool.lanes[0].breaker
+        self.codec_pool = WorkerPool(cfg.codec_workers, max_pending=cfg.codec_queue_depth, metrics=self.metrics)
+        # staging buffers of the padded inputs and of the outputs' host
+        # rows: pinned on the card, where they are never freed while serving
+        pinned_host = self.bundle.device.type == "cuda"
+        self.input_ring = HostBufferRing(cfg.input_ring_depth, pin_memory=pinned_host)
+        self.output_ring = HostBufferRing(cfg.input_ring_depth, pin_memory=pinned_host)
+        self.recorder = (
+            FlightRecorder(cfg.trace_ring, slow_ms=cfg.trace_slow_ms, sample=cfg.trace_sample)
+            if cfg.trace_ring > 0 else None
+        )
+        # a fetch gives up on a batch that outlives the longest timeout
+        self._fetch_wait_s = max(cfg.request_timeout_s, cfg.dream_timeout_s, cfg.sweep_timeout_s)
+        self.dispatcher = self._dispatcher(self._dispatch_deconv, cfg.max_batch, cfg.batch_window_ms,
+                                           cfg.request_timeout_s, self.metrics)
+        self.dream_dispatcher = self._dispatcher(self._dispatch_dream, cfg.dream_max_batch, cfg.dream_window_ms,
+                                                 cfg.dream_timeout_s, self.dream_metrics)
+        self.sweep_dispatcher = self._dispatcher(self._dispatch_deconv, cfg.max_batch, cfg.batch_window_ms,
+                                                 cfg.sweep_timeout_s, self.sweep_metrics)
+        self.server = HttpServer(idle_timeout_s=cfg.conn_idle_timeout_s, body_timeout_s=cfg.body_read_timeout_s,
+                                 max_connections=cfg.max_connections)
+        self._add_routes()
+        self._loop: asyncio.AbstractEventLoop | None = None
+        self._loop_thread: threading.Thread | None = None
+        self._loop_lock = threading.Lock()
+        self._listening = False
+        self._closed = False
+
+    def _dispatcher(self, dispatch, max_batch: int, window_ms: float, timeout_s: float,
+                    metrics: Metrics) -> BatchingDispatcher:
+        return BatchingDispatcher(
+            lambda key, images: dispatch(key, images)(), max_batch=max_batch, window_ms=window_ms,
+            request_timeout_s=timeout_s, metrics=metrics, shed_factor=self.cfg.shed_factor,
+            dispatch_runner=dispatch, pipeline_depth=self.cfg.pipeline_depth, lane_pool=self.lane_pool,
         )
 
     def _parse_model_list(self, raw: str, default: str, what: str) -> list[str]:
@@ -280,91 +260,218 @@ class DeconvService:
         return list(dict.fromkeys(names))
 
     @property
-    def batch_sizes(self) -> collections.deque:
-        """Images per dispatched deconv batch, the most recent ones."""
+    def batch_sizes(self):
+        """Images per executed deconv batch, the most recent ones."""
         return self.dispatcher.batch_sizes
 
     @property
-    def dream_batch_sizes(self) -> collections.deque:
-        """Images per dispatched dream batch, the most recent ones."""
+    def dream_batch_sizes(self):
+        """Images per executed dream batch, the most recent ones."""
         return self.dream_dispatcher.batch_sizes
 
-    # --- device work -----------------------------------------------------
+    # --- device work: the dispatch step and its fetch -----------------------
 
-    @contextlib.contextmanager
-    def _checked_out(self, model: str | None):
-        """The model's bundle with its weights resident on the device and
-        pinned there for the block (``WeightManager.checkout``): the
-        programs are fetched, replayed and their outputs copied to the
-        host inside it, since outputs alias the programs' pool."""
-        name = model or self.weights.default
-        bundle = self.weights.bundle(name)
-        self.weights.checkout(name)
+    def _host_rows(self, device: torch.device, outputs: dict, n: int):
+        """Enqueue non-blocking copies of the first ``n`` rows of every
+        tensor of ``outputs`` (``{name: {key: tensor}}``) into output ring
+        buffers of their bucket's shape, then record an event after them.
+        Returns ``(slots, event)``; ``event`` is None on the CPU, where the
+        copies are done."""
+        slots = {}
+        for name, entry in outputs.items():
+            slots[name] = {}
+            for key, t in entry.items():
+                buf = self.output_ring.acquire(t.shape, t.dtype)
+                buf[:n].copy_(t[:n], non_blocking=True)
+                slots[name][key] = buf
+        event = None
+        if device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        return slots, event
+
+    def _fetch_rows(self, slots: dict, event, n: int) -> dict:
+        """Wait for ``event`` (the batch's copies), then copy the ``n`` real
+        rows out of the slots and hand the slots back to their ring.  The
+        wait polls in short slices holding ``DEVICE_LOCK`` shared: an event
+        query while another thread captures would invalidate the capture,
+        and a slice never holds a capture back for long."""
         try:
-            yield bundle
+            if event is not None:
+                deadline = time.perf_counter() + self._fetch_wait_s
+                pause = _POLL_S[0]
+                while True:
+                    with DEVICE_LOCK.shared():
+                        if event.query():
+                            break
+                    if time.perf_counter() > deadline:
+                        raise errors.Unavailable(f"device work did not finish within {self._fetch_wait_s:.0f} s")
+                    time.sleep(pause)
+                    pause = min(2 * pause, _POLL_S[1])
+            return {name: {k: buf[:n].numpy().copy() for k, buf in entry.items()} for name, entry in slots.items()}
         finally:
-            self.weights.release(name)
+            for entry in slots.values():
+                for buf in entry.values():
+                    self.output_ring.release(buf)
 
-    def run_program(
-        self, program: Program, xs: np.ndarray, fused_unpool: str = FUSED_DEFAULT,
-        lowc_kpack: str | None = None, model: str | None = None,
-    ) -> dict[str, dict[str, np.ndarray]]:
-        """Preprocessed images (B, H, W, 3) of ``model`` (default: the
-        default model) -> ``{layer: {post, "valid", "indices"}}`` as numpy,
+    def _enqueue_program(
+        self, program: Program, images, fused_unpool: str = FUSED_DEFAULT, lowc_kpack: str | None = None,
+        model: str | None = None,
+    ) -> Callable[[], dict]:
+        """The dispatch step of a deconv batch: ``images`` (B preprocessed
+        (H, W, 3) images of ``model``, default the default model) through
         one device program with the reference's serving settings (bf16
         backward, bug_compat; a DAG model ignores both and projects in
-        fp32); ``post`` is ``program.post``, uint8 (B, 2H, 2W, 3) grids or
-        (B, K, H, W, 3) tiles.  ``lowc_kpack`` defaults to the service's
-        policy.  The batch runs as the captured program of its bucket
-        (``pad_bucket`` of ``max_batch``), its tail padded with the last
-        image; only the B real rows come back."""
-        n = len(xs)
+        fp32), run as the captured program of its bucket (``pad_bucket`` of
+        ``max_batch``), its tail padded with the last image.  Returns the
+        fetch, ``() -> {layer: {post, "valid", "indices"}}`` of the B real
+        rows as numpy; ``post`` is ``program.post``, uint8 (B, 2H, 2W, 3)
+        grids or (B, K, H, W, 3) tiles.  ``lowc_kpack`` defaults to the
+        service's policy.  The fetch carries ``page_in_s`` and
+        ``page_model`` when the batch paged its weights in."""
+        n = len(images)
         bucket = pad_bucket(n, self.max_batch)
-        batch = torch.from_numpy(pad_to_bucket(xs, bucket))
-        with self._checked_out(model) as bundle:
+        name = model or self.weights.default
+        bundle = self.weights.bundle(name)
+        _, page_s = self.weights.checkout(name)
+        staging = slots = None
+        try:
             prog = bundle.program(
                 program.layer, program.mode, program.top_k, bucket, bug_compat=True,
                 backward_dtype="bfloat16", post=program.post, fused_unpool=fused_unpool,
                 sweep=program.sweep, lowc_kpack=self.lowc_kpack if lowc_kpack is None else lowc_kpack,
             )
             with bundle.programs.replaying():
-                out = prog(batch)
-                # copied out before the next replay overwrites the outputs
-                return {
-                    name: {k: _host(entry[k][:n]) for k in (program.post, "valid", "indices")}
-                    for name, entry in out.items()
-                }
+                staging = self.input_ring.assemble(images, bucket)
+                prog.load(staging, non_blocking=True)
+                out = prog.replay()
+                slots, event = self._host_rows(
+                    bundle.device, {layer: {k: entry[k] for k in (program.post, "valid", "indices")}
+                                    for layer, entry in out.items()}, n)
+        except BaseException:
+            if staging is not None:
+                self.input_ring.release(staging)
+            self.weights.release(name)
+            raise
 
-    def _run_deconv_batch(self, key: tuple[str, Program], xs: np.ndarray) -> list[dict]:
-        model, program = key
-        out = self.run_program(program, xs, model=model)
-        return [
-            {name: {k: v[i] for k, v in entry.items()} for name, entry in out.items()}
-            for i in range(len(xs))
-        ]
+        def fetch() -> dict:
+            try:
+                return self._fetch_rows(slots, event, n)
+            finally:
+                self.input_ring.release(staging)
+                self.weights.release(name)  # the batch's outputs are on the host
 
-    def run_dream(
-        self, dream: Dream, xs: np.ndarray, model: str | None = None,
-    ) -> tuple[np.ndarray, np.ndarray]:
-        """Preprocessed images (B, H, W, 3) -> (dreamed images (B, H, W, 3)
-        fp32 in model-input space, final losses (B,)) as numpy, the whole
-        batch on one octave ladder of the bundle's ``min_dream_size``,
-        through the captured programs of its bucket (``pad_bucket`` of
-        ``DREAM_MAX_BATCH``), its tail padded with the last image."""
-        n = len(xs)
-        bucket = pad_bucket(n, DREAM_MAX_BATCH)
-        base = torch.from_numpy(pad_to_bucket(xs, bucket))
-        with self._checked_out(model) as bundle:
-            ladder = octave_shapes(*base.shape[1:3], dream.octaves, 1.4, bundle.min_dream_size)
+        fetch.page_in_s, fetch.page_model = page_s, name
+        return fetch
+
+    def _enqueue_dream(self, dream: Dream, images, model: str | None = None) -> Callable[[], tuple]:
+        """The dispatch step of a dream batch: ``images`` (B preprocessed
+        images) dreamed on one octave ladder of the bundle's
+        ``min_dream_size`` through the captured programs of its bucket
+        (``pad_bucket`` of ``dream_max_batch``), its tail padded with the
+        last image.  Returns the fetch, ``() -> (dreamed images (B, H, W, 3)
+        fp32 in model-input space, final losses (B,))`` as numpy."""
+        n = len(images)
+        bucket = pad_bucket(n, self.cfg.dream_max_batch)
+        name = model or self.weights.default
+        bundle = self.weights.bundle(name)
+        _, page_s = self.weights.checkout(name)
+        staging = slots = None
+        try:
+            size = bundle.image_size
+            ladder = octave_shapes(size, size, dream.octaves, 1.4, bundle.min_dream_size)
             rungs = bundle.dream_program(dream.layers, ladder, bucket)
             with bundle.dream_programs.replaying():
-                out, losses = run_dream_programs(rungs, base.to(bundle.device), dream.steps, dream.lr)
-                return _host(out[:n]), _host(losses[:n])
+                staging = self.input_ring.assemble(images, bucket)
+                # every rung's pyramid step reads the base: it lives on the
+                # card until the fetch
+                base = staging.to(bundle.device, non_blocking=True)
+                out, losses = run_dream_programs(rungs, base, dream.steps, dream.lr)
+                slots, event = self._host_rows(bundle.device, {"dream": {"image": out, "loss": losses}}, n)
+        except BaseException:
+            if staging is not None:
+                self.input_ring.release(staging)
+            self.weights.release(name)
+            raise
 
-    def _run_dream_batch(self, key: tuple[str, Dream], xs: np.ndarray) -> list[dict]:
+        def fetch() -> tuple:
+            try:
+                rows = self._fetch_rows(slots, event, n)["dream"]
+                return rows["image"], rows["loss"]
+            finally:
+                self.input_ring.release(staging)
+                self.weights.release(name)
+
+        fetch.base = base  # read by the queued rungs until the event
+        fetch.page_in_s, fetch.page_model = page_s, name
+        return fetch
+
+    def _device_faults(self) -> None:
+        """The device fault sites of a dispatch (``device.dispatch_delay_ms``,
+        ``device.dispatch_error`` on lane 0), on the dispatch worker."""
+        act = faults_mod.check("device.dispatch_delay_ms")
+        if act is not None:
+            time.sleep((act.param or 100.0) / 1e3)
+        faults_mod.raise_if_armed("device.dispatch_error", where=0)
+
+    def _dispatch_deconv(self, key: tuple[str, Program], images: list) -> Callable[[], list]:
+        """The deconv and sweep dispatchers' dispatch runner: enqueue the
+        batch and return its materialise thunk, which fetches the rows,
+        JPEG-encodes the fired grids on the codec pool (one failed encode
+        costs its own request a retry on the route, not the batch) and
+        splits the rows per request: ``{layer: {post, "valid", "indices"[,
+        "data_url"]}}``."""
+        model, program = key
+        self._device_faults()
+        fetch = self._enqueue_program(program, images, model=model)
+        n = len(images)
+
+        def materialise() -> list:
+            out = fetch()
+            if program.post == "grid":
+                t_enc = time.perf_counter()
+                for entry in out.values():
+                    fired = [i for i in range(n) if entry["valid"][i].any()]
+                    encoded = self.codec_pool.map_sync_settle(codec.encode_data_url, [entry["grid"][i] for i in fired])
+                    urls = [None] * n
+                    for i, url in zip(fired, encoded):
+                        urls[i] = None if isinstance(url, BaseException) else url
+                    entry["data_url"] = urls
+                self.metrics.observe_stage("encode", time.perf_counter() - t_enc)
+            return [{layer: {k: v[i] for k, v in entry.items()} for layer, entry in out.items()} for i in range(n)]
+
+        if fetch.page_in_s:
+            materialise.page_in_s, materialise.page_model = fetch.page_in_s, fetch.page_model
+        return materialise
+
+    def _dispatch_dream(self, key: tuple[str, Dream], images: list) -> Callable[[], list]:
+        """The dream dispatcher's dispatch runner."""
         model, dream = key
-        out, losses = self.run_dream(dream, xs, model)
-        return [{"image": out[i], "loss": float(losses[i])} for i in range(len(xs))]
+        self._device_faults()
+        fetch = self._enqueue_dream(dream, images, model)
+
+        def materialise() -> list:
+            out, losses = fetch()
+            return [{"image": out[i], "loss": float(losses[i])} for i in range(len(images))]
+
+        if fetch.page_in_s:
+            materialise.page_in_s, materialise.page_model = fetch.page_in_s, fetch.page_model
+        return materialise
+
+    def run_program(
+        self, program: Program, xs, fused_unpool: str = FUSED_DEFAULT, lowc_kpack: str | None = None,
+        model: str | None = None,
+    ) -> dict[str, dict[str, np.ndarray]]:
+        """``_enqueue_program`` and its fetch, on the calling thread:
+        preprocessed images (B, H, W, 3) -> ``{layer: {post, "valid",
+        "indices"}}`` as numpy."""
+        return self._enqueue_program(program, xs, fused_unpool, lowc_kpack, model)()
+
+    def run_dream(self, dream: Dream, xs, model: str | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """``_enqueue_dream`` and its fetch, on the calling thread:
+        preprocessed images (B, H, W, 3) -> (dreamed images, final losses)
+        as numpy."""
+        return self._enqueue_dream(dream, xs, model)()
 
     def visualize_batch(
         self, layer: str, xs: np.ndarray, fused_unpool: str = FUSED_DEFAULT, model: str | None = None,
@@ -383,12 +490,12 @@ class DeconvService:
         out = [(p, b) for b in buckets(self.max_batch)
                for p in (Program(layer), Program(layer, top_k=DEFAULT_TOP_K, post="tiles"))]
         if bundle.dream_layers:
-            out += [(Dream(bundle.dream_layers), b) for b in buckets(DREAM_MAX_BATCH)]
+            out += [(Dream(bundle.dream_layers), b) for b in buckets(self.cfg.dream_max_batch)]
         return out
 
     def warm(self, program: Program | Dream, bucket: int, model: str | None = None) -> None:
         """Run ``program`` once on a zero batch of ``bucket`` images, which
-        captures it on the card."""
+        captures it on the card (and fills the staging rings)."""
         size = self.weights.bundle(model or self.weights.default).image_size
         xs = np.zeros((bucket, size, size, 3), np.float32)
         if isinstance(program, Dream):
@@ -421,25 +528,102 @@ class DeconvService:
         self.metrics.set_gauge("warmup_seconds", self.warmup_wall_s)
         self.ready = True
 
-    # --- dispatchers -----------------------------------------------------
+    # --- the event loop and the dispatchers ---------------------------------
+
+    def _ensure_loop(self) -> asyncio.AbstractEventLoop:
+        with self._loop_lock:
+            if self._loop is None:
+                loop = asyncio.new_event_loop()
+                thread = threading.Thread(target=loop.run_forever, name="deconv-loop", daemon=True)
+                thread.start()
+                self._loop, self._loop_thread = loop, thread
+            return self._loop
+
+    def on_loop(self, coro, timeout: float | None = None):
+        """Run ``coro`` on the service's event loop and wait for its result
+        (from any other thread)."""
+        return asyncio.run_coroutine_threadsafe(coro, self._ensure_loop()).result(timeout)
 
     def start(self) -> None:
-        self.dispatcher.start()
-        self.dream_dispatcher.start()
+        """Start the three dispatchers (and the codec pool anew after a
+        ``close``)."""
+        if self.codec_pool.closed:
+            self.codec_pool = WorkerPool(self.cfg.codec_workers, max_pending=self.cfg.codec_queue_depth,
+                                         metrics=self.metrics)
+        self._closed = False
+
+        async def start():
+            for d in (self.dispatcher, self.dream_dispatcher, self.sweep_dispatcher):
+                await d.start()
+
+        self.on_loop(start())
+
+    def listen(self, host: str = "127.0.0.1", port: int = 0) -> int:
+        """Bind the HTTP server on the event loop; returns the bound port."""
+        bound = self.on_loop(self.server.start(host, port))
+        self._listening = True
+        return bound
+
+    def stop_listening(self, grace_s: float = 5.0) -> None:
+        """Close the listener (open connections get ``grace_s``); the event
+        loop ends once the dispatchers are closed too."""
+        if self._listening:
+            self._listening = False
+            self.on_loop(self.server.stop(grace_s))
+        self._maybe_end_loop()
+
+    def begin_drain(self) -> None:
+        """Flip into draining before the listener closes: ``/readyz``
+        answers 503 so load balancers stop routing, and every response on
+        a live keep-alive connection carries ``connection: close``."""
+        self.draining = True
+        self.server.draining = True
 
     def close(self, timeout: float = 10.0) -> None:
-        """Begin the drain (``/readyz`` answers 503 from here), then stop
-        both dispatchers."""
-        self.draining = True
-        self.dispatcher.close(timeout)
-        self.dream_dispatcher.close(timeout)
+        """Begin the drain (``/readyz`` answers 503 and every response
+        carries ``connection: close`` from here), then stop the three
+        dispatchers within one shared grace of ``timeout`` seconds, the
+        codec pool and the fault hook.  The listener, if any, stays up
+        until ``stop_listening``."""
+        self.begin_drain()
+        if self._loop is not None and not self._closed:
+            async def stop():
+                deadline = time.perf_counter() + timeout
+                for d in (self.dispatcher, self.dream_dispatcher, self.sweep_dispatcher):
+                    await d.stop(grace_s=max(0.0, deadline - time.perf_counter()))
+
+            self.on_loop(stop())
+        self._closed = True
+        self.codec_pool.close()
+        if self.faults is not None:
+            faults_mod.uninstall(self.faults)
+        self._maybe_end_loop()
+
+    def _maybe_end_loop(self) -> None:
+        with self._loop_lock:
+            if self._loop is None or self._listening or not self._closed:
+                return
+            loop, thread = self._loop, self._loop_thread
+            self._loop = self._loop_thread = None
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        loop.run_until_complete(loop.shutdown_default_executor())
+        loop.close()
+        # the pinned buffers go now, while no capture can run
+        with DEVICE_LOCK.exclusive() if self.bundle.device.type == "cuda" else contextlib.nullcontext():
+            self.input_ring.clear()
+            self.output_ring.clear()
 
     def submit(self, program: Program, x: np.ndarray, model: str | None = None) -> concurrent.futures.Future:
-        """Queue one image of ``model`` for ``program``: requests batch
-        together only with the same model and program."""
-        return self.dispatcher.submit((model or self.weights.default, program), x)
+        """Queue one image of ``model`` for ``program`` on its dispatcher (a
+        sweep on the sweep dispatcher): requests batch together only with
+        the same model and program.  Returns a future of the image's
+        ``{layer: {...}}``."""
+        dispatcher = self.sweep_dispatcher if program.sweep else self.dispatcher
+        key = (model or self.weights.default, program)
+        return asyncio.run_coroutine_threadsafe(dispatcher.submit(x, key), self._ensure_loop())
 
-    # --- requests --------------------------------------------------------
+    # --- requests ----------------------------------------------------------
 
     def resolve_model(self, form: dict[str, str], headers=None) -> str:
         """The request's model: the ``model`` form field (wins), else the
@@ -469,12 +653,26 @@ class DeconvService:
         size = bundle.image_size
         return bundle.preprocess(codec.resize224(img, (size, size)))
 
-    def _project(self, form: dict[str, str], headers=None, **program) -> dict:
-        """Check readiness, the model, and the form's image and layer, then
-        run the image through the dispatcher in ``Program(layer,
-        **program)``: ``{layer: {...}}`` of one image."""
-        self._check_ready()
-        model = self.resolve_model(form, headers)
+    async def _prepare(self, metrics: Metrics, parse: Callable[[], dict], size: int, headers, validate):
+        """Parse the form, resolve the model, then ``validate(form, model)``
+        (which checks the fields and decodes the image) on the codec pool;
+        a body of ``codec_inline_bytes`` or less whose model is built runs
+        inline, where the pool's handoff would cost more than the work."""
+        with stage(metrics, "decode"):
+            if size <= self.cfg.codec_inline_bytes:
+                form = parse()
+                model = self.resolve_model(form, headers)
+                if self.weights.peek_bundle(model) is not None:
+                    return validate(form, model)
+                return await self.codec_pool.run(validate, form, model)
+
+            def job():
+                form = parse()
+                return validate(form, self.resolve_model(form, headers))
+
+            return await self.codec_pool.run(job)
+
+    def _projection_input(self, form: dict, model: str) -> tuple[ModelBundle, str, np.ndarray]:
         bundle = self.weights.bundle(model)
         file_uri, layer = form.get("file"), form.get("layer")
         if not file_uri or not layer:
@@ -483,24 +681,26 @@ class DeconvService:
             bundle.check_layer(layer)
         except ValueError as e:
             raise errors.UnknownLayer(str(e)) from None
-        x = self.decode_preprocess(file_uri, bundle)
-        return _wait(self.submit(Program(layer, **program), x, model), REQUEST_TIMEOUT_S)
+        return bundle, layer, self.decode_preprocess(file_uri, bundle)
 
-    def compat(self, form: dict[str, str], headers=None) -> str:
-        """``POST /``: form -> the data URL of the stitched grid."""
-        result = self._project(form, headers)[form["layer"]]
+    async def _compat(self, parse: Callable[[], dict], size: int, headers=None, deadline=None) -> str:
+        """``POST /``: the data URL of the stitched grid."""
+        self._check_ready()
+
+        def validate(form, model):
+            _, layer, x = self._projection_input(form, model)
+            return model, layer, x
+
+        model, layer, x = await self._prepare(self.metrics, parse, size, headers, validate)
+        _annotate_model(model)
+        with stage(self.metrics, "compute"):
+            result = (await self.dispatcher.submit(x, (model, Program(layer)), deadline=deadline))[layer]
         if not result["valid"].any():
-            raise errors.NoActiveFilters(f"no filters fired for layer {form['layer']!r}")
-        t0 = time.perf_counter()
-        url = codec.encode_data_url(result["grid"])
-        self.metrics.observe_stage("encode", time.perf_counter() - t0)
-        return url
+            raise errors.NoActiveFilters(f"no filters fired for layer {layer!r}")
+        # encoded in the fetch thread; a failed encode there is retried here
+        return result["data_url"] or await self.codec_pool.run(codec.encode_data_url, result["grid"])
 
-    def deconv_v1(self, form: dict[str, str], headers=None) -> dict:
-        """``POST /v1/deconv``: form -> ``{"layer", "mode", "filters",
-        "images"}`` for the fired filters (a prefix of the ranking), or
-        ``{"layer", "mode", "sweep": true, "layers": {name: {"filters",
-        "images"}}}`` with ``sweep``."""
+    def _deconv_params(self, form: dict[str, str]) -> tuple[str, int, bool]:
         mode = form.get("mode", "all")
         if mode not in ("all", "max"):
             raise errors.IllegalMode(f"mode must be 'all' or 'max', got {mode!r}")
@@ -510,12 +710,40 @@ class DeconvService:
             raise errors.BadRequest(f"top_k must be an integer, got {form['top_k']!r}") from None
         if not 1 <= top_k <= 64:
             raise errors.BadRequest("top_k must be in [1, 64]")
-        sweep = form.get("sweep", "").lower() in _TRUTHY
-        result = self._project(form, headers, mode=mode, top_k=top_k, post="tiles", sweep=sweep)
-        if sweep:
-            layers = {name: _encode_tiles(entry) for name, entry in result.items()}
-            return {"layer": form["layer"], "mode": mode, "sweep": True, "layers": layers}
-        return {"layer": form["layer"], "mode": mode, **_encode_tiles(result[form["layer"]])}
+        return mode, top_k, form.get("sweep", "").lower() in _TRUTHY
+
+    async def _deconv_v1(self, parse: Callable[[], dict], size: int, headers=None, deadline=None) -> dict:
+        """``POST /v1/deconv``: ``{"layer", "mode", "filters", "images"}``
+        for the fired filters (a prefix of the ranking), or ``{"layer",
+        "mode", "sweep": true, "layers": {name: {"filters", "images"}}}``
+        with ``sweep``, which runs on the sweep dispatcher."""
+
+        def validate(form, model):
+            mode, top_k, sweep = self._deconv_params(form)
+            self._check_ready()
+            _, layer, x = self._projection_input(form, model)
+            return model, Program(layer, mode, top_k, "tiles", sweep), x
+
+        model, program, x = await self._prepare(self.metrics, parse, size, headers, validate)
+        _annotate_model(model)
+        dispatcher, metrics = (self.sweep_dispatcher, self.sweep_metrics) if program.sweep else (
+            self.dispatcher, self.metrics)
+        with stage(metrics, "compute"):
+            result = await dispatcher.submit(x, (model, program), deadline=deadline)
+        with stage(self.metrics, "encode"):
+            names = list(result)
+            encoded = await asyncio.gather(*(self._encode_tiles(result[name]) for name in names))
+        if program.sweep:
+            return {"layer": program.layer, "mode": program.mode, "sweep": True,
+                    "layers": dict(zip(names, encoded))}
+        return {"layer": program.layer, "mode": program.mode, **encoded[0]}
+
+    async def _encode_tiles(self, entry: dict) -> dict:
+        """``{"filters", "images"}`` of one projected layer's fired prefix,
+        the tiles encoded across the codec pool."""
+        n_valid = int(entry["valid"].sum())
+        images = await self.codec_pool.map(codec.encode_data_url, [entry["tiles"][k] for k in range(n_valid)])
+        return {"filters": [int(i) for i in entry["indices"][:n_valid]], "images": images}
 
     def dream_params(self, form: dict[str, str], bundle: ModelBundle | None = None) -> Dream:
         """A dream request's knobs, validated as the reference's
@@ -542,29 +770,157 @@ class DeconvService:
             raise errors.BadRequest("lr must be a finite value in (0, 1]")
         return Dream(layers, steps, octaves, lr)
 
-    def dream_v1(self, form: dict[str, str], headers=None) -> dict:
-        """``POST /v1/dream``: form -> ``{"layers", "loss", "image"}``, the
-        dreamed image as a data URL and its final loss (``None`` when it is
-        not finite)."""
+    async def _dream_v1(self, parse: Callable[[], dict], size: int, headers=None, deadline=None) -> dict:
+        """``POST /v1/dream``: ``{"layers", "loss", "image"}``, the dreamed
+        image as a data URL and its final loss (``None`` when it is not
+        finite)."""
         self._check_ready()
-        model = self.resolve_model(form, headers)
-        bundle = self.weights.bundle(model)
-        file_uri = form.get("file")
-        if not file_uri:
-            raise errors.BadRequest("form field 'file' is required")
-        dream = self.dream_params(form, bundle)
-        try:
-            bundle.dream_forward(dream.layers)
-        except KeyError as e:
-            raise errors.UnknownLayer(str(e)) from None
-        x = self.decode_preprocess(file_uri, bundle)
-        result = _wait(self.dream_dispatcher.submit((model, dream), x), DREAM_TIMEOUT_S)
+
+        def validate(form, model):
+            bundle = self.weights.bundle(model)
+            file_uri = form.get("file")
+            if not file_uri:
+                raise errors.BadRequest("form field 'file' is required")
+            dream = self.dream_params(form, bundle)
+            try:
+                bundle.dream_forward(dream.layers)
+            except KeyError as e:
+                raise errors.UnknownLayer(str(e)) from None
+            return model, bundle, dream, self.decode_preprocess(file_uri, bundle)
+
+        model, bundle, dream, x = await self._prepare(self.dream_metrics, parse, size, headers, validate)
+        _annotate_model(model)
+        with stage(self.dream_metrics, "compute"):
+            result = await self.dream_dispatcher.submit(x, (model, dream), deadline=deadline)
+        with stage(self.dream_metrics, "encode"):
+            image = await self.codec_pool.run(lambda: codec.encode_data_url(bundle.unpreprocess(result["image"])))
         loss = result["loss"]
         return {
             "layers": list(dream.layers),
             "loss": loss if math.isfinite(loss) else None,  # NaN and inf are not JSON
-            "image": codec.encode_data_url(bundle.unpreprocess(result["image"])),
+            "image": image,
         }
+
+    def compat(self, form: dict[str, str], headers=None) -> str:
+        """``POST /`` from a parsed form, on the calling thread."""
+        return self.on_loop(self._compat(lambda: form, len(form.get("file", "")), headers))
+
+    def deconv_v1(self, form: dict[str, str], headers=None) -> dict:
+        """``POST /v1/deconv`` from a parsed form, on the calling thread."""
+        return self.on_loop(self._deconv_v1(lambda: form, len(form.get("file", "")), headers))
+
+    def dream_v1(self, form: dict[str, str], headers=None) -> dict:
+        """``POST /v1/dream`` from a parsed form, on the calling thread."""
+        return self.on_loop(self._dream_v1(lambda: form, len(form.get("file", "")), headers))
+
+    # --- HTTP routes -------------------------------------------------------
+
+    def _add_routes(self) -> None:
+        r = self.server.route
+        r("GET", "/health-check")(self._health)
+        r("GET", "/ready")(self._ready)
+        r("GET", "/healthz")(self._healthz)
+        r("GET", "/readyz")(self._readyz)
+        r("GET", "/metrics")(self._metrics)
+        r("GET", "/v1/metrics")(self._metrics)
+        r("GET", "/v1/config")(self._config)
+        r("GET", "/v1/models")(self._models)
+        r("GET", "/v1/debug/requests")(self._debug_requests)
+        for path, core, metrics in (("/", self._compat, self.metrics),
+                                    ("/v1/deconv", self._deconv_v1, self.metrics),
+                                    ("/v1/dream", self._dream_v1, self.dream_metrics)):
+            r("POST", path)(self._trace_wrap(path, self._compute_route(core, metrics)))
+
+    def _compute_route(self, core, metrics: Metrics):
+        """A compute route: ``core(parse, size, headers, deadline)``'s
+        result as JSON, a taxonomy error as its status and payload (with
+        ``Retry-After`` where it carries one), each observed on
+        ``metrics``."""
+
+        async def handler(req: Request) -> Response:
+            t0 = time.perf_counter()
+            try:
+                result = await core(functools.partial(_parse_form, req), len(req.body), req.headers, req.deadline)
+            except errors.DeconvError as e:
+                metrics.observe_request(time.perf_counter() - t0, e.code)
+                return _error_response(e, req.id)
+            except ValueError as e:
+                metrics.observe_request(time.perf_counter() - t0, "bad_request")
+                return _error_response(errors.BadRequest(str(e)), req.id)
+            metrics.observe_request(time.perf_counter() - t0)
+            return Response.json(result)
+
+        return handler
+
+    def _trace_wrap(self, route: str, handler):
+        """Give every request on a compute route a span-structured trace,
+        active on the request's task (the dispatcher's submit and the codec
+        pool's handoff pick it up), then file the finished trace in the
+        flight recorder.  Inert when tracing is off (``trace_ring=0``)."""
+        if self.recorder is None:
+            return handler
+        recorder = self.recorder
+
+        async def traced(req: Request) -> Response:
+            tr = RequestTrace(req.id, route)
+            if req.hop is not None:
+                tr.annotate(hop=req.hop[0], hop_purpose=req.hop[1])
+            token = trace_mod.activate(tr)
+            try:
+                resp = await handler(req)
+            except asyncio.CancelledError:
+                raise
+            except BaseException as e:
+                tr.finish(status=500, error=type(e).__name__)
+                recorder.record(tr)
+                raise
+            finally:
+                trace_mod.deactivate(token)
+            code = errors.code_from_body(resp.body) if resp.status >= 400 else None
+            tr.finish(status=resp.status, error=code)
+            recorder.record(tr)
+            return resp
+
+        return traced
+
+    async def _health(self, _req: Request) -> Response:
+        return Response.json({"healthy": "true"})
+
+    async def _ready(self, _req: Request) -> Response:
+        return Response.json({"ready": self.ready}, 200 if self.ready else 503)
+
+    async def _healthz(self, _req: Request) -> Response:
+        # liveness: answering at all is the proof; it stays 200 through
+        # warmup, drain and an open breaker, which a restart would not fix
+        return Response.json({"status": "ok"})
+
+    async def _readyz(self, _req: Request) -> Response:
+        body, status = await asyncio.to_thread(self.readyz)
+        return Response.json(body, status)
+
+    async def _metrics(self, _req: Request) -> Response:
+        return Response.text(self.metrics_text(), content_type="text/plain; version=0.0.4")
+
+    async def _config(self, _req: Request) -> Response:
+        return Response.json(await asyncio.to_thread(self.config))
+
+    async def _models(self, _req: Request) -> Response:
+        return Response.json(self.models())
+
+    async def _debug_requests(self, req: Request) -> Response:
+        """``GET /v1/debug/requests``: the flight recorder's traces, newest
+        first: ``?slow=1`` / ``?error=1`` select the tail-sampled rings,
+        ``?id=`` searches every ring for one request, ``?model=`` filters on
+        the resolved model, ``?limit=N`` (default 50)."""
+        if self.recorder is None:
+            return _error_response(errors.BadRequest("tracing disabled: set trace_ring > 0"), req.id)
+        try:
+            args = trace_mod.debug_query_args(req.query, self.cfg.trace_ring)
+        except ValueError:
+            return _error_response(errors.BadRequest("limit must be an int"), req.id)
+        traces = self.recorder.query(**args, model=req.query.get("model") or None)
+        return Response.json({"requests": traces, "counts": self.recorder.counts(),
+                              "slow_ms": self.cfg.trace_slow_ms, "sample": self.cfg.trace_sample})
 
     # --- control routes ----------------------------------------------------
 
@@ -574,7 +930,13 @@ class DeconvService:
         return {
             "warmed": self.ready,  # pinned models paged in, programs captured
             "not_draining": not self.draining,  # stop routing before the listener dies
-            "batcher_tasks": self.dispatcher.alive() and self.dream_dispatcher.alive(),
+            # collect/dispatch tasks running on every dispatcher
+            "batcher_tasks": all(d.tasks_alive() for d in (self.dispatcher, self.dream_dispatcher,
+                                                           self.sweep_dispatcher)),
+            # codec pool above half capacity
+            "codec_pool_quorum": self.codec_pool.at_quorum,
+            # the breaker would admit a request (or its recovery probe)
+            "breaker_not_open": self.lane_pool.accepting(),
         }
 
     def readyz(self) -> tuple[dict, int]:
@@ -587,8 +949,12 @@ class DeconvService:
         return body, 200 if ok else 503
 
     def metrics_text(self) -> str:
-        """``GET /metrics``: the deconv and dream streams' expositions."""
-        return self.metrics.prometheus() + self.dream_metrics.prometheus()
+        """``GET /metrics``: the deconv, dream and sweep streams'
+        expositions and the request traces' span totals."""
+        text = self.metrics.prometheus() + self.dream_metrics.prometheus() + self.sweep_metrics.prometheus()
+        if self.recorder is not None:
+            text += self.recorder.prometheus("deconv")
+        return text
 
     def config(self) -> dict:
         """``GET /v1/config``: the effective configuration, the default
@@ -606,8 +972,16 @@ class DeconvService:
                 if (b := self.weights.peek_bundle(name)) is not None
             }
         cfg["lowc_kpack_chan"] = resolve_kpack_chan(self.cfg.lowc_kpack) if self.bundle.spec is not None else 0
+        cfg["trace_active"] = self.recorder is not None  # counts: /v1/debug/requests
+        cfg["breaker_active"] = self.cfg.breaker_threshold > 0
+        if cfg["breaker_active"]:
+            cfg["breaker_state"] = self.lane_pool.state_name()
         cfg["warmup_wall_s"] = self.warmup_wall_s
+        cfg["fault_injection_active"] = self.faults is not None
+        if self.faults is not None:
+            cfg["faults_state"] = self.faults.snapshot()
         cfg["draining"] = self.draining
+        cfg["codec_workers_live"] = self.codec_pool.live_workers
         return cfg
 
     def models(self) -> dict:
@@ -642,141 +1016,46 @@ def pool_bytes(pool) -> int:
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A copy of ``t`` on the host: never a view of a program's output,
-    which its next replay overwrites (on the CPU ``.cpu()`` alone would
-    be one)."""
-    return t.to("cpu", copy=True).numpy()
+def _annotate_model(model: str) -> None:
+    tr = trace_mod.current_trace()
+    if tr is not None:
+        tr.annotate(model=model)
 
 
-def _wait(future: concurrent.futures.Future, timeout_s: float):
+def _parse_form(req: Request) -> dict[str, str]:
     try:
-        return future.result(timeout=timeout_s)
-    except concurrent.futures.TimeoutError:
-        raise errors.RequestTimeout(f"no result within {timeout_s} s") from None
+        return req.form()
+    except ValueError as e:  # json.JSONDecodeError is one
+        raise errors.BadRequest(f"unparseable form body: {e}") from None
 
 
-def _encode_tiles(entry: dict) -> dict:
-    """``{"filters", "images"}`` of one projected layer's fired prefix."""
-    n_valid = int(entry["valid"].sum())
-    return {
-        "filters": [int(i) for i in entry["indices"][:n_valid]],
-        "images": [codec.encode_data_url(entry["tiles"][k]) for k in range(n_valid)],
-    }
+def _error_response(e: errors.DeconvError, request_id: str | None = None) -> Response:
+    """A taxonomy error as its status and payload, with a ``Retry-After``
+    where the error carries ``retry_after_s`` (a shed, an open breaker)."""
+    resp = Response.json(errors.to_payload(e, request_id), e.status)
+    retry = errors.retry_after_value(getattr(e, "retry_after_s", None))
+    if retry is not None:
+        resp.headers["retry-after"] = retry
+    return resp
 
 
-# --- HTTP --------------------------------------------------------------------
-
-
-def _parse_multipart(body: bytes, boundary: bytes) -> dict[str, str]:
-    fields: dict[str, str] = {}
-    delim = b"--" + boundary
-    for part in body.split(delim):
-        part = part.strip(b"\r\n")
-        if not part or part == b"--":
-            continue
-        if b"\r\n\r\n" not in part:
-            continue
-        head, _, value = part.partition(b"\r\n\r\n")
-        m = re.search(rb'name="([^"]*)"', head)
-        if m:
-            fields[m.group(1).decode()] = value.decode("utf-8", "replace")
-    return fields
-
-
-def parse_form(ctype: str, body: bytes) -> dict[str, str]:
-    if ctype.startswith("application/x-www-form-urlencoded"):
-        return dict(parse_qsl(body.decode("utf-8", "replace"), keep_blank_values=True))
-    if ctype.startswith("multipart/form-data"):
-        m = re.search(r'boundary="?([^";,]+)"?', ctype)
-        if not m:
-            raise errors.BadRequest("multipart body without boundary")
-        return _parse_multipart(body, m.group(1).encode())
-    raise errors.BadRequest(f"unsupported content-type {ctype!r}")
-
-
-class _Handler(BaseHTTPRequestHandler):
-    protocol_version = "HTTP/1.1"
-    server: "DeconvHTTPServer"
-
-    def _send_json(self, obj, status: int = 200) -> None:
-        body = json.dumps(obj).encode()
-        self.send_response(status)
-        self.send_header("content-type", "application/json")
-        self.send_header("content-length", str(len(body)))
-        self.end_headers()
-        self.wfile.write(body)
-
-    def do_GET(self) -> None:  # noqa: N802
-        service = self.server.service
-        if self.path == "/health-check":
-            self._send_json({"healthy": "true"})
-        elif self.path == "/ready":
-            self._send_json({"ready": service.ready}, 200 if service.ready else 503)
-        elif self.path == "/healthz":
-            # liveness: answering at all is the proof; it stays 200 through
-            # warmup and drain, which a restart would not fix
-            self._send_json({"status": "ok"})
-        elif self.path == "/readyz":
-            self._send_json(*service.readyz())
-        elif self.path in ("/metrics", "/v1/metrics"):
-            body = service.metrics_text().encode()
-            self.send_response(200)
-            self.send_header("content-type", "text/plain; version=0.0.4")
-            self.send_header("content-length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-        elif self.path == "/v1/config":
-            self._send_json(service.config())
-        elif self.path == "/v1/models":
-            self._send_json(service.models())
-        else:
-            self._send_json({"error": "not_found", "detail": self.path}, 404)
-
-    def do_POST(self) -> None:  # noqa: N802
-        try:
-            length = int(self.headers.get("content-length") or 0)
-        except ValueError:
-            length = -1
-        if not 0 <= length <= MAX_BODY_BYTES:
-            self.close_connection = True
-            self._send_json(errors.BadRequest(f"content-length must be 0..{MAX_BODY_BYTES}").payload(), 400)
-            return
-        body = self.rfile.read(length)
-        service = self.server.service
-        route, metrics = {
-            "/": (service.compat, service.metrics), "/v1/deconv": (service.deconv_v1, service.metrics),
-            "/v1/dream": (service.dream_v1, service.dream_metrics),
-        }.get(self.path, (None, None))
-        if route is None:
-            self._send_json({"error": "not_found", "detail": self.path}, 404)
-            return
-        t0 = time.perf_counter()
-        try:
-            form = parse_form(self.headers.get("content-type", ""), body)
-            result = route(form, self.headers)
-        except errors.DeconvError as e:
-            metrics.observe_request(time.perf_counter() - t0, e.code)
-            self._send_json(e.payload(), e.status)
-            return
-        except Exception as e:  # a request must answer, not drop the socket
-            log.exception("POST %s failed", self.path)
-            metrics.observe_request(time.perf_counter() - t0, "internal_error")
-            self._send_json({"error": "internal_error", "detail": repr(e)}, 500)
-            return
-        metrics.observe_request(time.perf_counter() - t0)
-        self._send_json(result)
-
-    def log_message(self, format, *args) -> None:  # noqa: A002
-        pass  # no per-request access log on stderr
-
-
-class DeconvHTTPServer(ThreadingHTTPServer):
-    """HTTP in front of a started service; ``port=0`` picks a free port
-    (``server.server_address[1]``)."""
-
-    daemon_threads = True
+class DeconvHTTPServer:
+    """The service's asyncio HTTP server bound on its event-loop thread,
+    behind the ``http.server`` interface the callers use:
+    ``server_address``, ``serve_forever()`` (blocks until ``shutdown()``),
+    ``shutdown()`` and ``server_close()``.  ``port=0`` picks a free port."""
 
     def __init__(self, service: DeconvService, host: str = "127.0.0.1", port: int = 0):
         self.service = service
-        super().__init__((host, port), _Handler)
+        self.server_address = (host, service.listen(host, port))
+        self._shutdown = threading.Event()
+
+    def serve_forever(self) -> None:
+        self._shutdown.wait()
+
+    def shutdown(self) -> None:
+        self._shutdown.set()
+
+    def server_close(self) -> None:
+        self._shutdown.set()
+        self.service.stop_listening()

@@ -226,7 +226,8 @@ def test_readyz_and_healthz_through_boot_and_drain(mix_params):
     try:
         assert get("/healthz") == (200, {"status": "ok"})
         status, body = get("/readyz")
-        assert status == 503 and body["checks"] == {"warmed": False, "not_draining": True, "batcher_tasks": True}
+        assert status == 503 and body["checks"] == {"warmed": False, "not_draining": True, "batcher_tasks": True,
+                                                    "codec_pool_quorum": True, "breaker_not_open": True}
         served.service.warmup()
         status, body = get("/readyz")
         assert status == 200 and body["ready"] and all(body["checks"].values())

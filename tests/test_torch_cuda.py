@@ -711,3 +711,85 @@ def test_a_cleared_cache_frees_its_pool_after_a_cublas_capture(dev):
         cache.clear()
         torch.cuda.empty_cache()
     assert pool_bytes(pool) == 0 and cache.pool != pool and len(cache) == 0
+
+
+# --- the pipelined dispatch step (serving/app.py) -------------------------------------
+
+
+def _pipeline_service(dev):
+    """A vgg_tiny service on the card (one model, inert weight manager) and
+    three batches of four images."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.serving.app import DeconvService
+
+    xs = np.random.default_rng(5).normal(0, 50, (3, 4, 32, 32, 3)).astype(np.float32)
+    return DeconvService(_tiny_bundle(dev), max_batch=4), xs
+
+
+def test_three_batches_in_flight_equal_three_serial_runs(dev, deterministic_cudnn):
+    """Three batches of one graph dispatched before any is fetched (the
+    dispatch step enqueues replay and copies without a host sync; stream
+    order keeps each replay from overwriting the rows queued before it)
+    fetch byte for byte what three serial runs return."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.serving.app import Program
+
+    service, xs = _pipeline_service(dev)
+    for program in (Program("block3_conv1"), Program("block3_conv1", top_k=8, post="tiles")):
+        serial = [service.run_program(program, xs[i]) for i in range(3)]
+        fetches = [service._enqueue_program(program, xs[i]) for i in range(3)]
+        for got, want in zip([f() for f in fetches], serial):
+            assert list(got) == list(want)
+            for layer in want:
+                for k in want[layer]:
+                    np.testing.assert_array_equal(got[layer][k], want[layer][k], err_msg=f"{program} {layer} {k}")
+    service.close()
+
+
+def test_the_ring_hands_back_pinned_buffers_and_reuses_them(dev):
+    from deconv_api_tpu_torch.serving.codec_pool import HostBufferRing
+
+    ring = HostBufferRing(2, pin_memory=True)
+    bufs = [ring.acquire((4, 8, 8, 3)) for _ in range(3)]
+    assert all(b.is_pinned() for b in bufs) and ring.allocations == 3
+    for b in bufs:
+        ring.release(b)  # pinned: all kept, none freed while serving
+    again = [ring.acquire((4, 8, 8, 3)) for _ in range(3)]
+    assert {b.data_ptr() for b in again} == {b.data_ptr() for b in bufs} and ring.allocations == 3
+
+
+def test_the_dispatch_step_makes_no_host_sync(dev, deterministic_cudnn):
+    """The grid, tiles and dream dispatch steps run under
+    ``torch.cuda.set_sync_debug_mode("error")`` (their programs captured
+    first), and their fetches then return what a plain run returns."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.serving.app import Dream, Program
+
+    service, xs = _pipeline_service(dev)
+    dream = Dream(("block2_conv2", "block3_conv1"), steps=2, octaves=2)
+    steps = {
+        "grid": (lambda: service._enqueue_program(Program("block3_conv1"), xs[0]),
+                 lambda: service.run_program(Program("block3_conv1"), xs[0])),
+        "tiles": (lambda: service._enqueue_program(Program("block3_conv1", top_k=8, post="tiles"), xs[0]),
+                  lambda: service.run_program(Program("block3_conv1", top_k=8, post="tiles"), xs[0])),
+        "dream": (lambda: service._enqueue_dream(dream, xs[0]), lambda: service.run_dream(dream, xs[0])),
+    }
+    for name, (dispatch, plain) in steps.items():
+        want = plain()  # captures the programs and fills the rings
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fetch = dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = fetch()
+        if name == "dream":
+            np.testing.assert_array_equal(got[0], want[0])
+            np.testing.assert_array_equal(got[1], want[1])
+        else:
+            for k in want["block3_conv1"]:
+                np.testing.assert_array_equal(got["block3_conv1"][k], want["block3_conv1"][k], err_msg=name)
+    service.close()

@@ -121,7 +121,7 @@ def test_dream_answers_503_before_warmup_and_null_for_a_non_finite_loss(jax_para
     with pytest.raises(errors.ModelNotReady):
         service.dream_v1(form)
     service.ready = True
-    service.dream_dispatcher.run_batch = lambda dream, xs: [{"image": x, "loss": math.nan} for x in xs]
+    service.dream_dispatcher._dispatch_runner = lambda key, xs: lambda: [{"image": x, "loss": math.nan} for x in xs]
     service.start()
     try:
         body = service.dream_v1(form)
@@ -176,14 +176,14 @@ def test_a_dream_in_flight_does_not_hold_a_deconv_back(jax_params):
     service.ready = True
     assert service.dispatcher is not service.dream_dispatcher
     started, release = threading.Event(), threading.Event()
-    run_dream = service.dream_dispatcher.run_batch
+    run_dream = service.dream_dispatcher._dispatch_runner
 
-    def held(dream, xs):
+    def held(key, xs):
         started.set()
         assert release.wait(60)
-        return run_dream(dream, xs)
+        return run_dream(key, xs)
 
-    service.dream_dispatcher.run_batch = held
+    service.dream_dispatcher._dispatch_runner = held
     srv = _Served(service)
     try:
         dream = {}

@@ -44,6 +44,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "import deconv_api_tpu_torch.engine.autodeconv, deconv_api_tpu_torch.models.apply\n"
         "from deconv_api_tpu_torch.models import blocks, resnet50, inception_v3, mobilenet_v1, mobilenet_v2, vgg19\n"
         "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv\n"
+        "from deconv_api_tpu_torch.utils import slog\n"
+        "from deconv_api_tpu_torch.serving import batcher, codec_pool, faults, http, trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
         "assert not bad, bad\n"
@@ -55,6 +57,17 @@ def test_port_imports_without_jax_nvcc_or_triton():
     )
     out = _run(code, {"PATH": "/nonexistent", "CUDA_HOME": "/nonexistent"})
     assert out.returncode == 0 and "clean; no nvcc" in out.stdout, out.stderr
+
+
+PIPELINE_MODULES = ("utils/slog.py", "serving/faults.py", "serving/trace.py", "serving/codec_pool.py",
+                    "serving/http.py", "serving/batcher.py")
+
+
+def test_the_request_pipeline_modules_are_the_ports_own():
+    """The port keeps its own copies of the JAX package's jax-free serving
+    modules: each exists in the port and is checked below."""
+    sources = set(_port_sources())
+    assert all(PORT / rel in sources for rel in PIPELINE_MODULES)
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
