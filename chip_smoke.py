@@ -69,7 +69,19 @@ Phases, each printing JSON lines:
    answer is held against its own image's grid served alone at every
    bucket; then one dispatch step each of the grid, tiles and dream
    programs under ``torch.cuda.set_sync_debug_mode("error")``, and the
-   deadline, shed and breaker drills (``phase_load``).
+   deadline, shed and breaker drills (``phase_load``); then one more turn
+   of 2048 on a server at every default (the response cache and
+   singleflight on) with ``--slo api=3000:99 --tsdb on``: its cache
+   counts, the ``request_duration_seconds`` history and the SLO's burn
+   rate read back (``load_at_defaults``);
+12. cache: a VGG16 server at every default, the response cache in front
+   of ``POST /``: 16 misses then 16 hits (each byte-equal, no replay and
+   no K1/K2 launch during the hits), 64 concurrent identical posts on one
+   dispatched row, a ``no-cache`` recompute and a ``no-store`` one, a
+   negative-cached 422 and an unknown model's 422 before any flight, and
+   the L2 tier across a restart (``phase_cache``).
+Phases 4-11 measure device work: their servers run with ``cache_bytes=0``
+and no singleflight (``CACHE_OFF``), and each prints ``server_cache``.
 Every route serves through captured CUDA graphs, one per
 program and bucket (``engine/capture.py``): each server's warmup captures
 every bucket of both route defaults and of the default dream before
@@ -594,6 +606,21 @@ def warmup_report(torch, service, reserved_before: int, bundle=None) -> dict:
 # --- phase 4 -------------------------------------------------------------------
 
 
+# The phases before ``cache`` measure device work: their servers (and the
+# engine-level services) run without the response cache and singleflight,
+# so that a repeated body is computed again and concurrent identical ones
+# each take a row.  Each phase prints ``server_cache``.
+CACHE_OFF_FLAGS = ["--cache-bytes", "0", "--no-singleflight"]
+CACHE_OFF = {"cache_bytes": 0, "singleflight": False}
+
+
+def cache_state(service) -> str:
+    """``server_cache`` of a phase's output: off, or the cache's budget."""
+    if service.cache is None and service.flights is None:
+        return "off (cache_bytes=0, singleflight=False)"
+    return f"on (cache_bytes={service.cfg.cache_bytes}, singleflight={service.cfg.singleflight})"
+
+
 def _post(port: int, path: str, form: dict):
     data = urllib.parse.urlencode(form).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data)
@@ -632,7 +659,7 @@ def phase_main_path(torch) -> dict:
     torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
     t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda",
-                           "--max-batch", str(B)])
+                           "--max-batch", str(B), *CACHE_OFF_FLAGS])
     warm_s = time.perf_counter() - t0
     service, bundle, port = server.service, server.service.bundle, server.server_address[1]
     warm = warmup_report(torch, service, reserved0)
@@ -689,7 +716,8 @@ def phase_main_path(torch) -> dict:
         psnr = min(psnr_db(a, b) for a, b in zip(fused["grid"], unfused["grid"]))
         same_idx = bool((fused["indices"] == unfused["indices"]).all())
         out = {
-            "phase": "main_path", "model": "vgg16", "boot_s": warm_s, "warmup": warm,
+            "phase": "main_path", "model": "vgg16", "server_cache": cache_state(service), "boot_s": warm_s,
+            "warmup": warm,
             "fused_unpool": FUSED_DEFAULT, "responses": responses, "batch_sizes": batch_sizes,
             "launches": counts, "graph_counts": graph_counts,
             "fused_vs_off_min_psnr_db": psnr if np.isfinite(psnr) else "identical",
@@ -747,7 +775,7 @@ def phase_v1_deconv(torch, uris: list) -> dict:
     torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
     t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda",
-                           "--max-batch", str(B), "--lowc-kpack", "auto"])
+                           "--max-batch", str(B), "--lowc-kpack", "auto", *CACHE_OFF_FLAGS])
     boot_s = time.perf_counter() - t0
     service, port = server.service, server.server_address[1]
     size = service.bundle.image_size
@@ -814,7 +842,8 @@ def phase_v1_deconv(torch, uris: list) -> dict:
                 "indices_equal": bool((packed["indices"] == run["indices"]).all()
                                       and (packed["valid"] == run["valid"]).all()),
             }
-        out = {"phase": "v1_deconv", "model": service.bundle.name, "lowc_kpack": "auto",
+        out = {"phase": "v1_deconv", "model": service.bundle.name, "server_cache": cache_state(service),
+               "lowc_kpack": "auto",
                "fused_unpool": FUSED_DEFAULT, "boot_s": boot_s, "warmup": warm,
                "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
                "graph_counts": graph_counts,
@@ -1038,7 +1067,7 @@ def phase_dag(torch, uris: list, label: str) -> dict:
     torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
     t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "resnet50", "--device", "cuda",
-                           "--max-batch", str(B)])
+                           "--max-batch", str(B), *CACHE_OFF_FLAGS])
     boot_s = time.perf_counter() - t0
     service, port = server.service, server.server_address[1]
     bundle, size = service.bundle, service.bundle.image_size
@@ -1095,7 +1124,8 @@ def phase_dag(torch, uris: list, label: str) -> dict:
         server.server_close()
         service.close()
         thread.join(10)
-    out = {"phase": "dag", "card": label, "model": "resnet50", "layer": layer, "boot_s": boot_s,
+    out = {"phase": "dag", "card": label, "model": "resnet50", "layer": layer,
+           "server_cache": cache_state(service), "boot_s": boot_s,
            "warmup": warm, "responses": responses, "batch_sizes": batch_sizes, "launches": counts,
            "graph_counts": graph_counts, "served_filters_match_engine": served_ok}
     if max(batch_sizes) <= 1 or not served_ok or graph_counts["replays"] < len(batch_sizes):
@@ -1107,7 +1137,7 @@ def phase_dag(torch, uris: list, label: str) -> dict:
     bundles, batches, programs = {"resnet50": bundle}, {"resnet50": xs}, {}
     for model in ("inception_v3", "mobilenet_v1", "mobilenet_v2", "vgg19"):
         b = bundles[model] = build_bundle(model, "cuda")
-        svc = DeconvService(b, max_batch=B)
+        svc = DeconvService(b, max_batch=B, **CACHE_OFF)
         lyr = DAG_LAYERS.get(model, VGG19_LAYER)
         xm = batches[model] = np.stack([svc.decode_preprocess(u) for u in uris[:B]])
         ops.reset_launch_counts()
@@ -1269,7 +1299,7 @@ def phase_dream(torch, uris: list, label: str) -> dict:
 
     torch.cuda.empty_cache()  # the boot's reserved bytes, not an earlier phase's cached ones
     t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
-    server = build_server(["serve", "--port", "0", "--model", "inception_v3", "--device", "cuda"])
+    server = build_server(["serve", "--port", "0", "--model", "inception_v3", "--device", "cuda", *CACHE_OFF_FLAGS])
     boot_s = time.perf_counter() - t0
     service, port = server.service, server.server_address[1]
     bundle, size = service.bundle, service.bundle.image_size
@@ -1307,7 +1337,8 @@ def phase_dream(torch, uris: list, label: str) -> dict:
         service.close()
         thread.join(10)
     shapes = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, bundle.min_dream_size)
-    out = {"phase": "dream", "card": label, "model": "inception_v3", "boot_s": boot_s, "warmup": warm,
+    out = {"phase": "dream", "card": label, "model": "inception_v3", "server_cache": cache_state(service),
+           "boot_s": boot_s, "warmup": warm,
            "graph_counts": graph_counts, "layers": list(bundle.dream_layers), "octave_shapes": shapes,
            "ascent_steps": len(shapes) * DREAM_DEFAULTS["steps"], "work": dream_work(torch, bundle, shapes),
            "responses": responses,
@@ -1321,7 +1352,7 @@ def phase_dream(torch, uris: list, label: str) -> dict:
     engine = {}
     for model in ("vgg16", "mobilenet_v2"):
         b = build_bundle(model, "cuda")
-        svc = DeconvService(b)
+        svc = DeconvService(b, **CACHE_OFF)
         xm = svc.decode_preprocess(uris[0])[None]
         ops.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1545,7 +1576,8 @@ def phase_capture(torch, vgg16, dag: dict, dream: dict, xs, label: str) -> None:
     # all agree (at least one such image a bucket), FLIPPED_MAX_REL_ERR on
     # the others, and the served bf16 grids at >= 52 dB
     padded = []
-    service = DeconvService(vgg16, max_batch=B)
+    service = DeconvService(vgg16, max_batch=B, **CACHE_OFF)
+    out["server_cache"] = cache_state(service)
     prev_det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -1752,7 +1784,7 @@ def phase_multi_model(torch, uris: list, label: str) -> dict:
     t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
     server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda", "--max-batch", str(B),
                            "--serve-models", ",".join(MULTI_SERVED), "--pinned-models", "resnet50",
-                           "--hbm-budget-bytes", str(budget)])
+                           "--hbm-budget-bytes", str(budget), *CACHE_OFF_FLAGS])
     boot_s = time.perf_counter() - t0
     torch.backends.cudnn.deterministic = deterministic
     service, port = server.service, server.server_address[1]
@@ -1805,7 +1837,8 @@ def phase_multi_model(torch, uris: list, label: str) -> dict:
         replay.release(model)
         return out
 
-    out = {"phase": "multi_model", "card": label, "served": list(MULTI_SERVED), "default": "vgg16",
+    out = {"phase": "multi_model", "card": label, "server_cache": cache_state(service),
+           "served": list(MULTI_SERVED), "default": "vgg16",
            "pinned": list(weights.pinned), "budget_bytes": budget, "weight_bytes": sizes, "boot_s": boot_s,
            "warmup": warm, "warmup_wall_s_by_model": dict(service.warmup_wall_s_by_model)}
     try:
@@ -2149,11 +2182,11 @@ def ops_graph_replays() -> int:
 def _second_server(torch, bundle, **cfg):
     """A warmed, started server of the same VGG16 bundle (its captured
     programs are the bundle's, so the warmup only fills the rings) with
-    ``cfg`` over the defaults."""
+    ``cfg`` over the defaults, the cache off unless ``cfg`` turns it on."""
     from deconv_api_tpu_torch.config import ServerConfig
     from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
 
-    service = DeconvService(bundle, ServerConfig(model=bundle.name, max_batch=B, **cfg))
+    service = DeconvService(bundle, ServerConfig(model=bundle.name, max_batch=B, **{**CACHE_OFF, **cfg}))
     service.start()
     service.warmup()
     return DeconvHTTPServer(service, "127.0.0.1", 0)
@@ -2266,7 +2299,8 @@ def load_drills(torch, bundle, uris: list, bodies: list, refs_path: str) -> dict
         status, body, _ = _request(port, "/", "POST", form, {"x-deadline-ms": "1"})
         burst.join(120)
         after = service.metrics.counter("deadline_expired_total")
-        out["deadline"] = {"status": status, "error": body.get("error"), "deadline_expired_total": [before, after]}
+        out["deadline"] = {"status": status, "error": body.get("error"), "deadline_expired_total": [before, after],
+                           "server_cache": cache_state(service)}
         if (status, body.get("error")) != (504, "deadline_expired") or after <= before:
             raise AssertionError(f"deadline drill: {out['deadline']}")
     finally:
@@ -2286,6 +2320,7 @@ def load_drills(torch, bundle, uris: list, bodies: list, refs_path: str) -> dict
         _drive_load(torch, server, bodies, refs_path, 256, clients=64)
         burst = _drive_load(torch, server, bodies, refs_path, SHED_BURST, clients=SHED_BURST)
         out["shed"] = {k: burst[k] for k in ("statuses", "errors", "retry_after", "n_failures", "wall_s")}
+        out["shed"]["server_cache"] = cache_state(server.service)
         if (not burst["errors"].get("503 overloaded") or not burst["retry_after"] or min(burst["retry_after"]) < 1
                 or burst["errors"].get("504 request_timeout") or burst["n_failures"]):
             raise AssertionError(f"shed drill: {out['shed']}")
@@ -2309,6 +2344,7 @@ def load_drills(torch, bundle, uris: list, bodies: list, refs_path: str) -> dict
             "rejected": [rejected[0], rejected[1].get("error"), rejected[2].get("retry-after")],
             "probe": probe[0], "readyz_closed": ready_closed[0], "state": service.lane_pool.state_name(),
             "breaker_open_total": service.metrics.counter("breaker_open_total"),
+            "server_cache": cache_state(service),
         }
         if (any(f != [500, "fault_injected"] for f in b["failed"]) or b["readyz_open"] != [503, False]
                 or b["rejected"][:2] != [503, "breaker_open"] or int(b["rejected"][2] or 0) < 1
@@ -2356,6 +2392,66 @@ def sync_check(torch, service, uris: list) -> dict:
     return out
 
 
+def load_at_defaults(torch, bundle, bodies: list, refs_path: str, label: str) -> dict:
+    """One more load turn of LOAD_REQUESTS over the same images, on a
+    server of the same bundle at every default (the response cache and
+    singleflight on, ``pipeline_depth`` 2) with ``--slo api=3000:99 --tsdb
+    on``: images/s and latency as the cache-off turns print them, the
+    cache's hits, coalesced answers and misses, the rows the card computed,
+    and, read back after one more scrape tick, the
+    ``request_duration_seconds`` history from ``/v1/metrics/history`` and
+    the ``api`` SLO's 5m burn rate from the history and from ``/metrics``.
+    The launch counts are read around the turn alone."""
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.config import ServerConfig
+
+    defaults = ServerConfig()
+    server = _second_server(torch, bundle, cache_bytes=defaults.cache_bytes, singleflight=defaults.singleflight,
+                            slos="api=3000:99", tsdb="on")
+    service, port = server.service, server.server_address[1]
+    names = ("cache_hits_total", "cache_coalesced_total", "cache_misses_total")
+    try:
+        # one request of another image opens the request_duration series,
+        # then a scrape tick takes its baseline before the turn
+        _request_raw(port, {"file": image_uris(LOAD_IMAGES + 1)[-1], "layer": LOAD_LAYER})
+        time.sleep(1.5 * service.cfg.tsdb_interval_s)
+        before = {n: service.metrics.counter(n) for n in names}
+        ops.reset_launch_counts()
+        run = _drive_load(torch, server, bodies, refs_path, LOAD_REQUESTS)
+        torch.cuda.synchronize()
+        launches, graph_counts = ops.launch_counts(), dict(ops.graph_counts)
+        cache = {n: service.metrics.counter(n) - before[n] for n in names}
+        time.sleep(2 * service.cfg.tsdb_interval_s)  # a scrape tick after the last answer
+        _, hist, _ = _request(port, "/v1/metrics/history?family=request_duration_seconds_count&range_s=300")
+        _, burn, _ = _request(port, "/v1/metrics/history?family=slo_burn_rate&label=slo%3Dapi%2Cwindow%3D5m"
+                                    "&range_s=300")
+        text = service.metrics_text()
+    finally:
+        _stop(server)
+    burn_line = next((line for line in text.splitlines()
+                      if line.startswith('deconv_slo_burn_rate{slo="api",window="5m"}')), None)
+    series = hist.get("series") or [{}]
+    points = series[0].get("points") or []
+    out = {"phase": "load_run_defaults", "card": label, "server_cache": cache_state(service),
+           "slos": "api=3000:99", "tsdb": "on", **run, "cache": cache, "launches": launches,
+           "graph_counts": graph_counts,
+           "rows": sum(k * v for k, v in run["batch_size_histogram"].items()),
+           # counters are kept as rates (req/s between ticks); the ticks run
+           # on the event loop, and the widest gap between two points shows
+           # how late the busy loop let them run
+           "request_duration_history": {"label": series[0].get("label"), "tier": series[0].get("tier"),
+                                        "points": len(points), "max_rate_per_s": max((p[1] for p in points),
+                                                                                     default=None),
+                                        "max_gap_s": max((b[0] - a[0] for a, b in zip(points, points[1:])),
+                                                         default=None)},
+           "slo_burn_rate_5m": {"history_last": (burn.get("series") or [{}])[0].get("points", [[None, None]])[0][1],
+                                "metrics_line": burn_line}}
+    emit(out)
+    if not points or burn_line is None or not burn.get("series"):
+        raise AssertionError(f"load at the defaults: no history or no burn rate: {out}")
+    return out
+
+
 def phase_load(torch, label: str) -> dict:
     """BASELINE.json config 5 on one card: 256 concurrent keep-alive
     clients post ``POST /`` (16 distinct 256x240 PNGs) to a VGG16 server at
@@ -2375,11 +2471,12 @@ def phase_load(torch, label: str) -> dict:
     logging.getLogger("deconv").setLevel(logging.ERROR)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    servers = {2: build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda"])}
+    servers = {2: build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda", *CACHE_OFF_FLAGS])}
     boot_s = time.perf_counter() - t0
     bundle = servers[2].service.bundle
     servers[1] = _second_server(torch, bundle, pipeline_depth=1)
-    out = {"phase": "load", "card": label, "model": "vgg16", "layer": LOAD_LAYER, "clients": LOAD_CLIENTS,
+    out = {"phase": "load", "card": label, "model": "vgg16", "layer": LOAD_LAYER,
+           "server_cache": {d: cache_state(s.service) for d, s in servers.items()}, "clients": LOAD_CLIENTS,
            "client_processes": LOAD_PROCS, "images": LOAD_IMAGES, "boot_s": boot_s, "runs": []}
     try:
         uris = image_uris(LOAD_IMAGES)
@@ -2426,6 +2523,8 @@ def phase_load(torch, label: str) -> dict:
         torch.cuda.synchronize()
         counts, graph_counts = ops.launch_counts(), dict(ops.graph_counts)
         out["launches"], out["graph_counts"] = counts, graph_counts
+        out["defaults_run"] = load_at_defaults(torch, bundle, bodies, refs_path, label)
+        defaults_counts = out["defaults_run"]["launches"]
         out["by_depth"] = {
             d: {"images_per_s": [r["images_per_s"] for r in out["runs"] if r["pipeline_depth"] == d],
                 "p50_ms": [r.get("p50_ms") for r in out["runs"] if r["pipeline_depth"] == d],
@@ -2445,10 +2544,223 @@ def phase_load(torch, label: str) -> dict:
             raise AssertionError(f"load: K1/K2 launches {counts} are not 4 x the {graph_counts['replays']} replays")
         if out["weight_evict_inflight_total"]:
             raise AssertionError("load: a page-out hit a batch in flight")
-        return {"counts": counts}
+        d = out["defaults_run"]
+        if (d["statuses"].get(200) != d["requests"] or d["n_failures"] or d["rows"] > LOAD_IMAGES
+                or d["launches"]["pool_argmax"] != 4 * d["graph_counts"]["replays"]):
+            raise AssertionError(f"load at the defaults: {d}")
+        return {"counts": counts, "defaults_counts": defaults_counts}
     finally:
         for server in servers.values():
             _stop(server)
+
+
+# --- phase 12 ------------------------------------------------------------------
+
+CACHE_IMAGES = 16  # distinct images posted twice: misses, then hits
+CACHE_CONCURRENT = 64  # identical posts in flight together
+RECOMPUTE_PSNR_DB = 52.0  # a no-cache recompute may land in another batch row
+
+
+def _keep_alive_post(conn, form, headers=None):
+    """(status, x-cache or None, body bytes, seconds) of one ``POST /`` on a
+    kept-alive ``http.client`` connection; ``form`` is a dict or its
+    urlencoded body, encoded before the clock starts (percent-encoding a
+    250 KB data URL takes the client some 20 ms)."""
+    body = form if isinstance(form, bytes) else urllib.parse.urlencode(form).encode()
+    t0 = time.perf_counter()
+    conn.request("POST", "/", body=body,
+                 headers={"content-type": "application/x-www-form-urlencoded", **(headers or {})})
+    resp = conn.getresponse()
+    body = resp.read()
+    return resp.status, resp.getheader("x-cache"), body, time.perf_counter() - t0
+
+
+def phase_cache(torch, label: str) -> dict:
+    """The response cache in front of ``POST /`` on a VGG16 server at every
+    default (captured graphs, ``pipeline_depth`` 2, the cache and
+    singleflight on), block5_conv1.  The cache path, its launch counts read
+    around it: CACHE_IMAGES distinct images, then the same again (each hit
+    byte-equal to its miss, no graph replay and no K1/K2 launch during the
+    hits); CACHE_CONCURRENT concurrent identical posts of one more image
+    (one dispatched row, every answer byte-equal); a ``no-cache`` recompute
+    (JPEG against JPEG >= RECOMPUTE_PSNR_DB) and a ``no-store`` one that
+    leaves the entry as it was.  Then a 422 ``unknown_layer``, negative-
+    cached, and an unknown model, answered 422 before any flight; last a
+    server that writes its L2 to a temporary ``l2_dir`` and a fresh server
+    on the directory that answers ``x-cache: l2``, byte-equal, without a
+    replay."""
+    import concurrent.futures
+    import http.client
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.serving.http import Request
+
+    def device_work():
+        counts = ops.launch_counts()
+        return {"replays": ops.graph_counts["replays"], "pool_argmax": counts["pool_argmax"],
+                "unpool_argmax": counts["unpool_argmax"]}
+
+    def delta(a, b):
+        return {k: b[k] - a[k] for k in a}
+
+    torch.cuda.empty_cache()
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
+    server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda"])  # every default
+    boot_s = time.perf_counter() - t0
+    service, port = server.service, server.server_address[1]
+    out = {"phase": "cache", "card": label, "model": "vgg16", "layer": LOAD_LAYER,
+           "server_cache": cache_state(service), "pipeline_depth": service.cfg.pipeline_depth, "boot_s": boot_s,
+           "warmup": warmup_report(torch, service, reserved0)}
+    failed = []
+    uris = image_uris(CACHE_IMAGES + 2)
+    forms = [{"file": u, "layer": LOAD_LAYER} for u in uris]
+    bodies = [urllib.parse.urlencode(f).encode() for f in forms]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        # warmup captured the deepest layer's programs: one request of
+        # another image captures the bucket-1 block5_conv1 graph first
+        _keep_alive_post(conn, bodies[CACHE_IMAGES + 1])
+        ops.reset_launch_counts()
+        w0 = device_work()
+        misses = [_keep_alive_post(conn, b) for b in bodies[:CACHE_IMAGES]]
+        w1 = device_work()
+        hits = [_keep_alive_post(conn, b) for b in bodies[:CACHE_IMAGES]]
+        w2 = device_work()
+        out["misses_then_hits"] = {
+            "miss_p50_ms": statistics.median(m[3] for m in misses) * 1e3,
+            "hit_p50_ms": statistics.median(h[3] for h in hits) * 1e3,
+            # the server's own time of a hit: key (the form parse on the
+            # codec pool and the digest) and lookup
+            "server_cache_hit_stage_p50_ms": service.metrics.snapshot()["stages"]["cache_hit"]["p50_s"] * 1e3,
+            "x_cache": [[m[1] for m in misses], [h[1] for h in hits]],
+            "device_work_misses": delta(w0, w1), "device_work_hits": delta(w1, w2),
+            "hits_byte_equal": sum(h[2] == m[2] for h, m in zip(hits, misses)),
+        }
+        mh = out["misses_then_hits"]
+        if ({m[0] for m in misses + hits} != {200} or mh["x_cache"] != [["miss"] * CACHE_IMAGES, ["hit"] * CACHE_IMAGES]
+                or mh["hits_byte_equal"] != CACHE_IMAGES or any(mh["device_work_hits"].values())):
+            failed.append(f"misses then hits: {mh}")
+
+        # CACHE_CONCURRENT identical posts, released together
+        service.batch_sizes.clear()
+        barrier = threading.Barrier(CACHE_CONCURRENT)
+        counters = ("cache_misses_total", "cache_coalesced_total", "cache_hits_total")
+        c0, w0 = {n: service.metrics.counter(n) for n in counters}, device_work()
+
+        def one(_):
+            c = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            c.connect()
+            try:
+                barrier.wait(60)
+                return _keep_alive_post(c, bodies[CACHE_IMAGES])
+            finally:
+                c.close()
+
+        with concurrent.futures.ThreadPoolExecutor(CACHE_CONCURRENT) as pool:
+            answers = list(pool.map(one, range(CACHE_CONCURRENT)))
+        rows = sum(service.batch_sizes)
+        out["coalescing"] = {
+            "posts": CACHE_CONCURRENT, "x_cache": dict(collections.Counter(a[1] for a in answers)),
+            "counters": {n: service.metrics.counter(n) - c0[n] for n in counters},
+            "dispatched_rows": rows, "device_work": delta(w0, device_work()),
+            "distinct_bodies": len({a[2] for a in answers}), "p50_ms": statistics.median(a[3] for a in answers) * 1e3,
+        }
+        co = out["coalescing"]
+        if ({a[0] for a in answers} != {200} or rows != 1 or co["distinct_bodies"] != 1
+                or co["x_cache"].get("miss") != 1 or co["device_work"]["replays"] != 1):
+            failed.append(f"coalescing: {co}")
+
+        # a forced recompute, then one that must not store
+        key = service._request_key(Request("POST", "/", {}, {"content-type": "application/x-www-form-urlencoded"},
+                                           bodies[0]), "/")
+        first = service.cache.peek(key)
+        w0 = device_work()
+        again = _keep_alive_post(conn, bodies[0], {"cache-control": "no-cache"})
+        refreshed = service.cache.peek(key)
+        kept = _keep_alive_post(conn, bodies[0], {"cache-control": "no-store"})
+        recompute_psnr = _psnr(_decode_jpeg_url(json.loads(again[2])), _decode_jpeg_url(json.loads(misses[0][2])))
+        out["no_cache"] = {
+            "x_cache": [again[1], kept[1]], "device_work": delta(w0, device_work()),
+            "recompute_vs_miss_psnr_db": recompute_psnr if np.isfinite(recompute_psnr) else "identical",
+            "entry_refreshed_by_no_cache": first is not None and refreshed is not first,
+            "entry_kept_by_no_store": service.cache.peek(key) is refreshed,
+        }
+        nc = out["no_cache"]
+        if (again[0] != 200 or kept[0] != 200 or nc["x_cache"] != ["bypass", "bypass"] or recompute_psnr < RECOMPUTE_PSNR_DB
+                or not nc["entry_refreshed_by_no_cache"] or not nc["entry_kept_by_no_store"]
+                or nc["device_work"]["replays"] != 2):
+            failed.append(f"no-cache / no-store: {nc}")
+        torch.cuda.synchronize()
+        out["launches"], out["graph_counts"] = ops.launch_counts(), dict(ops.graph_counts)
+
+        # deterministic 4xx: negative-cached; an unknown model before any flight
+        bad_layer = {"file": forms[0]["file"], "layer": "no_such_layer"}
+        neg = [_keep_alive_post(conn, bad_layer) for _ in range(2)]
+        misses0 = service.metrics.counter("cache_misses_total")
+        unknown = _keep_alive_post(conn, {**forms[0], "model": "vgg19"})
+        out["negative"] = {
+            "unknown_layer": [[n[0], json.loads(n[2]).get("error"), n[1]] for n in neg],
+            "unknown_model": [unknown[0], json.loads(unknown[2]).get("error"), unknown[1]],
+            "lookups_for_unknown_model": service.metrics.counter("cache_misses_total") - misses0,
+            "flights_open": len(service.flights),
+        }
+        ng = out["negative"]
+        if (ng["unknown_layer"] != [[422, "unknown_layer", "miss"], [422, "unknown_layer", "hit-negative"]]
+                or ng["unknown_model"] != [422, "unknown_model", None] or ng["lookups_for_unknown_model"]
+                or ng["flights_open"]):
+            failed.append(f"negative cache: {ng}")
+    finally:
+        conn.close()
+        _stop(server)
+
+    # the L2 across a restart: two servers of the same bundle on one directory
+    defaults = ServerConfig()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    l2_dir = tempfile.mkdtemp(prefix="l2-", dir=os.path.join(ROOT, "build"))
+    try:
+        cfg = {"cache_bytes": defaults.cache_bytes, "singleflight": defaults.singleflight, "l2_dir": l2_dir}
+        writer = _second_server(torch, service.bundle, **cfg)
+        try:
+            written = _request_raw(writer.server_address[1], forms[0])
+        finally:
+            _stop(writer)  # flushes the L2 writer
+        reader = _second_server(torch, service.bundle, **cfg)
+        try:
+            w0 = device_work()
+            read = _request_raw(reader.server_address[1], forms[0])
+            w1 = device_work()
+            l2_hits = reader.service.metrics.counter("cache_l2_hits_total")
+        finally:
+            _stop(reader)
+        out["l2_restart"] = {"x_cache": [written[1], read[1]], "byte_equal": read[2] == written[2],
+                             "device_work": delta(w0, w1), "l2_hits": l2_hits, "files": len(os.listdir(l2_dir))}
+        l2 = out["l2_restart"]
+        if (written[0] != 200 or read[0] != 200 or l2["x_cache"] != ["miss", "l2"] or not l2["byte_equal"]
+                or any(l2["device_work"].values()) or l2_hits != 1):
+            failed.append(f"L2 across a restart: {l2}")
+    finally:
+        shutil.rmtree(l2_dir, ignore_errors=True)
+    emit(out)
+    if failed:
+        raise AssertionError("cache: " + "; ".join(failed))
+    return {"counts": out["launches"]}
+
+
+def _request_raw(port: int, form: dict):
+    """``_keep_alive_post`` on a connection of its own."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        return _keep_alive_post(conn, form)
+    finally:
+        conn.close()
 
 
 def main() -> int:
@@ -2490,13 +2802,15 @@ def main() -> int:
     timed("capture", phase_capture, torch, ctx["bundle"], dag, dream, ctx["xs"], env["nvidia_smi"])
     multi = timed("multi_model", phase_multi_model, torch, ctx["uris"], env["nvidia_smi"])
     load = timed("load", phase_load, torch, env["nvidia_smi"])
+    cache = timed("cache", phase_cache, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
                "vgg19 POST / (fused_unpool auto)": dag["vgg19_auto_counts"], **dream["counts_by_path"],
                "multi_model POST / and /v1/dream": multi["counts"],
                "multi_model vgg16 POST / (graphs captured after its page-out)": multi["vgg16_counts"],
-               "load POST /": load["counts"]}
+               "load POST /": load["counts"], "load POST / (server defaults: cache on)": load["defaults_counts"],
+               "cache POST / (misses, hits at 0, one coalesced row, two recomputes)": cache["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

@@ -3,7 +3,9 @@ resnet50|inception_v3|mobilenet_v1|mobilenet_v2|vgg_tiny] [--device
 cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]
 [--serve-models all|M1,M2] [--pinned-models M1,M2] [--hbm-budget-bytes N]
 [--weight-dtype f32|bf16|int8] [--pipeline-depth 2] [--request-timeout-s 60]
-[--fault SITE=SPEC] [--trace-ring 256] ...``: serve the reference's ``POST /``, the
+[--fault SITE=SPEC] [--trace-ring 256] [--cache-bytes N] [--no-singleflight]
+[--l2-dir DIR] [--slo NAME=MS:PCT[:ROUTE],...] [--tsdb off|on] [--alerts
+JSON|PATH] ...``: serve the reference's ``POST /``, the
 JSON API ``POST /v1/deconv`` and DeepDream's ``POST /v1/dream`` (``file``,
 optional ``layers``, ``steps``, ``octaves``, ``lr``; dreams have a
 dispatcher of their own, up to 4 a batch), for ``--model`` and every model
@@ -12,7 +14,10 @@ of ``--serve-models`` (a request names its model with ``model=`` or
 ``/metrics``, ``/v1/config``, ``/v1/models`` and ``/v1/debug/requests``.
 The request pipeline's fields of ``config.ServerConfig`` (timeouts,
 connection limits, shedding, pipeline depth, codec pool, tracing, faults
-and the breaker) each have a flag of the field's name."""
+and the breaker) and the response cache's, the SLOs', the metric
+history's and the alerts' each have a flag, spelled as the JAX package's
+CLI spells it (``--slo`` for ``slos``, ``--no-singleflight``), else
+after the field."""
 
 from __future__ import annotations
 
@@ -35,8 +40,8 @@ def _kpack_policy(value: str) -> str:
     return value
 
 
-_TYPES = {"int": int, "float": float}  # ServerConfig's annotations are strings
-_PIPELINE_FIELDS = {
+_TYPES = {"int": int, "float": float, "str": str}  # ServerConfig's annotations are strings
+_FIELD_FLAGS = {
     "request_timeout_s": "seconds a POST / or /v1/deconv request may wait for its batch",
     "sweep_timeout_s": "the same for a sweep=true request",
     "dream_timeout_s": "the same for a /v1/dream request",
@@ -59,6 +64,15 @@ _PIPELINE_FIELDS = {
     "fault_seed": "seed for the fault registry's deterministic RNG",
     "breaker_threshold": "consecutive batch failures that open the device circuit breaker (0 disables)",
     "breaker_cooldown_s": "seconds the breaker stays open before a half-open probe",
+    "cache_bytes": "response-cache byte budget (0 disables the cache)",
+    "cache_ttl_s": "positive cache-entry TTL in seconds (0 = until evicted)",
+    "cache_negative_ttl_s": "seconds a deterministic 4xx stays cached (0 disables negative caching)",
+    "cache_shards": "response-cache LRU shards",
+    "l2_dir": "durable L2 response-cache directory (empty disables the disk tier)",
+    "l2_bytes": "L2 byte budget (0 = unbounded)",
+    "tsdb_interval_s": "metric-history scrape interval in seconds",
+    "incidents_dir": "directory for incident bundles (empty = none recorded)",
+    "incidents_retention_s": "seconds incident bundles are kept",
 }
 
 
@@ -96,16 +110,25 @@ def build_server(argv=None) -> DeconvHTTPServer:
         help="stored weight precision on the device (quantized tiers trade "
         "PSNR-bounded fidelity for resident models)",
     )
-    # the request pipeline's fields, each named after its ServerConfig
-    # field (the JAX CLI's names where it has one)
+    # the request pipeline's and the cache's fields, each named after its
+    # ServerConfig field (the JAX CLI's names where it has one)
     for field in dataclasses.fields(ServerConfig):
-        if field.name in _PIPELINE_FIELDS:
+        if field.name in _FIELD_FLAGS:
             flag = "--" + field.name.replace("_", "-")
             if field.type == "bool":
-                s.add_argument(flag, action="store_true", help=_PIPELINE_FIELDS[field.name])
+                s.add_argument(flag, action="store_true", help=_FIELD_FLAGS[field.name])
             else:
                 s.add_argument(flag, type=_TYPES[field.type], default=field.default,
-                               help=f"{_PIPELINE_FIELDS[field.name]} (default {field.default})")
+                               help=f"{_FIELD_FLAGS[field.name]} (default {field.default})")
+    s.add_argument("--no-singleflight", action="store_true",
+                   help="do not coalesce concurrent identical requests onto one computation")
+    s.add_argument("--slo", default="", metavar="NAME=MS:PCT[:ROUTE],...",
+                   help="latency SLO objects: burn-rate gauges on /metrics, an slo block on /readyz "
+                   "(default none)")
+    s.add_argument("--tsdb", default="off", choices=("off", "on"),
+                   help="embedded metric history and GET /v1/metrics/history (default off)")
+    s.add_argument("--alerts", default="", metavar="JSON|PATH",
+                   help="alert rules, inline JSON or a JSON file (implies --tsdb on; default none)")
     s.add_argument(
         "--fault", action="append", default=None, metavar="SITE=SPEC",
         help="arm a fault-injection site at startup (repeatable; implies "
@@ -117,8 +140,9 @@ def build_server(argv=None) -> DeconvHTTPServer:
         model=args.model, max_batch=args.max_batch, lowc_kpack=args.lowc_kpack,
         serve_models=args.serve_models, pinned_models=args.pinned_models,
         hbm_budget_bytes=args.hbm_budget_bytes, weight_dtype=args.weight_dtype,
-        faults=",".join(args.fault or ()),
-        **{name: getattr(args, name) for name in _PIPELINE_FIELDS},
+        faults=",".join(args.fault or ()), singleflight=not args.no_singleflight, slos=args.slo,
+        tsdb=args.tsdb, alerts=args.alerts,
+        **{name: getattr(args, name) for name in _FIELD_FLAGS},
     )
     service = DeconvService(cfg=cfg, device=args.device)
     service.start()

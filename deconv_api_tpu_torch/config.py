@@ -55,6 +55,35 @@ class ServerConfig:
     # card): batch N+1 assembles into a different buffer than in-flight
     # batch N.  >= 2; 3 leaves one spare for the fetch tail.
     input_ring_depth: int = 3
+    # --- response cache + singleflight (serving/cache.py) ---
+    # Content-addressed response cache: final encoded payloads keyed by a
+    # digest of (model, route, canonical params, raw image bytes).  A hit
+    # skips decode, device dispatch and encode entirely.  Byte budget for
+    # resident payloads; 0 disables the cache (the escape hatch).
+    cache_bytes: int = 256 * 1024 * 1024
+    # Positive-entry TTL.  0 = entries live until LRU-evicted (responses
+    # are pure functions of the key, so expiry is a freshness policy for
+    # operators who hot-swap weights in place, not a correctness need).
+    cache_ttl_s: float = 0.0
+    # Deterministic 4xxs (unknown layer, bad knobs, undecodable image)
+    # are negative-cached this long so retry loops stop paying the form
+    # parse + validation walk.  0 disables negative caching.
+    cache_negative_ttl_s: float = 2.0
+    cache_shards: int = 8  # LRU shards (per-shard lock + budget slice)
+    # Coalesce concurrent IDENTICAL misses onto one in-flight request:
+    # N duplicates in flight -> exactly 1 decode/dispatch/encode, N
+    # responses.  Works with or without the cache; off restores
+    # independent execution.
+    singleflight: bool = True
+    # Durable L2 response cache: a disk tier behind the in-memory LRU
+    # (serving/cache.py L2Store).  Positive entries write through
+    # asynchronously under the l2_bytes budget and are looked up on a
+    # memory miss BEFORE compute, digest-verified (corruption reads as a
+    # miss, never an error).  Empty = DISABLED: the server touches no disk.
+    l2_dir: str = ""
+    # L2 byte budget; oldest entries (by last-read mtime, which survives
+    # restarts) sweep when exceeded.  0 = unbounded.
+    l2_bytes: int = 1024 * 1024 * 1024
     # --- per-request tracing (serving/trace.py) ---
     # Flight-recorder ring size: the last N completed traces, N
     # tail-sampled slow traces, and N error traces, served at
@@ -67,9 +96,48 @@ class ServerConfig:
     # Head-sample rate for the RECENT ring (1.0 = every request, 0 = only
     # slow/error traces are retained).
     trace_sample: float = 1.0
+    # --- latency SLOs (serving/metrics.py SloTracker) ---
+    # Comma-separated latency SLO objects,
+    # 'name=<threshold_ms>:<objective_pct>[:<route>]' — e.g.
+    # 'api=250:99,deconv=100:99.9:/v1/deconv'.  Each tracks the
+    # fraction of its (optionally route-scoped) requests finishing
+    # under the threshold (5xx always breaches) and publishes
+    # multi-window burn-rate gauges (slo_burn_rate{slo=,window=}) plus
+    # an `slo` block on /readyz.  Requests feed the
+    # request_duration_seconds histogram either way; '' = no SLO
+    # objects.  Validated at boot.
+    slos: str = ""
+    # --- metric history + alerting (serving/tsdb.py, serving/alerts.py) ---
+    # Embedded TSDB master switch: 'on' starts a periodic self-scrape
+    # task sampling Metrics.snapshot() into two fixed-size ring tiers
+    # (raw 1×tsdb_interval_s × 600 slots, rolled min/mean/max at
+    # 15×interval × 960 slots) and registers GET /v1/metrics/history.
+    # 'off' = nothing registered, no task.  A non-empty `alerts` spec
+    # implies 'on'.
+    tsdb: str = "off"
+    # Self-scrape cadence in seconds.  Both ring tiers scale with it
+    # (the rollup interval is always 15× the raw interval).
+    tsdb_interval_s: float = 1.0
+    # Declarative alert rules: inline JSON ('{"rules": [...]}' or a
+    # bare list) or a path to a JSON file — validated at boot (a typo'd
+    # kind/key/SLO fails the process).  Rule kinds: threshold (aggregate
+    # one TSDB series over a window and compare), burn (multi-window SLO
+    # error-budget overspend), absence (series staleness).  Evaluated
+    # every scrape tick with for_s hold-downs; surfaced at GET
+    # /v1/alerts, as alert_state{rule=} gauges, and on /readyz.  Empty =
+    # no engine.
+    alerts: str = ""
+    # Directory for digest-verified incident bundles written when a
+    # rule transitions to firing.  Empty = alerts still evaluate but
+    # nothing is recorded; /v1/debug/incidents 404s.
+    incidents_dir: str = ""
+    # Incident bundle retention: bundles older than this (or beyond the
+    # newest 64) are swept on the scrape tick.
+    incidents_retention_s: float = 86400.0
     # --- robustness (serving/faults.py, the batcher's breaker) ---
-    # Fault injection master switch: enables the registry and the module
-    # hook.  Never enable on a server an untrusted party can reach.
+    # Fault injection master switch: enables the registry, the module
+    # hook and the POST /v1/debug/faults arm route (404 while off).
+    # Never enable on a server an untrusted party can reach.
     fault_injection: bool = False
     # Faults armed at startup: "site=spec,site=spec" (see serving/
     # faults.py for the grammar).  Non-empty implies fault_injection.

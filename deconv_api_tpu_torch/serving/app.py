@@ -18,6 +18,15 @@ model) or a served model's name, else 422 ``unknown_model``, and
 ``x-deadline-ms``, the caller's budget: a request still queued when it
 lapses is answered 504 ``deadline_expired`` before any device work.
 
+In front of each compute route, as in the JAX service (outermost first):
+the observation wrap (the ``request_duration_seconds`` histogram and the
+latency SLOs), the trace wrap, and the response cache with singleflight
+(``serving/cache.py``): a repeated request is answered from the cache
+before any decode (``x-cache: hit``), identical requests in flight share
+one device row (``coalesced``), a deterministic 4xx is cached for
+``cache_negative_ttl_s`` (``hit-negative``), and with ``l2_dir`` the
+answers outlive the process on disk (``l2``).
+
 Control routes: ``GET /healthz`` (liveness), ``GET /readyz`` (readiness,
 with each check named, and the residency block when several models are
 served; 503 while draining), ``GET /metrics`` and ``GET /v1/metrics`` (the
@@ -25,7 +34,11 @@ Prometheus text of the deconv, dream and sweep streams and of the request
 traces), ``GET /v1/config`` (the effective configuration and the weight
 manager's residency), ``GET /v1/models`` (the registry, with the default
 and the served models marked) and ``GET /v1/debug/requests`` (the flight
-recorder: recent, slow and error traces with their spans).
+recorder: recent, slow and error traces with their spans).  With ``tsdb``
+on (or an ``alerts`` spec): ``GET /v1/metrics/history`` (the embedded
+metric history, ``serving/tsdb.py``), ``GET /v1/alerts`` (the alert
+rules' states, ``serving/alerts.py``) and, with ``incidents_dir``, ``GET
+/v1/debug/incidents``; with fault injection on, ``POST /v1/debug/faults``.
 
 The request pipeline (as the JAX service's): an asyncio HTTP server
 (``serving/http.py``) on the service's event-loop thread; decode on the
@@ -75,13 +88,17 @@ from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
 from deconv_api_tpu_torch.serving import codec
 from deconv_api_tpu_torch.serving import faults as faults_mod
 from deconv_api_tpu_torch.serving import trace as trace_mod
+from deconv_api_tpu_torch.serving import tsdb as tsdb_mod
+from deconv_api_tpu_torch.serving.alerts import AlertEngine, IncidentStore, parse_alert_rules
 from deconv_api_tpu_torch.serving.batcher import BatchingDispatcher, CircuitBreaker, LanePool, buckets, pad_bucket
+from deconv_api_tpu_torch.serving.cache import L2Store, ResponseCache, Singleflight, canonical_digest
 from deconv_api_tpu_torch.serving.codec_pool import HostBufferRing, WorkerPool
 from deconv_api_tpu_torch.serving.http import HttpServer, Request, Response
-from deconv_api_tpu_torch.serving.metrics import Metrics
+from deconv_api_tpu_torch.serving.metrics import Metrics, parse_slos, slo_prometheus
 from deconv_api_tpu_torch.serving.models import REGISTRY, ModelBundle, build_bundle, registry_info
 from deconv_api_tpu_torch.serving.trace import FlightRecorder, RequestTrace
 from deconv_api_tpu_torch.serving.weight_manager import WEIGHT_DTYPES, WeightManager
+from deconv_api_tpu_torch.utils import slog
 
 log = logging.getLogger(__name__)
 
@@ -95,6 +112,14 @@ _TRUTHY = ("1", "true", "yes", "on")
 # a fetch polls its batch's CUDA event at most this often, backing off
 # from the first interval to the last
 _POLL_S = (5e-5, 1e-3)
+# the compute routes the observation wrap covers: an SLO scoped to any
+# other route would never observe
+COMPUTE_ROUTES = frozenset(("/", "/v1/deconv", "/v1/dream"))
+# the weights' identity in the cache-key prefix: no weight file ships with
+# the port, every registry bundle is He-normal from generator seed 0
+WEIGHTS_SOURCE = "he-normal:seed=0"
+# the serving programs' backward dtype (``_enqueue_program``)
+BACKWARD_DTYPE = "bfloat16"
 
 
 class Program(NamedTuple):
@@ -160,6 +185,21 @@ class DeconvService:
         resolve_kpack_chan(cfg.lowc_kpack, DEFAULT_TOP_K)
         if cfg.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, got {cfg.weight_dtype!r}")
+        # latency SLOs, metric history and alert rules, validated at boot
+        # with the JAX package's messages: a malformed spec is a config
+        # error, not a silently dropped objective
+        try:
+            self.slos = parse_slos(cfg.slos, observable_routes=COMPUTE_ROUTES)
+        except ValueError as e:
+            raise ValueError(f"invalid slos spec: {e}") from e
+        if cfg.tsdb not in ("off", "on"):
+            raise ValueError(f"tsdb must be 'off' or 'on', got {cfg.tsdb!r}")
+        if cfg.tsdb_interval_s <= 0:
+            raise ValueError(f"tsdb_interval_s must be > 0, got {cfg.tsdb_interval_s}")
+        try:
+            alert_rules = parse_alert_rules(cfg.alerts, known_slos=frozenset(t.name for t in self.slos))
+        except ValueError as e:
+            raise ValueError(f"invalid alerts spec: {e}") from e
         if registry is None and bundle is None:
             registry = {name: functools.partial(build_bundle, name, device) for name in REGISTRY}
         if bundle is not None:
@@ -216,6 +256,33 @@ class DeconvService:
             FlightRecorder(cfg.trace_ring, slow_ms=cfg.trace_slow_ms, sample=cfg.trace_sample)
             if cfg.trace_ring > 0 else None
         )
+        # The content-addressed response cache and singleflight
+        # (serving/cache.py): a hit answers before any decode and never
+        # reaches a dispatcher; N identical requests in flight cost one
+        # device row.  The key prefix folds in every setting that decides
+        # the response bytes (``_model_prefix``).  The L2 disk tier is off
+        # unless ``l2_dir`` is set.
+        self.cache = (
+            ResponseCache(cfg.cache_bytes, ttl_s=cfg.cache_ttl_s, negative_ttl_s=cfg.cache_negative_ttl_s,
+                          shards=cfg.cache_shards, metrics=self.metrics)
+            if cfg.cache_bytes > 0 else None
+        )
+        self.l2 = L2Store(cfg.l2_dir, cfg.l2_bytes, metrics=self.metrics) if cfg.l2_dir else None
+        self.flights = Singleflight() if cfg.singleflight else None
+        self._prefix_cache: dict[str, str] = {}
+        # Metric history and alerting (serving/tsdb.py, serving/alerts.py):
+        # a self-scrape task samples the main registry into two ring tiers
+        # and the alert engine evaluates its rules on the same tick.  'off'
+        # with no alerts spec constructs nothing: no routes, no task.
+        self.tsdb = self.alert_engine = self.incidents = None
+        self._tsdb_task: asyncio.Task | None = None
+        if cfg.tsdb == "on" or cfg.alerts:
+            self.tsdb = tsdb_mod.Tsdb(cfg.tsdb_interval_s)
+            if alert_rules:
+                self.alert_engine = AlertEngine(alert_rules, self.tsdb, slos=self.slos)
+            if cfg.incidents_dir:
+                self.incidents = IncidentStore(cfg.incidents_dir, retention_s=cfg.incidents_retention_s,
+                                               metrics=self.metrics)
         # a fetch gives up on a batch that outlives the longest timeout
         self._fetch_wait_s = max(cfg.request_timeout_s, cfg.dream_timeout_s, cfg.sweep_timeout_s)
         self.dispatcher = self._dispatcher(self._dispatch_deconv, cfg.max_batch, cfg.batch_window_ms,
@@ -338,7 +405,7 @@ class DeconvService:
         try:
             prog = bundle.program(
                 program.layer, program.mode, program.top_k, bucket, bug_compat=True,
-                backward_dtype="bfloat16", post=program.post, fused_unpool=fused_unpool,
+                backward_dtype=BACKWARD_DTYPE, post=program.post, fused_unpool=fused_unpool,
                 sweep=program.sweep, lowc_kpack=self.lowc_kpack if lowc_kpack is None else lowc_kpack,
             )
             with bundle.programs.replaying():
@@ -545,16 +612,21 @@ class DeconvService:
         return asyncio.run_coroutine_threadsafe(coro, self._ensure_loop()).result(timeout)
 
     def start(self) -> None:
-        """Start the three dispatchers (and the codec pool anew after a
-        ``close``)."""
+        """Start the three dispatchers and, with ``tsdb`` on, the
+        self-scrape task (and the codec pool and the L2 writer anew after
+        a ``close``: the L2's entries outlive it)."""
         if self.codec_pool.closed:
             self.codec_pool = WorkerPool(self.cfg.codec_workers, max_pending=self.cfg.codec_queue_depth,
                                          metrics=self.metrics)
+        if self.l2 is not None and self.l2.closed:
+            self.l2 = L2Store(self.cfg.l2_dir, self.cfg.l2_bytes, metrics=self.metrics)
         self._closed = False
 
         async def start():
             for d in (self.dispatcher, self.dream_dispatcher, self.sweep_dispatcher):
                 await d.start()
+            if self.tsdb is not None and self._tsdb_task is None:
+                self._tsdb_task = asyncio.get_running_loop().create_task(self._tsdb_loop(), name="tsdb-scrape")
 
         self.on_loop(start())
 
@@ -583,11 +655,17 @@ class DeconvService:
         """Begin the drain (``/readyz`` answers 503 and every response
         carries ``connection: close`` from here), then stop the three
         dispatchers within one shared grace of ``timeout`` seconds, the
-        codec pool and the fault hook.  The listener, if any, stays up
-        until ``stop_listening``."""
+        codec pool, the scrape task, the L2 writer (its queued writes
+        flushed) and the fault hook.  The listener, if any, stays up until
+        ``stop_listening``."""
         self.begin_drain()
         if self._loop is not None and not self._closed:
             async def stop():
+                if self._tsdb_task is not None:
+                    self._tsdb_task.cancel()
+                    with contextlib.suppress(asyncio.CancelledError):
+                        await self._tsdb_task
+                    self._tsdb_task = None
                 deadline = time.perf_counter() + timeout
                 for d in (self.dispatcher, self.dream_dispatcher, self.sweep_dispatcher):
                     await d.stop(grace_s=max(0.0, deadline - time.perf_counter()))
@@ -595,6 +673,8 @@ class DeconvService:
             self.on_loop(stop())
         self._closed = True
         self.codec_pool.close()
+        if self.l2 is not None:
+            self.l2.close()
         if self.faults is not None:
             faults_mod.uninstall(self.faults)
         self._maybe_end_loop()
@@ -624,6 +704,19 @@ class DeconvService:
         return asyncio.run_coroutine_threadsafe(dispatcher.submit(x, key), self._ensure_loop())
 
     # --- requests ----------------------------------------------------------
+
+    def resolve_request_model(self, req: Request) -> str:
+        """``resolve_model`` of the request's form (an unparseable body
+        leaves the default: its handler answers 400), memoized on the
+        request so the cache wrap, the route and the trace agree on one
+        resolution."""
+        if not req.model:
+            try:
+                form = req.form()
+            except Exception:  # noqa: BLE001 — any parse error: the handler 400s it
+                form = {}
+            req.model = self.resolve_model(form, req.headers)
+        return req.model
 
     def resolve_model(self, form: dict[str, str], headers=None) -> str:
         """The request's model: the ``model`` form field (wins), else the
@@ -826,10 +919,22 @@ class DeconvService:
         r("GET", "/v1/config")(self._config)
         r("GET", "/v1/models")(self._models)
         r("GET", "/v1/debug/requests")(self._debug_requests)
+        if self.faults is not None:
+            # routed only with fault injection on: a default server 404s it
+            r("POST", "/v1/debug/faults")(self._debug_faults)
+        if self.tsdb is not None:
+            r("GET", "/v1/metrics/history")(self._metrics_history)
+            r("GET", "/v1/alerts")(self._alerts)
+            if self.incidents is not None:
+                r("GET", "/v1/debug/incidents")(self._debug_incidents)
+        # the JAX package's wrap order: observation (outermost: its
+        # histogram and SLOs see every outcome) -> trace -> [the QoS
+        # admission wrap goes here] -> cache -> route
         for path, core, metrics in (("/", self._compat, self.metrics),
                                     ("/v1/deconv", self._deconv_v1, self.metrics),
                                     ("/v1/dream", self._dream_v1, self.dream_metrics)):
-            r("POST", path)(self._trace_wrap(path, self._compute_route(core, metrics)))
+            handler = self._cache_wrap(path, self._compute_route(core, metrics), metrics)
+            r("POST", path)(self._obs_wrap(path, self._trace_wrap(path, handler)))
 
     def _compute_route(self, core, metrics: Metrics):
         """A compute route: ``core(parse, size, headers, deadline)``'s
@@ -877,11 +982,215 @@ class DeconvService:
             finally:
                 trace_mod.deactivate(token)
             code = errors.code_from_body(resp.body) if resp.status >= 400 else None
-            tr.finish(status=resp.status, error=code)
+            tr.finish(status=resp.status, error=code, cache=resp.headers.get("x-cache"))
             recorder.record(tr)
             return resp
 
         return traced
+
+    def _obs_wrap(self, route: str, handler):
+        """Per-route latency observation: every completed request (hit,
+        miss, 4xx, shed, a crash's 500) lands one sample in the
+        ``request_duration_seconds{route,qos_class}`` histogram, its
+        request id as the bucket's exemplar, and in every SLO that matches
+        the route.  A cancelled request (client gone, shutdown) produced no
+        response and observes nothing.  ``qos_class`` is ``default`` until
+        a QoS admission wrap stamps the request's class."""
+        slos = [t for t in self.slos if t.matches(route)]
+
+        def observe(req: Request, dt: float, status: int) -> None:
+            self.metrics.observe_hist("request_duration_seconds", ("route", "qos_class"), (route, "default"),
+                                      dt, exemplar=req.id)
+            for t in slos:
+                t.observe(dt, status)
+
+        async def observed(req: Request) -> Response:
+            t0 = time.perf_counter()
+            try:
+                resp = await handler(req)
+            except asyncio.CancelledError:
+                raise
+            except BaseException:
+                observe(req, time.perf_counter() - t0, 500)
+                raise
+            observe(req, time.perf_counter() - t0, resp.status)
+            return resp
+
+        return observed
+
+    def _model_prefix(self, model: str) -> str:
+        """The response-cache key prefix of one served model: every
+        setting that decides its response bytes.  The JAX package's
+        fields (model, image size, visualize mode, stitch k, top k,
+        bug_compat, strict_compat, dtype, backward dtype, lowc_kpack,
+        fused_unpool, weight dtype, weights) with the port's values, and
+        the device type: the card's bytes and the CPU's differ in their
+        last bits, and one ``l2_dir`` may outlive a device.  Builds the
+        model's bundle at its first use (called off the event loop)."""
+        p = self._prefix_cache.get(model)
+        if p is None:
+            bundle = self.weights.bundle(model)
+            p = "|".join(str(x) for x in (
+                model, bundle.image_size, "all", STITCH_K, DEFAULT_TOP_K, True, False, "float32",
+                BACKWARD_DTYPE, self.cfg.lowc_kpack, FUSED_DEFAULT, self.cfg.weight_dtype, WEIGHTS_SOURCE,
+                bundle.device.type,
+            ))
+            self._prefix_cache[model] = p
+        return p
+
+    def _request_key(self, req: Request, route: str) -> str:
+        """The request's cache and singleflight key: ``canonical_digest``
+        of the memoized form (the same parse the route consumes on a miss)
+        under the resolved model's prefix, without the ``model`` and
+        ``quality`` fields.  Raises ``UnknownModel``."""
+        prefix = f"{self._model_prefix(self.resolve_request_model(req))}|{route}"
+        return canonical_digest(prefix, req.headers.get("content-type", ""), req.body, req=req,
+                                exclude=("model", "quality"))
+
+    async def _l2_lookup(self, key: str, tr) -> Response | None:
+        """The durable L2 read on a memory miss, before compute: a
+        verified disk hit answers without the codec pool, a dispatcher or
+        the card; a corrupt entry reads as a miss."""
+        if self.l2 is None:
+            return None
+        t0 = time.perf_counter()
+        got = await asyncio.to_thread(self.l2.get, key)
+        if tr is not None:
+            tr.add_span("l2_lookup", t0, time.perf_counter() - t0, hit=got is not None)
+        if got is None:
+            return None
+        status, body, content_type = got
+        return Response(status=status, body=body, headers={"content-type": content_type, "x-cache": "l2"})
+
+    def _cache_wrap(self, route: str, handler, metrics: Metrics):
+        """The response cache and the singleflight table in front of a
+        compute route (``deconv_api_tpu/serving/app.py:_cache_wrap``
+        without the QoS refunds and the peer fill).
+
+        The key (``_request_key``) comes from the raw body before any
+        image decode: on the event loop for a body of
+        ``codec_inline_bytes`` or less whose model prefix is known, else
+        on the codec pool, where the form parse of a large body belongs.
+        A hit answers with the stored payload (``x-cache: hit``, or
+        ``hit-negative`` for a cached deterministic 4xx) and reaches no
+        dispatcher.  On a miss the first request in flight leads: it
+        reads the L2, else runs the route, and publishes its response to
+        the identical requests that arrived meanwhile (``x-cache:
+        coalesced``, each with its own ``x-request-id``).  A leader's own
+        deadline answers its waiters 503 ``unavailable``, not a 504 that
+        is not theirs; a cancelled leader fails them the same way; a
+        waiter's deadline ends only its own wait.  ``Cache-Control:
+        no-cache`` skips the cache read, the flight table and the L2 (a
+        forced recompute, ``x-cache: bypass``) but refreshes the entry,
+        unless ``no-store`` is also present, which skips the write too.
+
+        Cache counters go to the main registry; per-request accounting to
+        the route's own ``metrics``."""
+        if self.cache is None and self.flights is None and self.l2 is None:
+            return handler
+
+        async def cached(req: Request) -> Response:
+            t0 = time.perf_counter()
+            tr = trace_mod.current_trace()
+            cc = req.headers.get("cache-control", "").lower()
+            bypass = "no-cache" in cc or "no-store" in cc
+            try:
+                if len(req.body) > self.cfg.codec_inline_bytes:
+                    key = await self.codec_pool.run(self._request_key, req, route)
+                elif self.resolve_request_model(req) in self._prefix_cache:
+                    key = self._request_key(req, route)
+                else:  # a model's first request builds its bundle, off the loop
+                    key = await asyncio.to_thread(self._request_key, req, route)
+            except errors.DeconvError as e:
+                metrics.observe_request(time.perf_counter() - t0, e.code)
+                return _error_response(e, req.id)
+            _annotate_model(req.model)
+            if self.cache is not None and not bypass:
+                entry = self.cache.lookup(key)
+                dt = time.perf_counter() - t0
+                if entry is not None:
+                    self.metrics.observe_stage("cache_hit", dt)
+                    metrics.observe_request(dt, entry.error_code)
+                    if tr is not None:
+                        tr.add_span("cache_hit", t0, dt)
+                    return entry.to_response()
+                if tr is not None:
+                    tr.add_span("cache_lookup", t0, dt, hit=False)
+            if self.flights is not None and not bypass:
+                leader, fut = self.flights.begin(key)
+                if not leader:
+                    return await self._coalesced(req, fut, t0, tr, metrics)
+                # the awaits below run inside the flight: every exit must
+                # finish it, or the key's future stays in the table and
+                # every later identical request waits on it forever
+                try:
+                    filled = await self._l2_lookup(key, tr)
+                    resp = filled if filled is not None else await handler(req)
+                except asyncio.CancelledError:
+                    self.flights.finish(key, exc=errors.Unavailable("coalesced request's leader was cancelled"))
+                    raise
+                except errors.DeadlineExpired:
+                    self.flights.finish(key, exc=errors.Unavailable(
+                        "coalesced request's leader hit its own deadline"))
+                    raise
+                except BaseException as e:  # noqa: BLE001 — publish, re-raise
+                    self.flights.finish(key, exc=e)
+                    raise
+                if filled is not None:
+                    metrics.observe_request(time.perf_counter() - t0)
+                    self.flights.finish(key, resp)
+                elif resp.status >= 400 and errors.code_from_body(resp.body) == "deadline_expired":
+                    # the route answers the leader's own lapsed deadline as
+                    # a 504 response: the work's waiters get a 503
+                    self.flights.finish(key, exc=errors.Unavailable(
+                        "coalesced request's leader hit its own deadline"))
+                else:
+                    self.flights.finish(key, resp)
+            else:
+                resp = None if bypass else await self._l2_lookup(key, tr)
+                if resp is not None:
+                    metrics.observe_request(time.perf_counter() - t0)
+                else:
+                    resp = await handler(req)
+            content_type = resp.headers.get("content-type", "application/json")
+            if self.cache is not None and "no-store" not in cc:
+                self.cache.store(key, resp.status, resp.body, content_type)
+            if (self.l2 is not None and "no-store" not in cc and resp.status == 200
+                    and resp.headers.get("x-cache") != "l2"):
+                # positive write-through, asynchronous: the serving path
+                # never waits on the disk; negative entries stay in memory
+                self.l2.put_async(key, resp.status, resp.body, content_type)
+            resp.headers.setdefault("x-cache", "bypass" if bypass else "miss")
+            return resp
+
+        return cached
+
+    async def _coalesced(self, req: Request, fut, t0: float, tr, metrics: Metrics) -> Response:
+        """A singleflight waiter: await the leader's published response
+        under the waiter's own deadline (capped by the request timeout),
+        answered with its own ``x-request-id`` and ``x-cache: coalesced``."""
+        self.metrics.inc_counter("cache_coalesced_total")
+        if tr is not None:
+            tr.annotate(coalesced_into=getattr(fut, "leader_trace_id", None), flight=getattr(fut, "flight_id", None))
+        t_wait = time.perf_counter()
+        deadline = None if req.deadline is None else min(req.deadline, t0 + self.cfg.request_timeout_s)
+        try:
+            resp = await Singleflight.wait(fut, deadline)
+        except errors.DeconvError as e:
+            if isinstance(e, errors.DeadlineExpired):
+                self.metrics.inc_counter("deadline_expired_total")
+            metrics.observe_request(time.perf_counter() - t0, e.code)
+            err = _error_response(e, req.id)
+            err.headers["x-cache"] = "coalesced"
+            return err
+        finally:
+            if tr is not None:
+                tr.add_span("coalesce_wait", t_wait, time.perf_counter() - t_wait,
+                            leader=getattr(fut, "leader_trace_id", None))
+        metrics.observe_request(time.perf_counter() - t0, errors.code_from_body(resp.body) if resp.status >= 400 else None)
+        # the leader's headers may already carry the leader's id
+        return Response(status=resp.status, body=resp.body,
+                        headers={**resp.headers, "x-cache": "coalesced", "x-request-id": req.id})
 
     async def _health(self, _req: Request) -> Response:
         return Response.json({"healthy": "true"})
@@ -946,15 +1255,163 @@ class DeconvService:
         body = {"ready": ok, "checks": checks}
         if len(self.weights.served) > 1:
             body["models"] = self.weights.ready_block()
+        # informational blocks: a burning SLO, a firing alert or a
+        # degraded best-effort disk tier must not pull the server from
+        # rotation (that turns a latency incident into an outage)
+        if self.slos:
+            body["slo"] = {t.name: {**t.snapshot(), "ok": t.burn_rates()["5m"] <= 1.0} for t in self.slos}
+        if self.alert_engine is not None:
+            snap = self.alert_engine.snapshot()
+            body["alerts"] = {"firing": self.alert_engine.firing(), "pending": snap["pending"],
+                              "eval_errors": snap["eval_errors_total"]}
+        surfaces = {}
+        if self.l2 is not None:
+            surfaces["cache.l2"] = self.l2.surface.snapshot()
+        if self.incidents is not None:
+            surfaces["alerts.incidents"] = self.incidents.surface.snapshot()
+        if surfaces:
+            body["durability"] = {"ok": not any(v["degraded"] for v in surfaces.values()), "surfaces": surfaces}
         return body, 200 if ok else 503
 
     def metrics_text(self) -> str:
         """``GET /metrics``: the deconv, dream and sweep streams'
-        expositions and the request traces' span totals."""
+        expositions, the request traces' span totals, the SLOs' totals and
+        burn rates and the alert rules' states."""
         text = self.metrics.prometheus() + self.dream_metrics.prometheus() + self.sweep_metrics.prometheus()
         if self.recorder is not None:
             text += self.recorder.prometheus("deconv")
+        text += slo_prometheus(self.slos, "deconv")
+        if self.alert_engine is not None:
+            text += self.alert_engine.prometheus("deconv")
         return text
+
+    # --- metric history and alerting ---------------------------------------
+
+    def _tsdb_samples(self) -> dict:
+        """One scrape tick's samples: the main registry flattened, plus
+        the SLO burn rates as gauges (so threshold rules range over them)."""
+        samples = tsdb_mod.flatten_snapshot(self.metrics.snapshot())
+        for t in self.slos:
+            for window, rate in t.burn_rates().items():
+                samples[("slo_burn_rate", f"slo={t.name},window={window}")] = (tsdb_mod.KIND_GAUGE, rate)
+        return samples
+
+    def _incident_bundle(self, ctx: dict) -> dict:
+        """What an incident freezes at fire time: the rule and its query
+        window, the flight recorder's slow and error rings, the config."""
+        rule = ctx.get("rule") or {}
+        bundle = dict(ctx)
+        if rule.get("kind") == "threshold":
+            bundle["window"] = self.tsdb.query(rule.get("family", ""), rule.get("label") or None,
+                                               range_s=rule.get("range_s", 60.0))
+        else:
+            bundle["window"] = self.tsdb.query("requests_total", None, range_s=120.0)
+        if self.recorder is not None:
+            bundle["slow"] = self.recorder.query(slow=True, limit=16)
+            bundle["errors"] = self.recorder.query(error=True, limit=16)
+        cfg = dataclasses.asdict(self.cfg)
+        cfg["incidents_dir"] = bool(cfg["incidents_dir"])
+        bundle["config"] = cfg
+        if self.alert_engine is not None:
+            bundle["alerts"] = self.alert_engine.snapshot()
+        return bundle
+
+    def _tsdb_tick(self) -> None:
+        """One scrape tick: ingest, evaluate the rules, record an incident
+        for each rule that began firing (tests call it under a fake clock)."""
+        self.tsdb.ingest(self._tsdb_samples())
+        if self.alert_engine is None:
+            return
+        for ctx in self.alert_engine.evaluate():
+            if self.incidents is None:
+                continue
+            rule_name = (ctx.get("rule") or {}).get("name", "rule")
+            if self.incidents.record(rule_name, self._incident_bundle(ctx)) is not None:
+                self.metrics.inc_counter("incidents_recorded_total")
+            else:
+                self.metrics.inc_counter("incident_write_errors_total")
+                slog.event(slog.get_logger("deconv.app"), "incident_write_failed", level=logging.ERROR,
+                           rule=rule_name)
+
+    async def _tsdb_loop(self) -> None:
+        """The self-scrape task on the event loop: a tick every
+        ``tsdb_interval_s``, an incident sweep every minute; a failing
+        tick is counted and logged, never fatal.  Its own cost accrues in
+        ``scrape_seconds_total``."""
+        interval = self.cfg.tsdb_interval_s
+        sweep_every = max(1, int(60.0 / interval))
+        tick = 0
+        while True:
+            await asyncio.sleep(interval)
+            t0 = time.perf_counter()
+            try:
+                self._tsdb_tick()
+                tick += 1
+                if self.incidents is not None and tick % sweep_every == 0:
+                    self.incidents.sweep()
+            except Exception as e:  # noqa: BLE001 — the tick must not die
+                self.metrics.inc_counter("tsdb_tick_errors_total")
+                slog.event(slog.get_logger("deconv.app"), "tsdb_tick_error", level=logging.ERROR,
+                           error=f"{type(e).__name__}: {e}")
+            self.tsdb.scrapes_total += 1
+            self.tsdb.scrape_seconds_total += time.perf_counter() - t0
+
+    async def _metrics_history(self, req: Request) -> Response:
+        """``GET /v1/metrics/history``: with no ``family`` the catalog and
+        the rings' stats; with one, its series over the trailing
+        ``range_s`` (default 60) at ``step_s`` resolution, nested under
+        ``series[].points``."""
+        q = req.query
+        family = q.get("family", "")
+        if not family:
+            return Response.json({"families": self.tsdb.families(), "stats": self.tsdb.stats()})
+        try:
+            range_s = float(q.get("range_s", "60"))
+            step_s = float(q["step_s"]) if q.get("step_s") else None
+        except ValueError:
+            return _error_response(errors.BadRequest("range_s/step_s must be numeric"), req.id)
+        if range_s <= 0 or (step_s is not None and step_s <= 0):
+            return _error_response(errors.BadRequest("range_s/step_s must be > 0"), req.id)
+        series = self.tsdb.query(family, q.get("label"), range_s=range_s, step_s=step_s)
+        return Response.json({"family": family, "range_s": range_s, "series": series})
+
+    async def _alerts(self, _req: Request) -> Response:
+        """``GET /v1/alerts``: the rules' states and lifecycle counters."""
+        if self.alert_engine is None:
+            return Response.json({"rules": [], "firing": 0, "pending": 0, "evals_total": 0,
+                                  "eval_errors_total": 0})
+        return Response.json(self.alert_engine.snapshot())
+
+    async def _debug_incidents(self, req: Request) -> Response:
+        """``GET /v1/debug/incidents``: the bundle list, or with ``?id=``
+        one digest-verified bundle."""
+        inc_id = req.query.get("id", "")
+        if inc_id:
+            doc = self.incidents.load(inc_id)
+            if doc is None:
+                return _error_response(errors.BadRequest(f"unknown incident {inc_id!r}"), req.id)
+            return Response.json(doc)
+        return Response.json({"incidents": self.incidents.list(), "writes_total": self.incidents.writes_total,
+                              "corrupt_total": self.incidents.corrupt_total,
+                              "swept_total": self.incidents.swept_total})
+
+    async def _debug_faults(self, req: Request) -> Response:
+        """``POST /v1/debug/faults`` (routed only with fault injection
+        on): ``arm`` = "site=spec,..." (the ``--fault`` grammar),
+        ``disarm`` = "all" or one site; answers the registry's snapshot."""
+        try:
+            form = _parse_form(req) if req.body else {}
+        except errors.DeconvError as e:
+            return _error_response(e, req.id)
+        try:
+            disarm = form.get("disarm", "")
+            if disarm:
+                self.faults.disarm(None if disarm == "all" else disarm)
+            if form.get("arm"):
+                self.faults.arm_string(form["arm"])
+        except ValueError as e:
+            return _error_response(errors.BadRequest(str(e)), req.id)
+        return Response.json({"faults": self.faults.snapshot()})
 
     def config(self) -> dict:
         """``GET /v1/config``: the effective configuration, the default
@@ -973,6 +1430,25 @@ class DeconvService:
             }
         cfg["lowc_kpack_chan"] = resolve_kpack_chan(self.cfg.lowc_kpack) if self.bundle.spec is not None else 0
         cfg["trace_active"] = self.recorder is not None  # counts: /v1/debug/requests
+        cfg["cache_active"] = self.cache is not None
+        cfg["singleflight_active"] = self.flights is not None
+        # the specs stay unleaked (an alerts spec may be a path)
+        cfg["slos"] = bool(cfg["slos"])
+        if self.slos:
+            cfg["slo_state"] = {t.name: t.snapshot() for t in self.slos}
+        cfg["alerts"] = bool(cfg["alerts"])
+        cfg["incidents_dir"] = bool(cfg["incidents_dir"])
+        cfg["tsdb_active"] = self.tsdb is not None
+        if self.tsdb is not None:
+            cfg["tsdb_state"] = self.tsdb.stats()
+        if self.alert_engine is not None:
+            snap = self.alert_engine.snapshot()
+            cfg["alerts_state"] = {"rules": len(snap["rules"]), "firing": snap["firing"],
+                                   "pending": snap["pending"], "eval_errors_total": snap["eval_errors_total"]}
+        if self.incidents is not None:
+            cfg["incidents_state"] = {"writes_total": self.incidents.writes_total,
+                                      "corrupt_total": self.incidents.corrupt_total,
+                                      "swept_total": self.incidents.swept_total}
         cfg["breaker_active"] = self.cfg.breaker_threshold > 0
         if cfg["breaker_active"]:
             cfg["breaker_state"] = self.lane_pool.state_name()

@@ -82,6 +82,11 @@ class Request:
     # which attempt of a retried/hedged request it served.  None for
     # direct traffic or a malformed header — never an error.
     hop: tuple[int, str] | None = None
+    # Resolved per-request model: the validated ``model=`` form field /
+    # ``x-model`` header, or the server default.  Memoized by
+    # DeconvService.resolve_request_model so the cache wrap, the route
+    # handler and the trace agree on ONE resolution.  Empty = not yet.
+    model: str = ""
     # memoized form() result: one parse per request.  None = not parsed yet.
     _form: dict[str, str] | None = field(default=None, repr=False, compare=False)
 

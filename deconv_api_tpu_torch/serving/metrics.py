@@ -1,5 +1,6 @@
 """Request/batch metrics with a Prometheus-style text exposition (a copy of
-``escape_label``, ``_Reservoir`` and ``Metrics`` of
+``escape_label``, ``_Reservoir``, ``Metrics`` and the latency SLOs
+(``SloTracker``, ``parse_slos``, ``slo_prometheus``, ``SLO_WINDOWS``) of
 ``deconv_api_tpu/serving/metrics.py``, with the same family names and
 exposition text).
 
@@ -14,8 +15,10 @@ from __future__ import annotations
 
 import bisect
 import collections
+import re
 import threading
 import time
+from typing import Callable
 
 # Fixed latency-histogram bucket bounds in SECONDS: quantile reservoirs
 # cannot be aggregated across processes, fixed buckets add up.  The +Inf
@@ -399,3 +402,218 @@ class Metrics:
             lines.append(f"# TYPE {p}_{name} gauge")
             lines.append(f"{p}_{name} {v:g}")
         return "\n".join(lines) + "\n"
+
+
+# ----------------------------------------------------------------- SLOs
+
+# Burn-rate windows: the classic fast/slow multiwindow pair.
+# The 5m window catches a sharp regression within minutes; the 1h
+# window catches a slow bleed that never trips the fast alarm.  A burn
+# rate of 1.0 means the error budget is being spent exactly at the rate
+# that exhausts it over the SLO period; >1 is overspend.
+SLO_WINDOWS: dict[str, float] = {"5m": 300.0, "1h": 3600.0}
+
+# Route-agnostic marker: an SLO with no route constraint.
+_SLO_ANY_ROUTE = ""
+
+
+class SloTracker:
+    """One latency SLO: ``objective_pct`` of requests must finish under
+    ``threshold_ms`` (5xx responses count as breaches regardless of
+    latency — a fast 500 is not "within objective").
+
+    Burn rates come from time-bucketed good/bad counters (10 s buckets,
+    pruned past the longest window) under an injectable clock, so the
+    math is deterministic in tests: over a window,
+
+        burn = (bad / total) / (1 - objective)
+
+    i.e. the observed error rate as a multiple of the rate that spends
+    the error budget exactly.  An empty window reports 0.0 — no
+    traffic, no burn.  Single-consumer: the serving
+    event loop feeds and reads it; cumulative totals are plain ints."""
+
+    def __init__(
+        self,
+        name: str,
+        threshold_ms: float,
+        objective_pct: float,
+        route: str = _SLO_ANY_ROUTE,
+        *,
+        clock: Callable[[], float] = time.monotonic,
+        bucket_s: float = 10.0,
+    ):
+        if not 0 < objective_pct < 100:
+            raise ValueError(
+                f"slo {name!r}: objective_pct must be in (0, 100), "
+                f"got {objective_pct!r}"
+            )
+        if threshold_ms <= 0:
+            raise ValueError(
+                f"slo {name!r}: threshold_ms must be positive, "
+                f"got {threshold_ms!r}"
+            )
+        self.name = name
+        self.threshold_ms = float(threshold_ms)
+        self.objective_pct = float(objective_pct)
+        self.route = route
+        self._budget = 1.0 - self.objective_pct / 100.0
+        self._clock = clock
+        self._bucket_s = float(bucket_s)
+        # (bucket ordinal, total, bad), append-only at the right edge
+        self._buckets: collections.deque[list] = collections.deque()
+        self.requests_total = 0
+        self.breaches_total = 0
+
+    def matches(self, route: str) -> bool:
+        return self.route == _SLO_ANY_ROUTE or self.route == route
+
+    def observe(self, latency_s: float, status: int) -> None:
+        bad = status >= 500 or latency_s * 1e3 > self.threshold_ms
+        self.requests_total += 1
+        if bad:
+            self.breaches_total += 1
+        ordinal = int(self._clock() / self._bucket_s)
+        if self._buckets and self._buckets[-1][0] == ordinal:
+            b = self._buckets[-1]
+        else:
+            self._buckets.append([ordinal, 0, 0])
+            b = self._buckets[-1]
+            self._prune(ordinal)
+        b[1] += 1
+        if bad:
+            b[2] += 1
+
+    def _prune(self, now_ordinal: int) -> None:
+        horizon = max(SLO_WINDOWS.values()) / self._bucket_s
+        while self._buckets and self._buckets[0][0] < now_ordinal - horizon:
+            self._buckets.popleft()
+
+    def _window_counts(self, window_s: float) -> tuple[int, int]:
+        now_ordinal = int(self._clock() / self._bucket_s)
+        cut = now_ordinal - window_s / self._bucket_s
+        total = bad = 0
+        for ordinal, t, b in reversed(self._buckets):
+            if ordinal <= cut:
+                break
+            total += t
+            bad += b
+        return total, bad
+
+    def burn_rates(self) -> dict[str, float]:
+        out: dict[str, float] = {}
+        for name, window_s in SLO_WINDOWS.items():
+            total, bad = self._window_counts(window_s)
+            out[name] = (
+                round((bad / total) / self._budget, 4) if total else 0.0
+            )
+        return out
+
+    def snapshot(self) -> dict:
+        return {
+            "threshold_ms": self.threshold_ms,
+            "objective_pct": self.objective_pct,
+            "route": self.route or "*",
+            "requests_total": self.requests_total,
+            "breaches_total": self.breaches_total,
+            "burn": self.burn_rates(),
+        }
+
+
+def parse_slos(
+    spec: str,
+    clock: Callable[[], float] = time.monotonic,
+    observable_routes: "frozenset[str] | None" = None,
+) -> list[SloTracker]:
+    """Parse the ``slos`` config knob: comma-separated
+    ``name=<threshold_ms>:<objective_pct>[:<route>]`` entries, e.g.
+    ``api=250:99,deconv=100:99.9:/v1/deconv``.  A route-qualified SLO
+    observes only that route family; unqualified ones observe every
+    request on the surface.  Raises ValueError on any malformed entry —
+    validated at boot, never silently dropped.  ``observable_routes``
+    (when the caller knows its observation vocabulary) extends that
+    promise to route scopes: an SLO pinned to a route the surface never
+    observes would burn 0.0 forever while the route breaches — a typo'd
+    route is a boot error, not a dead objective."""
+    trackers: list[SloTracker] = []
+    seen: set[str] = set()
+    for entry in (e.strip() for e in spec.split(",") if e.strip()):
+        name, sep, rest = entry.partition("=")
+        name = name.strip()
+        if not sep or not re.fullmatch(r"[A-Za-z0-9_\-]{1,64}", name):
+            raise ValueError(
+                f"slo entry {entry!r}: expected "
+                "name=<threshold_ms>:<objective_pct>[:<route>]"
+            )
+        if name in seen:
+            raise ValueError(f"duplicate slo name {name!r}")
+        seen.add(name)
+        parts = rest.split(":", 2)
+        if len(parts) < 2:
+            raise ValueError(
+                f"slo {name!r}: expected <threshold_ms>:<objective_pct>"
+            )
+        try:
+            threshold_ms = float(parts[0])
+            objective_pct = float(parts[1])
+        except ValueError:
+            raise ValueError(
+                f"slo {name!r}: threshold/objective must be numeric, "
+                f"got {rest!r}"
+            ) from None
+        route = parts[2].strip() if len(parts) == 3 else _SLO_ANY_ROUTE
+        if route and not route.startswith("/"):
+            raise ValueError(
+                f"slo {name!r}: route must start with '/', got {route!r}"
+            )
+        if route and observable_routes is not None and (
+            route not in observable_routes
+        ):
+            raise ValueError(
+                f"slo {name!r}: route {route!r} is never observed on "
+                f"this surface (observable: "
+                f"{', '.join(sorted(observable_routes))})"
+            )
+        trackers.append(
+            SloTracker(name, threshold_ms, objective_pct, route, clock=clock)
+        )
+    return trackers
+
+
+def slo_prometheus(trackers: list[SloTracker], prefix: str) -> str:
+    """Exposition block for a set of SLO trackers: monotone
+    good/breach totals plus the multi-window burn-rate gauges — lints
+    clean next to any registry's output.  Empty list renders nothing."""
+    if not trackers:
+        return ""
+    p = prefix
+    lines = [
+        f"# HELP {p}_slo_requests_total requests observed per SLO",
+        f"# TYPE {p}_slo_requests_total counter",
+    ]
+    for t in trackers:
+        lines.append(
+            f'{p}_slo_requests_total{{slo="{escape_label(t.name)}"}} '
+            f"{t.requests_total}"
+        )
+    lines.append(
+        f"# HELP {p}_slo_breaches_total requests over threshold or 5xx"
+    )
+    lines.append(f"# TYPE {p}_slo_breaches_total counter")
+    for t in trackers:
+        lines.append(
+            f'{p}_slo_breaches_total{{slo="{escape_label(t.name)}"}} '
+            f"{t.breaches_total}"
+        )
+    lines.append(
+        f"# HELP {p}_slo_burn_rate error-budget spend rate per window "
+        "(1.0 = spending exactly the budget)"
+    )
+    lines.append(f"# TYPE {p}_slo_burn_rate gauge")
+    for t in trackers:
+        for window, rate in sorted(t.burn_rates().items()):
+            lines.append(
+                f'{p}_slo_burn_rate{{slo="{escape_label(t.name)}",'
+                f'window="{window}"}} {rate:g}'
+            )
+    return "\n".join(lines) + "\n"

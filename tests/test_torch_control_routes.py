@@ -109,7 +109,10 @@ def servers(mix_params):
     jcfg = JServerConfig(image_size=0, max_batch=4, batch_window_ms=1.0, compilation_cache_dir="", model="mixa",
                          serve_models="mixa,mixb", serve_lanes="off", warmup_all_buckets=False, cache_bytes=0,
                          singleflight=False)
-    port = _Served(DeconvService(cfg=_mix_cfg(), registry=_port_registry(mix_params)))
+    # both without the response cache and singleflight: the requests
+    # below reach the dispatchers on both
+    port = _Served(DeconvService(cfg=_mix_cfg(cache_bytes=0, singleflight=False),
+                                 registry=_port_registry(mix_params)))
     try:
         with ServiceFixture(None, service=JDeconvService(jcfg, registry=jreg)) as jax_served:
             yield port, jax_served

@@ -793,3 +793,75 @@ def test_the_dispatch_step_makes_no_host_sync(dev, deterministic_cudnn):
             for k in want["block3_conv1"]:
                 np.testing.assert_array_equal(got["block3_conv1"][k], want["block3_conv1"][k], err_msg=name)
     service.close()
+
+
+# --- the response cache in front of the card (serving/cache.py) ----------------
+
+
+def test_a_hit_and_a_coalesced_waiter_do_no_device_work(dev):
+    """On a VGG16 server with captured graphs: a cache hit and the waiters
+    of a coalesced flight leave the graph replays and the K1/K2 launch
+    counters where the misses left them (the leader's one row is the only
+    device work of a flight), and answer byte for byte as the miss."""
+    import base64
+    import concurrent.futures
+    import threading
+    import time
+    import urllib.parse
+    import urllib.request
+
+    import cv2
+    import numpy as np
+
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
+
+    def body(seed):
+        img = (np.random.default_rng(seed).random((224, 224, 3)) * 255).astype(np.uint8)
+        uri = "data:image/png;base64," + base64.b64encode(cv2.imencode(".png", img)[1].tobytes()).decode()
+        return urllib.parse.urlencode({"file": uri, "layer": "block5_conv1"}).encode()
+
+    def post(data):
+        with urllib.request.urlopen(urllib.request.Request(url, data=data), timeout=120) as r:
+            return r.headers["x-cache"], r.read()
+
+    def counts():
+        return ops.graph_counts["replays"], ops.launch_counts()["pool_argmax"], ops.launch_counts()["unpool_argmax"]
+
+    service = DeconvService(cfg=ServerConfig(model="vgg16", max_batch=2, dream_max_batch=1), device=dev)
+    service.start()
+    service.warmup()
+    server = DeconvHTTPServer(service, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}/"
+    runner = service.dispatcher._dispatch_runner
+    gate = threading.Event()
+    gate.set()
+    service.dispatcher._dispatch_runner = lambda key, images: (gate.wait(60), runner(key, images))[1]
+    try:
+        # warmup captured the deepest layer's programs: the first
+        # block5_conv1 request captures its bucket-1 graph
+        assert post(body(0))[0] == "miss"
+        before = counts()
+        miss = post(body(1))
+        after_miss = counts()
+        assert miss[0] == "miss" and np.subtract(after_miss, before).tolist() == [1, 4, 4]
+        assert post(body(1)) == ("hit", miss[1]) and counts() == after_miss
+        gate.clear()
+        coalesced = service.metrics.counter("cache_coalesced_total")
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            futs = [pool.submit(post, body(2)) for _ in range(4)]
+            t_end = time.perf_counter() + 60
+            while service.metrics.counter("cache_coalesced_total") < coalesced + 3:
+                assert time.perf_counter() < t_end
+                time.sleep(0.01)
+            assert counts() == after_miss  # the flight's row waits at the gate
+            gate.set()
+            answers = [f.result() for f in futs]
+        assert sorted(a[0] for a in answers) == ["coalesced"] * 3 + ["miss"]
+        assert len({a[1] for a in answers}) == 1
+        assert np.subtract(counts(), after_miss).tolist() == [1, 4, 4]  # the leader's row alone
+        assert service.batch_sizes[-1] == 1
+    finally:
+        gate.set()
+        server.server_close()
+        service.close()

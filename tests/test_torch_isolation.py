@@ -46,6 +46,7 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv\n"
         "from deconv_api_tpu_torch.utils import slog\n"
         "from deconv_api_tpu_torch.serving import batcher, codec_pool, faults, http, trace\n"
+        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
         "assert not bad, bad\n"
@@ -60,7 +61,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
 
 
 PIPELINE_MODULES = ("utils/slog.py", "serving/faults.py", "serving/trace.py", "serving/codec_pool.py",
-                    "serving/http.py", "serving/batcher.py")
+                    "serving/http.py", "serving/batcher.py", "serving/durable.py", "serving/cache.py",
+                    "serving/tsdb.py", "serving/alerts.py")
 
 
 def test_the_request_pipeline_modules_are_the_ports_own():

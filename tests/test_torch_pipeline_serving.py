@@ -78,8 +78,11 @@ class _Port:
 
 
 def _pair(params, **kw):
-    """(port, JAX) servers of model ``mixa`` with the same settings ``kw``."""
-    port = _Port(DeconvService(cfg=ServerConfig(model="mixa", max_batch=4, batch_window_ms=1.0, **kw),
+    """(port, JAX) servers of model ``mixa`` with the same settings ``kw``,
+    both without the response cache and singleflight, so that every
+    request reaches the dispatcher."""
+    port = _Port(DeconvService(cfg=ServerConfig(model="mixa", max_batch=4, batch_window_ms=1.0, cache_bytes=0,
+                                                singleflight=False, **kw),
                                registry=_port_registry(params, ["mixa"])))
     jcfg = JServerConfig(image_size=0, max_batch=4, batch_window_ms=1.0, compilation_cache_dir="", model="mixa",
                          serve_lanes="off", warmup_all_buckets=False, cache_bytes=0, singleflight=False, **kw)
