@@ -8,7 +8,7 @@ and prints no result.  It imports nothing of JAX or of the JAX package.
 Phases, each printing JSON lines:
 1. environment: torch, CUDA, nvcc, triton, the TF32 flags, the codec
    backend, and the card's name and power limit;
-2. build: the three kernels from ``deconv_api_tpu_torch/csrc``, one nvcc each,
+2. build: the four kernels from ``deconv_api_tpu_torch/csrc``, one nvcc each,
    all started together, with each instantiation's registers and spills;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' VGG16 shapes (``POST /``: batch 8, top-4; the grouped
@@ -17,7 +17,9 @@ Phases, each printing JSON lines:
    beside the plain version's, a library call's and the bound; for K1 and
    K2 also the time of one call with the L2 evicted before it, and each
    site's time, launch plan and share of its bound (for K3 its rate, the
-   port's unfused pair's time and the fp32 kernel's time);
+   port's unfused pair's time and the fp32 kernel's time); K5, the int8
+   conv, bit for bit at every conv of the int8 forward and at fc1, beside
+   ``torch._int_mm`` on the im2col'd operands where its rules allow;
 4. main path ``POST /``: ``serve`` with VGG16 at full width on a free port,
    8 concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one
    at fc1, then one batch repeated at the other ``fused_unpool`` setting
@@ -62,7 +64,7 @@ Phases, each printing JSON lines:
    and served from graphs captured anew (``phase_multi_model``);
 11. load (BASELINE.json config 5): 256 concurrent keep-alive clients in 4
    spawned processes post ``POST /`` (16 distinct 256x240 PNGs) to a VGG16
-   server at every default, block5_conv1, 2048 requests a run at
+   server at every default, block5_conv1, 1024 requests a run at
    ``pipeline_depth`` 1, 2, 2, 1; each run prints images/s, latency
    quantiles, the 503/504 counts, the batch-size histogram, the device's
    busy share (a profiled slice) and the host's CPU count, and every 200
@@ -70,7 +72,7 @@ Phases, each printing JSON lines:
    bucket; then one dispatch step each of the grid, tiles and dream
    programs under ``torch.cuda.set_sync_debug_mode("error")``, and the
    deadline, shed and breaker drills (``phase_load``); then one more turn
-   of 2048 on a server at every default (the response cache and
+   of 1024 on a server at every default (the response cache and
    singleflight on) with ``--slo api=3000:99 --tsdb on``: its cache
    counts, the ``request_duration_seconds`` history and the SLO's burn
    rate read back (``load_at_defaults``);
@@ -79,9 +81,15 @@ Phases, each printing JSON lines:
    no K1/K2 launch during the hits), 64 concurrent identical posts on one
    dispatched row, a ``no-cache`` recompute and a ``no-store`` one, a
    negative-cached 422 and an unknown model's 422 before any flight, and
-   the L2 tier across a restart (``phase_cache``).
-Phases 4-11 measure device work: their servers run with ``cache_bytes=0``
-and no singleflight (``CACHE_OFF``), and each prints ``server_cache``.
+   the L2 tier across a restart (``phase_cache``);
+13. quality: a VGG16 server with ``--tenants`` (two tenants, so QoS on):
+   ``quality=bogus`` a 422, the three tiers and a calibrated int8 server
+   on ``POST /`` (K5 11 times per int8 replay), the tiers' captured
+   programs timed, and a QoS turn of an interactive and a bulk tenant
+   (``phase_quality``).
+Phases 4-11 and 13 measure device work: their servers run with
+``cache_bytes=0`` and no singleflight (``CACHE_OFF``), and each prints
+``server_cache``.
 Every route serves through captured CUDA graphs, one per
 program and bucket (``engine/capture.py``): each server's warmup captures
 every bucket of both route defaults and of the default dream before
@@ -116,6 +124,13 @@ B, K = 8, 4  # batch and top-k of the main path (POST / serves the top 4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
+# (H, W, Cin, Cout) of each 3x3 SAME conv of the VGG16 forward up to
+# block5_conv1, the int8 tier's path; and fc1's (in, out)
+Q8_CONV_SITES = ((224, 224, 3, 64), (224, 224, 64, 64), (112, 112, 64, 128), (112, 112, 128, 128),
+                 (56, 56, 128, 256), (56, 56, 256, 256), (56, 56, 256, 256), (28, 28, 256, 512),
+                 (28, 28, 512, 512), (28, 28, 512, 512), (14, 14, 512, 512))
+Q8_DENSE_SITE = (25088, 4096)
 # (H, W, C) entering each forward pool of a block5_conv1 request
 POOL_SITES = ((224, 224, 64), (112, 112, 128), (56, 56, 256), (28, 28, 512))
 # (pooled ho, wo, Cout) -> Cin of the conv the fused kernel projects through
@@ -414,8 +429,9 @@ def phase_kernels(torch) -> dict:
         "tflops": flops / ms / 1e9, "bound_share": bound_s * 1e3 / ms, "fp32_ms": fp32_ms,
     }
     rows.update(grouped_kernels(torch, gen))
+    rows["conv_q8"] = q8_kernels(torch, gen)
     emit({"phase": "kernels", "checked": sorted(rows),
-          "exact": ["pool_argmax", "unpool_argmax", "unpool_argmax_grouped"], "per_kernel": rows})
+          "exact": ["pool_argmax", "unpool_argmax", "unpool_argmax_grouped", "conv_q8"], "per_kernel": rows})
     return rows
 
 
@@ -513,6 +529,92 @@ def grouped_kernels(torch, gen) -> dict:
         "tflops": k3["tflops"], "bound_share": k3["bound_share"],
     }
     return rows
+
+
+def im2col_q8(torch, x, kh: int, kw: int):
+    """int8 NHWC ``x`` -> its (N*H*W, kh*kw*C) im2col rows for a stride-1
+    SAME conv, in the HWIO reduction order: what ``torch._int_mm`` takes."""
+    import torch.nn.functional as F
+
+    n, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, kw // 2, kw // 2, kh // 2, kh // 2))
+    return torch.cat([xp[:, i:i + h, j:j + w, :] for i in range(kh) for j in range(kw)], dim=-1).reshape(
+        n * h * w, kh * kw * c)
+
+
+def q8_kernels(torch, gen) -> dict:
+    """K5 against its plain version (the contraction in float64), bit for
+    bit, at every conv of the int8 forward up to block5_conv1 and at fc1,
+    plus two strided geometries; its single-call time per site beside the
+    plain version's and, where ``torch._int_mm``'s shape rules allow (more
+    than 16 rows, a reduction and width in multiples of 8), that call's on
+    the im2col'd operands, the GEMM alone.  Bound: operations at the int8
+    tensor-core rate, or bytes where they take longer."""
+    from deconv_api_tpu_torch.ops import conv, cuda_q8, linear
+
+    dev = torch.device("cuda")
+
+    def rand_q8(shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    sites, lib_sites = [], 0
+    for h, w, cin, cout in Q8_CONV_SITES:
+        x, wq = rand_q8((B, h, w, cin)), rand_q8((3, 3, cin, cout))
+        got = cuda_q8.conv2d_q8(x, wq)
+        if not torch.equal(got, conv.conv2d_q8_plain(x, wq)):
+            raise AssertionError(f"conv_q8 differs from plain at {(B, h, w, cin, cout)}")
+        site = {"site": [B, h, w, cin, cout], "ms": time_ms(lambda: cuda_q8.conv2d_q8(x, wq)),
+                "plain_ms": time_ms(lambda: conv.conv2d_q8_plain(x, wq), reps=3, warmup=1),
+                "ops": 2 * B * h * w * 9 * cin * cout, "bytes": x.numel() + wq.numel() + got.numel() * 4}
+        if 9 * cin % 8 == 0 and cout % 8 == 0:
+            a, bm = im2col_q8(torch, x, 3, 3), wq.reshape(9 * cin, cout)
+            if not torch.equal(torch._int_mm(a, bm).reshape(got.shape), got):
+                raise AssertionError(f"torch._int_mm differs from conv_q8 at {(B, h, w, cin, cout)}")
+            site["library_ms"] = time_ms(lambda: torch._int_mm(a, bm))
+            lib_sites += 1
+            del a, bm
+        else:
+            site["library_ms"] = None  # a reduction of 27: _int_mm takes multiples of 8
+        sites.append(site)
+    din, dout = Q8_DENSE_SITE
+    x, wq = rand_q8((B, din)), rand_q8((din, dout))
+    got = cuda_q8.dense_q8(x, wq)
+    if not torch.equal(got, linear.dense_q8_plain(x, wq)):
+        raise AssertionError(f"dense_q8 differs from plain at {(B, din, dout)}")
+    dense = {"site": [B, din, dout], "ms": time_ms(lambda: cuda_q8.dense_q8(x, wq)),
+             "plain_ms": time_ms(lambda: linear.dense_q8_plain(x, wq), reps=3, warmup=1),
+             "library_ms": None,  # 8 rows: torch._int_mm takes more than 16
+             "ops": 2 * B * din * dout, "bytes": x.numel() + wq.numel() + got.numel() * 4}
+    del x, wq, got
+    # strided and VALID geometries and a ragged width (not on the path)
+    for (n, h, w, cin, cout), strides, padding in (((2, 15, 17, 16, 40), (2, 2), "SAME"),
+                                                   ((3, 9, 8, 5, 24), (1, 2), "VALID")):
+        x, wq = rand_q8((n, h, w, cin)), rand_q8((3, 3, cin, cout))
+        if not torch.equal(cuda_q8.conv2d_q8(x, wq, strides=strides, padding=padding),
+                           conv.conv2d_q8_plain(x, wq, strides=strides, padding=padding)):
+            raise AssertionError(f"conv_q8 differs from plain at {(n, h, w, cin, cout)} {strides} {padding}")
+    for site in sites + [dense]:
+        site["bound_ms"] = max(site["ops"] / INT8_OPS, site["bytes"] / HBM_BYTES_PER_S) * 1e3
+        site["bound_share"] = site["bound_ms"] / site["ms"]
+        site["tops"] = site["ops"] / site["ms"] / 1e9
+    emit({"phase": "kernels", "conv_q8_sites": sites, "dense_q8_site": dense})
+    ms = sum(s["ms"] for s in sites)
+    ops = sum(s["ops"] for s in sites)
+    nbytes = sum(s["bytes"] for s in sites)
+    bound_ms = sum(s["bound_ms"] for s in sites)
+    lib = [s for s in sites if s["library_ms"] is not None]
+    return {
+        "source": "deconv_api_tpu_torch/csrc/conv_q8.cu",
+        "replaces": "none (XLA's conv2d_q8, deconv_api_tpu/ops/conv.py:55, and dense_q8, ops/linear.py:27)",
+        "max_abs_err": 0.0, "ms": ms, "plain_ms": sum(s["plain_ms"] for s in sites), "bound_ms": bound_ms,
+        "bound_by": "operations" if ops / INT8_OPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+        # summed over the sites _int_mm takes; the kernel's time on the same sites beside it
+        "library_ms": sum(s["library_ms"] for s in lib),
+        "library": f"torch._int_mm on the im2col'd operands, the GEMM alone, {len(lib)} of {len(sites)} convs",
+        "ms_on_library_sites": sum(s["ms"] for s in lib),
+        "tops": ops / ms / 1e9, "bound_share": bound_ms / ms, "gmac_per_image": ops / 2 / B / 1e9,
+        "fc1_ms": dense["ms"], "fc1_plain_ms": dense["plain_ms"],
+    }
 
 
 def k3_site(site, plan, ms, lib_ms, unfused_ms, flops, nbytes, fp32_ms=None) -> dict:
@@ -1943,7 +2045,7 @@ LOAD_CLIENTS = 256  # concurrent keep-alive clients (BASELINE.json config 5)
 LOAD_PROCS = 4  # client processes, LOAD_CLIENTS / LOAD_PROCS threads each
 LOAD_IMAGES = 16  # distinct 256x240 PNGs
 LOAD_RUNS = (1, 2, 2, 1)  # pipeline_depth of each run, in turns
-LOAD_REQUESTS = 2048  # per run: 4096 at each depth over its two turns
+LOAD_REQUESTS = 1024  # per run: 2048 at each depth over its two turns
 OWN_PSNR_DB = 52.0  # an answer against its own image's reference
 OTHER_PSNR_DB = 30.0  # ... and against every other image's, at most
 SHED_BURST, SHED_TIMEOUT_S = 512, 15.0  # the shed drill's burst and request timeout
@@ -2752,6 +2854,232 @@ def phase_cache(torch, label: str) -> dict:
     return {"counts": out["launches"]}
 
 
+# --- phase 13 ------------------------------------------------------------------
+
+QUALITY_LAYER = "block5_conv1"
+# two tenants: an interactive one with no quota, a bulk one with a
+# device-time budget small enough to be hit under the turn's load
+QUALITY_TENANTS = ('{"inter": {"class": "interactive"}, '
+                   '"bulk1": {"class": "bulk", "rate_ms": 20, "burst_ms": 40}}')
+QOS_TURN_REQUESTS = 48  # per tenant, 8 threads each
+INT8_CONVS = 11  # the 3x3 convs of VGG16 up to block5_conv1: K5 launches per int8 replay
+
+
+def _concurrent_posts(port: int, forms: list, headers=None) -> list:
+    """``POST /`` of every form at once: (status, body, seconds) each."""
+    import concurrent.futures
+    import http.client
+
+    def one(form):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        try:
+            status, _, body, secs = _keep_alive_post(conn, form, headers)
+            return status, body, secs
+        finally:
+            conn.close()
+
+    with concurrent.futures.ThreadPoolExecutor(len(forms)) as pool:
+        return list(pool.map(one, forms))
+
+
+def phase_quality(torch, label: str) -> dict:
+    """Per-request ``quality`` and QoS on a VGG16 server at 224, cache off,
+    ``--tenants`` (so ``--qos``), block5_conv1.  The launch counts are
+    zeroed before the first request and read after the last.
+    1. ``quality=bogus`` answered 422 ``illegal_quality``; the 8 images at
+       ``quality=full``, ``bf16`` and ``int8`` (dynamic), 8 at once each:
+       every answer 200, K5 launched INT8_CONVS times per int8 replay (and
+       per warm-up run of a capture) and not at all by the others, each
+       int8 graph holding INT8_CONVS K5;
+       the bf16 and int8 grids' PSNR against the full grids, printed;
+    2. a calibration artifact that ``engine/quant.py:collect_ranges``
+       writes from the 8 images, and a second server of the same bundle on
+       its directory: its int8 answers, its key's digest, their PSNR;
+    3. the captured batch-8 grid programs of the four tiers timed in turns
+       (p50 and images/s, one profiled call each);
+    4. a QoS turn: an interactive and a bulk tenant, QOS_TURN_REQUESTS
+       each from 8 threads apiece at once: each class's served share and
+       429s; the bulk answers come from the int8 tier (their key carries
+       the int8 prefix, ``quant_int8_batches_total`` grows, each answer
+       nearer its image's int8 grid than its full one) and the interactive
+       ones from the full tier."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine import quant
+    from deconv_api_tpu_torch.engine.capture import WARMUP_RUNS
+    from deconv_api_tpu_torch.serving.cache import canonical_digest
+    from deconv_api_tpu_torch.serving.http import Request
+
+    torch.cuda.empty_cache()
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
+    server = build_server(["serve", "--port", "0", "--model", "vgg16", "--device", "cuda", "--max-batch", str(B),
+                           *CACHE_OFF_FLAGS, "--tenants", QUALITY_TENANTS])
+    service, bundle, port = server.service, server.service.bundle, server.server_address[1]
+    out = {"phase": "quality", "card": label, "model": bundle.name, "layer": QUALITY_LAYER,
+           "server_cache": cache_state(service), "qos": service.qos is not None,
+           "boot_s": time.perf_counter() - t0, "warmup": warmup_report(torch, service, reserved0)}
+    failed = []
+    uris = image_uris(B)
+    forms = [{"file": u, "layer": QUALITY_LAYER} for u in uris]
+    total = collections.Counter()
+    calib_dir = None
+
+    def counted(fn):
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {**ops.launch_counts(), **ops.graph_counts}
+        total.update(got)
+        return result, got
+
+    def k5_launches(counts) -> int:
+        """K5 launches an int8 window should show: INT8_CONVS per replay,
+        and per capture its warm-up runs (eager, ``engine/capture.py``)."""
+        return INT8_CONVS * (counts["replays"] + WARMUP_RUNS * counts["captures"])
+
+    def psnrs(answers, refs) -> list:
+        return [_psnr(_decode_jpeg_url(json.loads(a[1])), _decode_jpeg_url(json.loads(r[1])))
+                for a, r in zip(answers, refs)]
+
+    try:
+        bogus, _ = counted(lambda: _concurrent_posts(port, [{**forms[0], "quality": "bogus"}]))
+        code = json.loads(bogus[0][1]).get("error")
+        out["bogus"] = [bogus[0][0], code]
+        if out["bogus"] != [422, "illegal_quality"]:
+            failed.append(f"quality=bogus: {out['bogus']}")
+        tiers, answers = {}, {}
+        for tier in ("full", "bf16", "int8"):
+            int8_before = service.metrics.counter("quant_int8_batches_total")
+            answers[tier], counts = counted(lambda: _concurrent_posts(port, [{**f, "quality": tier} for f in forms]))
+            k5 = counts["conv_q8"]
+            tiers[tier] = {"statuses": sorted({a[0] for a in answers[tier]}), "replays": counts["replays"],
+                           "captures": counts["captures"], "conv_q8": k5, "pool_argmax": counts["pool_argmax"],
+                           "int8_batches": service.metrics.counter("quant_int8_batches_total") - int8_before,
+                           "p50_s": statistics.median(a[2] for a in answers[tier])}
+            want_k5 = k5_launches(counts) if tier == "int8" else 0
+            if tiers[tier]["statuses"] != [200] or not counts["replays"] or k5 != want_k5:
+                failed.append(f"quality={tier}: {tiers[tier]}")
+        for tier in ("bf16", "int8"):
+            tiers[tier]["psnr_vs_full_db"] = psnrs(answers[tier], answers["full"])
+        # a dynamic int8 program's key: ("deconv", the float key's ten
+        # fields, "dynamic", bucket, shape)
+        int8_graphs = [p.kernels.get("conv_q8", 0) for k, p in bundle.programs.programs().items()
+                       if len(k) == 14 and k[11] == "dynamic"]
+        tiers["int8"]["k5_per_graph"] = int8_graphs
+        if not int8_graphs or set(int8_graphs) != {INT8_CONVS}:
+            failed.append(f"int8 graphs hold {int8_graphs} K5, expected {INT8_CONVS} each")
+        out["tiers"] = tiers
+
+        # the calibrated int8 tier: an artifact from the 8 images
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        calib_dir = tempfile.mkdtemp(prefix="calib-", dir=os.path.join(ROOT, "build"))
+        images = [service.decode_preprocess(u) for u in uris]
+        t_cal = time.perf_counter()
+        ranges = quant.collect_ranges(bundle.spec, bundle.params, images, layer=QUALITY_LAYER)
+        _, digest = quant.save_calibration(calib_dir, bundle.name, ranges, image_size=bundle.image_size,
+                                           n_images=len(images),
+                                           source="chip_smoke image_uris")
+        calibrated = _second_server(torch, bundle, calibration_dir=calib_dir)
+        try:
+            cal_port = calibrated.server_address[1]
+            cal_answers, counts = counted(lambda: _concurrent_posts(cal_port, [{**f, "quality": "int8"}
+                                                                               for f in forms]))
+            body = urllib.parse.urlencode({**forms[0], "quality": "int8"}).encode()
+            key = calibrated.service._request_key(
+                Request("POST", "/", {}, {"content-type": "application/x-www-form-urlencoded"}, body), "/")
+            want_key = canonical_digest(f"{calibrated.service._model_prefix(bundle.name)}|/|q=int8:{digest}",
+                                        "application/x-www-form-urlencoded", body, exclude=("model", "quality"))
+            cal = {"collect_s": time.perf_counter() - t_cal, "entries": len(ranges), "digest": digest,
+                   "statuses": sorted({a[0] for a in cal_answers}), "replays": counts["replays"],
+                   "captures": counts["captures"], "conv_q8": counts["conv_q8"],
+                   "k5_expected": k5_launches(counts), "key_carries_digest": key == want_key,
+                   "config_calibration": calibrated.service.config()["quality"]["calibration"],
+                   "psnr_vs_full_db": psnrs(cal_answers, answers["full"]),
+                   "psnr_vs_dynamic_int8_db": psnrs(cal_answers, answers["int8"])}
+        finally:
+            _stop(calibrated)
+        out["calibrated"] = cal
+        if (cal["statuses"] != [200] or not cal["key_carries_digest"] or not cal["replays"]
+                or cal["conv_q8"] != cal["k5_expected"] or cal["config_calibration"] != {bundle.name: digest}):
+            failed.append(f"calibrated int8: {cal}")
+
+        # the captured batch-8 programs of each tier, timed in turns
+        batch = torch.from_numpy(np.stack(images)).to(bundle.device)
+        settings = {"full": {}, "bf16": {"dtype": torch.bfloat16}, "int8": {"quant": "dynamic"},
+                    "int8_calibrated": {"quant": quant.quant_spec(ranges)}}
+        runs = {name: captured_run(bundle, batch, QUALITY_LAYER, K, "grid", **kw)[0] for name, kw in settings.items()}
+        times = {}
+        for turn, order in enumerate((list(runs), list(runs)[::-1])):
+            for name in order:
+                times.setdefault(name, []).append(_timed(torch, runs[name], reps=20, profiled=turn == 0))
+        out["captured"] = {name: {"p50_ms": [t["p50_ms"] for t in ts], "images_per_s": [t["images_per_s"] for t in ts],
+                                  "profile": ts[0].get("profile")} for name, ts in times.items()}
+
+        # the QoS turn: an interactive and a bulk tenant at once
+        shares = {"inter": [], "bulk1": []}
+        int8_before = service.metrics.counter("quant_int8_batches_total")
+
+        def tenant_turn(tenant):
+            def one(i):
+                return _concurrent_posts(port, [forms[i % B]], {"x-tenant": tenant})[0] + (i % B,)
+
+            with concurrent.futures.ThreadPoolExecutor(8) as pool:
+                shares[tenant] = list(pool.map(one, range(QOS_TURN_REQUESTS)))
+
+        def turn():
+            threads = [threading.Thread(target=tenant_turn, args=(t,)) for t in shares]
+            t_turn = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(600)
+            return time.perf_counter() - t_turn
+
+        wall, counts = counted(turn)
+        served = {t: [a for a in shares[t] if a[0] == 200] for t in shares}
+        n_served = sum(len(v) for v in served.values())
+        near = {t: sum(_psnr(_decode_jpeg_url(json.loads(a[1])), _decode_jpeg_url(json.loads(answers["int8"][a[3]][1])))
+                       > _psnr(_decode_jpeg_url(json.loads(a[1])), _decode_jpeg_url(json.loads(answers["full"][a[3]][1])))
+                       for a in served[t]) for t in served}
+        bulk_req = Request("POST", "/", {}, {"content-type": "application/x-www-form-urlencoded", "x-tenant": "bulk1"},
+                           urllib.parse.urlencode(forms[0]).encode())
+        bulk_req.tclass = service.qos.class_of(service.qos.tenant_of(bulk_req.headers))  # as the QoS wrap stamps it
+        bulk_key = service._request_key(bulk_req, "/")
+        want_bulk_key = canonical_digest(f"{service._model_prefix(bundle.name)}|/|q=int8:dynamic",
+                                         "application/x-www-form-urlencoded", bulk_req.body,
+                                         exclude=("model", "quality"))
+        out["qos_turn"] = {
+            "wall_s": wall, "requests": {t: len(v) for t, v in shares.items()},
+            "served_share": {service.qos.class_of(t): len(v) / max(1, n_served) for t, v in served.items()},
+            "429": {t: sum(a[0] == 429 for a in v) for t, v in shares.items()},
+            "other_statuses": sorted({a[0] for v in shares.values() for a in v} - {200, 429}),
+            "nearer_int8_than_full": near, "int8_batches": service.metrics.counter("quant_int8_batches_total") - int8_before,
+            "bulk_key_has_int8_prefix": bulk_key == want_bulk_key, "replays": counts["replays"],
+            "captures": counts["captures"], "conv_q8": counts["conv_q8"], "p50_s": {t: statistics.median(a[2] for a in v) if v else None
+                                                    for t, v in served.items()},
+            "tenants": service.qos.snapshot()["tenants"],
+        }
+        qt = out["qos_turn"]
+        if (qt["other_statuses"] or not served["inter"] or not served["bulk1"] or not qt["int8_batches"]
+                or not qt["bulk_key_has_int8_prefix"] or near["bulk1"] != len(served["bulk1"]) or near["inter"]):
+            failed.append(f"QoS turn: {qt}")
+    finally:
+        _stop(server)
+        if calib_dir is not None:
+            shutil.rmtree(calib_dir, ignore_errors=True)
+    out["launches"] = dict(total)
+    emit(out)
+    if failed:
+        raise AssertionError("quality: " + "; ".join(failed))
+    return {"counts": {k: v for k, v in total.items() if k in ops.launch_counts()}}
+
+
 def _request_raw(port: int, form: dict):
     """``_keep_alive_post`` on a connection of its own."""
     import http.client
@@ -2803,6 +3131,7 @@ def main() -> int:
     multi = timed("multi_model", phase_multi_model, torch, ctx["uris"], env["nvidia_smi"])
     load = timed("load", phase_load, torch, env["nvidia_smi"])
     cache = timed("cache", phase_cache, torch, env["nvidia_smi"])
+    quality = timed("quality", phase_quality, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
@@ -2810,7 +3139,8 @@ def main() -> int:
                "multi_model POST / and /v1/dream": multi["counts"],
                "multi_model vgg16 POST / (graphs captured after its page-out)": multi["vgg16_counts"],
                "load POST /": load["counts"], "load POST / (server defaults: cache on)": load["defaults_counts"],
-               "cache POST / (misses, hits at 0, one coalesced row, two recomputes)": cache["counts"]}
+               "cache POST / (misses, hits at 0, one coalesced row, two recomputes)": cache["counts"],
+               "quality POST / (full, bf16, int8, calibrated int8, the QoS turn)": quality["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

@@ -5,18 +5,22 @@ cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]
 [--weight-dtype f32|bf16|int8] [--pipeline-depth 2] [--request-timeout-s 60]
 [--fault SITE=SPEC] [--trace-ring 256] [--cache-bytes N] [--no-singleflight]
 [--l2-dir DIR] [--slo NAME=MS:PCT[:ROUTE],...] [--tsdb off|on] [--alerts
-JSON|PATH] ...``: serve the reference's ``POST /``, the
+JSON|PATH] [--qos] [--tenants JSON|PATH] [--quality-default full|bf16|int8]
+[--quality-by-class CLASS=TIER,...] [--calibration-dir DIR] ...``: serve
+the reference's ``POST /``, the
 JSON API ``POST /v1/deconv`` and DeepDream's ``POST /v1/dream`` (``file``,
 optional ``layers``, ``steps``, ``octaves``, ``lr``; dreams have a
 dispatcher of their own, up to 4 a batch), for ``--model`` and every model
 of ``--serve-models`` (a request names its model with ``model=`` or
-``x-model``), and the control routes ``/healthz``, ``/readyz``,
+``x-model``, and its precision tier with ``quality=`` or
+``x-quality``: full, bf16 or int8), and the control routes ``/healthz``, ``/readyz``,
 ``/metrics``, ``/v1/config``, ``/v1/models`` and ``/v1/debug/requests``.
 The request pipeline's fields of ``config.ServerConfig`` (timeouts,
 connection limits, shedding, pipeline depth, codec pool, tracing, faults
 and the breaker) and the response cache's, the SLOs', the metric
-history's and the alerts' each have a flag, spelled as the JAX package's
-CLI spells it (``--slo`` for ``slos``, ``--no-singleflight``), else
+history's, the alerts', the QoS policy's and the quality tiers' each
+have a flag, spelled as the JAX package's CLI spells it (``--slo`` for
+``slos``, ``--no-singleflight``, ``--tenants`` implying ``--qos``), else
 after the field."""
 
 from __future__ import annotations
@@ -73,6 +77,8 @@ _FIELD_FLAGS = {
     "tsdb_interval_s": "metric-history scrape interval in seconds",
     "incidents_dir": "directory for incident bundles (empty = none recorded)",
     "incidents_retention_s": "seconds incident bundles are kept",
+    "qos_weights": "DRR quantum weights per class, 'class=weight,...' (default interactive=8,standard=4,bulk=1)",
+    "qos_hit_cost_ms": "device-ms a response-cache hit debits from its tenant's bucket",
 }
 
 
@@ -129,6 +135,19 @@ def build_server(argv=None) -> DeconvHTTPServer:
                    help="embedded metric history and GET /v1/metrics/history (default off)")
     s.add_argument("--alerts", default="", metavar="JSON|PATH",
                    help="alert rules, inline JSON or a JSON file (implies --tsdb on; default none)")
+    s.add_argument("--qos", action="store_true",
+                   help="enable multi-tenant QoS: tenant identity, priority classes, device-time budgets, "
+                   "DRR fair queues (default off)")
+    s.add_argument("--tenants", default="", metavar="JSON|PATH",
+                   help="tenant policy spec, inline JSON or a JSON file (implies --qos)")
+    s.add_argument("--qos-default-class", default="standard", metavar="interactive|standard|bulk",
+                   help="priority class for tenants with no explicit class")
+    s.add_argument("--quality-default", default="full", metavar="full|bf16|int8",
+                   help="precision tier for requests that name none via quality=/x-quality (default full)")
+    s.add_argument("--quality-by-class", default="bulk=int8", metavar="CLASS=TIER,...",
+                   help="per-QoS-class default tiers (default 'bulk=int8'; empty disables class defaults)")
+    s.add_argument("--calibration-dir", default="", metavar="DIR",
+                   help="per-model int8 calibration artifacts (absent models use dynamic ranges)")
     s.add_argument(
         "--fault", action="append", default=None, metavar="SITE=SPEC",
         help="arm a fault-injection site at startup (repeatable; implies "
@@ -141,7 +160,9 @@ def build_server(argv=None) -> DeconvHTTPServer:
         serve_models=args.serve_models, pinned_models=args.pinned_models,
         hbm_budget_bytes=args.hbm_budget_bytes, weight_dtype=args.weight_dtype,
         faults=",".join(args.fault or ()), singleflight=not args.no_singleflight, slos=args.slo,
-        tsdb=args.tsdb, alerts=args.alerts,
+        tsdb=args.tsdb, alerts=args.alerts, qos=args.qos or bool(args.tenants), tenants=args.tenants,
+        qos_default_class=args.qos_default_class, quality_default=args.quality_default,
+        quality_by_class=args.quality_by_class, calibration_dir=args.calibration_dir,
         **{name: getattr(args, name) for name in _FIELD_FLAGS},
     )
     service = DeconvService(cfg=cfg, device=args.device)

@@ -181,3 +181,45 @@ class ServerConfig:
     # dequant-on-use).  Quantized tiers trade bounded fidelity (PSNR
     # floors) for more resident models per budget.
     weight_dtype: str = "f32"
+    # --- multi-tenant QoS (serving/qos.py) ---
+    # Master switch: tenant identity (x-api-key / x-tenant header),
+    # priority classes, per-tenant token-bucket device-time budgets and
+    # in-flight caps, and deficit-round-robin fair queues in every
+    # dispatcher.  OFF by default: the batcher keeps its plain FIFO and the
+    # routes skip the admission wrap.
+    qos: bool = False
+    # Tenant policy spec: inline JSON ('{...}') or a path to a JSON file,
+    # {"name": {"class": "bulk", "rate_ms": 50, "burst_ms": 200,
+    # "max_inflight": 32}}.  "*" is the template for tenants not named;
+    # anonymous traffic maps to the (unmetered by default) 'default'
+    # tenant.  Empty = fair queues only, no quotas.
+    tenants: str = ""
+    # Priority class for tenants with no explicit class (and for the
+    # default tenant): 'interactive' | 'standard' | 'bulk'.
+    qos_default_class: str = "standard"
+    # DRR quantum weights per class, 'class=weight,...' (defaults
+    # interactive=8,standard=4,bulk=1).
+    qos_weights: str = ""
+    # Fixed device-ms a response-cache hit debits from the tenant's
+    # bucket: hits are metered traffic, not free.
+    qos_hit_cost_ms: float = 0.05
+    # --- per-request quality and the int8 execution tier ---
+    # Default precision tier for requests that name none (the ``quality=``
+    # form field wins, then the ``x-quality`` header, then the requester's
+    # QoS-class default below, then this): 'full' = the server's
+    # configured fidelity, 'bf16' = the forward staged in bfloat16,
+    # 'int8' = int8 activations and kernels with int32 accumulation
+    # through the forward walk (sequential models; DAG models run it as
+    # bf16 and dreams as full).  The resolved tier joins the response-cache
+    # key, so an int8 body never serves a full-fidelity request.
+    quality_default: str = "full"
+    # Per-QoS-class default tiers, 'class=tier,...', applied only when QoS
+    # is on and the request names no tier: bulk traffic runs int8 while
+    # interactive traffic keeps full fidelity.  Empty disables them.
+    quality_by_class: str = "bulk=int8"
+    # Directory of per-model calibration artifacts (<model>.calib.json,
+    # engine/quant.py): per-layer activation ranges.  With an artifact,
+    # quality=int8 uses its static scales (its digest joins the cache
+    # key); without one, each example's own ranges ('dynamic').  A corrupt
+    # artifact reads as absent.
+    calibration_dir: str = ""

@@ -121,9 +121,10 @@ class BatchProgram:
     def __call__(self, params, images):
         return self.body(params, self.stage(images))
 
-    def static_input(self, shape) -> torch.Tensor:
-        """A static input of ``shape`` for a capture of this program."""
-        return torch.zeros(shape, device=self.device, requires_grad=self.grad_input)
+    def static_input(self, shape, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """A static input of ``shape`` and ``dtype`` for a capture of this
+        program."""
+        return torch.zeros(shape, dtype=dtype, device=self.device, requires_grad=self.grad_input)
 
 
 def _copy_into(dst, src) -> None:

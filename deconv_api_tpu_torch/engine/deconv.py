@@ -19,9 +19,12 @@ layer sweep (``sweep=True``) shares one forward and projects every
 projectable layer from the requested one down, each on its own, as the
 reference's default separate-per-layer path does.
 
-Out of this slice: the merged sweep (``_sweep_merged``, measured negative
-and off by default in the reference), the NCHW tail, int8 quant and the
-bf16 forward prefix.
+The int8 execution tier (``quant``, ``quality=int8``): every conv and
+dense entry of the forward walk runs int8 x int8 -> int32 with per-row
+input scales (``_up_step_q8``); selection and the backward keep their
+dtypes.  Out of this slice: the merged sweep (``_sweep_merged``, measured
+negative and off by default in the reference), the NCHW tail and the bf16
+forward prefix.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from deconv_api_tpu_torch._device import resolve_device
 from deconv_api_tpu_torch.engine.capture import BatchProgram
 from deconv_api_tpu_torch.models.spec import Entry, ModelSpec, entry_chain
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT, resolve_fused_unpool
+from deconv_api_tpu_torch.utils.quantize import Q8_LEVELS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -64,10 +68,67 @@ def _up_step(e: Entry, params, x, switches):
     raise AssertionError(l.kind)
 
 
-def _forward_chain(entries, params, images, switches):
+def _q8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The symmetric int8 scale ``amax / 127`` (1.0 where amax is 0), a
+    float32 division by a tensor: PyTorch's CUDA division by a CPU scalar
+    multiplies by its reciprocal instead, which can round differently."""
+    levels = torch.full_like(amax, Q8_LEVELS)
+    return torch.where(amax > 0, amax, levels) / levels
+
+
+def _up_step_q8(e: Entry, params, x, amax):
+    """One int8 forward step of a conv or dense entry (the JAX package's
+    ``_up_step_q8``).  ``amax`` is each row's input range: a calibrated
+    constant (a Python float) or the rows' own max-abs as a (B,) tensor
+    (dynamic).  The input quantizes to
+    symmetric int8 at ``sx = amax / 127`` per row, the kernel at ``sw =
+    max|w| / 127``, the contraction runs int8 x int8 -> int32
+    (``ops.conv2d_q8`` / ``ops.dense_q8``), and the bias folds into the
+    accumulator at ``sx * sw``, clamped to +-2^30 so the int32 add cannot
+    wrap.  relu and linear apply on the accumulator, before the one
+    dequant multiply; other activations after it.  The arithmetic is the
+    JAX package's: a float32 division (not a multiply by the reciprocal),
+    round half to even, clip to +-127."""
+    l = e.layer
+    w = params[l.name]["w"].float()
+    b = params[l.name]["b"].float()
+    x = x.float()
+    if not isinstance(amax, torch.Tensor):  # a calibrated constant, for every row
+        amax = torch.full((x.shape[0],), amax, dtype=torch.float32, device=x.device)
+    sx = _q8_scale(amax).reshape(-1, *[1] * (x.dim() - 1))
+    sw = _q8_scale(w.abs().amax())
+    xq = torch.clamp(torch.round(x / sx), -Q8_LEVELS, Q8_LEVELS).to(torch.int8)
+    wq = torch.clamp(torch.round(w / sw), -Q8_LEVELS, Q8_LEVELS).to(torch.int8)
+    if l.kind == "conv":
+        acc = ops.conv2d_q8(xq, wq, strides=l.strides, padding=l.padding)
+    else:
+        acc = ops.dense_q8(xq, wq)
+    scale = sx * sw
+    bq = torch.clamp(torch.round(b / scale), -(2.0**30), 2.0**30).to(torch.int32)
+    acc = acc + bq
+    if ops.int8_safe_activation(l.activation):
+        if l.activation == "relu":
+            acc = torch.clamp_min(acc, 0)
+        return acc.float() * scale
+    return ops.apply_activation(acc.float() * scale, l.activation)
+
+
+def _forward_chain(entries, params, images, switches, quant=None):
+    """The forward walk: every entry's output, in order.  ``quant`` runs
+    each conv and dense entry through ``_up_step_q8``: ``"dynamic"`` takes
+    each row's own input max-abs as its range, a tuple of (entry name,
+    amax) pairs the calibrated constants (an entry missing from it falls
+    back to dynamic), None the float walk."""
+    calibrated = dict(quant) if isinstance(quant, tuple) else {}
     x, ups = images, []
     for e in entries:
-        x = _up_step(e, params, x, switches)
+        if quant is not None and not e.is_companion_act and e.layer.kind in ("conv", "dense"):
+            amax = calibrated.get(e.name)
+            if amax is None:
+                amax = x.float().abs().amax(dim=tuple(range(1, x.dim())))
+            x = _up_step_q8(e, params, x, amax)
+        else:
+            x = _up_step(e, params, x, switches)
         ups.append(x)
     return ups
 
@@ -311,6 +372,7 @@ def get_visualizer(
     *,
     sweep: bool = False,
     kpack_chan: int = 0,
+    quant=None,
 ):
     """A ``BatchProgram``, ``fn(params, images)`` for images (B, H, W, C) ->
     ``{layer: {"images": (B, K, H, W, C), "indices": (B, K),
@@ -324,7 +386,10 @@ def get_visualizer(
     backward walk into one op (``ops/cuda_deconv.py``).  ``kpack_chan``
     (``resolve_kpack_chan`` of the ``lowc_kpack`` policy; 0 is off) packs
     the K projections into the channels below the boundary where the
-    signal has at most that many.  ``device`` is where it runs: ``cuda``
+    signal has at most that many.  ``quant`` runs the forward walk in int8
+    (``_forward_chain``): None (off), ``"dynamic"`` or a tuple of (entry,
+    amax) calibrated ranges (``engine/quant.py``); selection stays fp32 and
+    the backward keeps ``backward_dtype``.  ``device`` is where it runs: ``cuda``
     unless ``"cpu"`` is passed (raises without a card); the params must
     already be there.  ``fn`` moves the images there; ``fn.body(params,
     x)``, what a capture records, takes a batch already there."""
@@ -333,6 +398,10 @@ def get_visualizer(
     if backward_dtype and backward_dtype not in _DTYPES:
         raise ValueError(
             f"illegal backward_dtype {backward_dtype!r}; expected one of {sorted(_DTYPES)}"
+        )
+    if quant is not None and quant != "dynamic" and not isinstance(quant, tuple):
+        raise ValueError(
+            f"illegal quant spec {quant!r}; expected None, 'dynamic' or a tuple of (entry, amax) pairs"
         )
     fused_unpool = resolve_fused_unpool(fused_unpool)
     entries = entry_chain(spec.truncated(layer_name))
@@ -350,7 +419,7 @@ def get_visualizer(
     @torch.no_grad()
     def body(params, images):
         switches: dict = {}
-        ups = _forward_chain(entries, params, images, switches)
+        ups = _forward_chain(entries, params, images, switches, quant)
         return {
             entries[i].name: _visualize_entry(
                 entries, params, ups, switches, i, top_k, mode, bug_compat,

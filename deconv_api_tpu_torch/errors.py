@@ -45,6 +45,14 @@ class IllegalMode(DeconvError):
     code = "illegal_visualize_mode"
 
 
+class IllegalQuality(DeconvError):
+    """The request's precision tier (``quality=`` form field or
+    ``x-quality`` header) is none of full|bf16|int8."""
+
+    status = 422
+    code = "illegal_quality"
+
+
 class NoActiveFilters(DeconvError):
     """No filter fired for the requested layer."""
 
@@ -104,6 +112,21 @@ class BreakerOpen(DeconvError):
         self.retry_after_s = retry_after_s
 
 
+class TenantOverQuota(DeconvError):
+    """A tenant exhausted one of its QoS budgets (``serving/qos.py``): the
+    device-time token bucket or the in-flight cap.  429 with a
+    ``Retry-After`` from the bucket's refill rate, and the tenant's name in
+    the payload."""
+
+    status = 429
+    code = "tenant_over_quota"
+
+    def __init__(self, message: str, retry_after_s: float | None = None, tenant: str | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+        self.tenant = tenant
+
+
 class FaultInjected(DeconvError):
     """An armed fault-injection site fired (``serving/faults.py``)."""
 
@@ -113,8 +136,12 @@ class FaultInjected(DeconvError):
 
 def to_payload(e: DeconvError, request_id: str | None = None) -> dict:
     """The JSON error body of every route: the code and the detail, and the
-    request id that joins it to the server's logs and traces."""
+    request id that joins it to the server's logs and traces; a quota
+    error also names whose budget it hit."""
     payload = {"error": e.code, "detail": e.message}
+    tenant = getattr(e, "tenant", None)
+    if tenant:
+        payload["tenant"] = tenant
     if request_id:
         payload["request_id"] = request_id
     return payload

@@ -3,18 +3,20 @@
 Importing this package needs neither ``nvcc`` nor a card: kernels build at
 their first launch (``ops/_build.py``)."""
 
-from deconv_api_tpu_torch.ops import cuda_deconv, cuda_pool
-from deconv_api_tpu_torch.ops.activations import apply_activation
+from deconv_api_tpu_torch.ops import cuda_deconv, cuda_pool, cuda_q8
+from deconv_api_tpu_torch.ops.activations import apply_activation, int8_safe_activation
 from deconv_api_tpu_torch.ops.conv import (
     conv2d,
     conv2d_input_backward,
     conv2d_input_backward_grouped,
+    conv2d_q8,
     flip_kernel,
 )
 from deconv_api_tpu_torch.ops.cuda_deconv import fused_unpool_backward
 from deconv_api_tpu_torch.ops.linear import (
     dense,
     dense_input_backward,
+    dense_q8,
     flatten,
     unflatten,
 )
@@ -26,23 +28,25 @@ from deconv_api_tpu_torch.ops.pool import maxpool_with_argmax, unpool_with_argma
 # the capture takes that count back, and every replay adds the graph's
 # kernels, so ``launch_counts()`` counts launches on the card.
 graph_counts = {"captures": 0, "replays": 0}
+# each kernel wrapper's launch counts
+_TABLES = (cuda_pool.launches, cuda_deconv.launches, cuda_q8.launches)
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches so far in this process, by kernel name."""
-    return {**cuda_pool.launches, **cuda_deconv.launches}
+    return {name: n for table in _TABLES for name, n in table.items()}
 
 
 def add_launch_counts(counts: dict[str, int]) -> None:
     """Add ``counts`` (kernel name -> launches, possibly negative)."""
     for name, n in counts.items():
-        table = cuda_pool.launches if name in cuda_pool.launches else cuda_deconv.launches
+        table = next(t for t in _TABLES if name in t)
         table[name] += n
 
 
 def reset_launch_counts() -> None:
     """Zero the kernel launch counts and the graph counts."""
-    for counts in (cuda_pool.launches, cuda_deconv.launches, graph_counts):
+    for counts in (*_TABLES, graph_counts):
         for name in counts:
             counts[name] = 0
 
@@ -53,12 +57,15 @@ __all__ = [
     "conv2d",
     "conv2d_input_backward",
     "conv2d_input_backward_grouped",
+    "conv2d_q8",
     "dense",
     "dense_input_backward",
+    "dense_q8",
     "flatten",
     "flip_kernel",
     "fused_unpool_backward",
     "graph_counts",
+    "int8_safe_activation",
     "launch_counts",
     "maxpool_with_argmax",
     "reset_launch_counts",

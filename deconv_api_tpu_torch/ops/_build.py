@@ -22,7 +22,7 @@ import threading
 import time
 from pathlib import Path
 
-KERNELS = ("pool_argmax", "unpool_argmax", "fused_unpool_conv")
+KERNELS = ("pool_argmax", "unpool_argmax", "fused_unpool_conv", "conv_q8")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (

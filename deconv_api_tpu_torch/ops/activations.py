@@ -45,6 +45,19 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
     return torch.minimum(relu(x), _const(6.0, x.dtype, x.device))
 
 
+# Activations the int8 execution tier may apply on the int32 accumulator
+# before the dequant multiply: with the bias folded in at the combined
+# input*kernel scale, relu commutes with the (positive) scale and linear is
+# the identity.  relu6's cap and softmax do not commute with a scale; their
+# layers dequantize first.
+INT8_SAFE_ACTIVATIONS = ("linear", "relu")
+
+
+def int8_safe_activation(name: str) -> bool:
+    """Whether the named activation may run on the int32 accumulator."""
+    return name in INT8_SAFE_ACTIVATIONS
+
+
 _ACTIVATIONS = {
     "linear": lambda x: x,
     "relu": torch.relu,

@@ -73,6 +73,36 @@ def conv2d(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def conv2d_q8_plain(
+    x_q: torch.Tensor, w_q: torch.Tensor, *, strides: Sequence[int] = (1, 1), padding="SAME",
+    feature_group_count: int = 1,
+) -> torch.Tensor:
+    """``conv2d_q8``'s plain version: the contraction in float64, cast to
+    int32.  Exact: every partial sum is an integer of at most 127^2 times
+    the reduction depth, far below 2^53."""
+    y = conv2d(x_q.to(torch.float64), w_q.to(torch.float64), strides=strides, padding=padding,
+               groups=feature_group_count)
+    return y.to(torch.int32)
+
+
+def conv2d_q8(
+    x_q: torch.Tensor, w_q: torch.Tensor, *, strides: Sequence[int] = (1, 1), padding="SAME",
+    feature_group_count: int = 1,
+) -> torch.Tensor:
+    """Int8 forward convolution with int32 accumulation: int8 NHWC ``x_q``
+    and HWIO ``w_q``, already quantized by the caller, to the raw int32
+    accumulator (``deconv_api_tpu/ops/conv.py:conv2d_q8``).  The bias fold,
+    the activation and the dequantisation are the caller's.  A CUDA tensor
+    launches the hand-written kernel (``ops/cuda_q8.py``, no groups) or
+    raises; a CPU tensor runs the plain version."""
+    if x_q.is_cuda:
+        from deconv_api_tpu_torch.ops import cuda_q8
+
+        return cuda_q8.conv2d_q8(x_q.contiguous(), w_q.contiguous(), strides=strides, padding=padding,
+                                 feature_group_count=feature_group_count)
+    return conv2d_q8_plain(x_q, w_q, strides=strides, padding=padding, feature_group_count=feature_group_count)
+
+
 def flip_kernel(w: torch.Tensor) -> torch.Tensor:
     """Swap an HWIO kernel's in/out channels and flip both spatial axes:
     the Zeiler–Fergus backward kernel ``W' = flip_hw(W^T)``."""

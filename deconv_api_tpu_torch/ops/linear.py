@@ -16,6 +16,25 @@ def dense(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None) -> to
     return y if b is None else y + b
 
 
+def dense_q8_plain(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """``dense_q8``'s plain version: the product in float64 (exact for
+    int8 operands at any real width), cast to int32."""
+    return (x_q.to(torch.float64) @ w_q.to(torch.float64)).to(torch.int32)
+
+
+def dense_q8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Int8 forward dense with int32 accumulation: int8 (B, in) by int8
+    (in, out) to the raw int32 accumulator
+    (``deconv_api_tpu/ops/linear.py:dense_q8``).  A CUDA tensor launches the
+    int8 conv kernel as a 1x1 conv (``ops/cuda_q8.py``) or raises; a CPU
+    tensor runs the plain version."""
+    if x_q.is_cuda:
+        from deconv_api_tpu_torch.ops import cuda_q8
+
+        return cuda_q8.dense_q8(x_q.contiguous(), w_q.contiguous())
+    return dense_q8_plain(x_q, w_q)
+
+
 def dense_input_backward(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Deconvnet backward projection of a dense layer: ``y @ W.T``, no bias."""
     return y @ w.T

@@ -17,10 +17,23 @@ answered with ``{"layers", "loss", "image"}``.  Every POST also takes
 model) or a served model's name, else 422 ``unknown_model``, and
 ``x-deadline-ms``, the caller's budget: a request still queued when it
 lapses is answered 504 ``deadline_expired`` before any device work.
+Every POST also takes ``quality`` (form field, else the ``x-quality``
+header): ``full``, ``bf16`` (the batch staged in bfloat16, so the forward
+runs in bf16) or ``int8`` (the forward walk in int8 with int32
+accumulation on the card's int8 kernel, with each model's calibrated
+ranges from ``calibration_dir`` or else each example's own), anything else
+422 ``illegal_quality``.  A request that names none takes its QoS class's
+tier (``quality_by_class``) or ``quality_default``.  DAG models run
+``int8`` as ``bf16``, and dreams run every tier as ``full``
+(``_effective_quality``).
 
 In front of each compute route, as in the JAX service (outermost first):
 the observation wrap (the ``request_duration_seconds`` histogram and the
-latency SLOs), the trace wrap, and the response cache with singleflight
+latency SLOs), the trace wrap, with ``qos`` on the tenant admission wrap
+(``serving/qos.py``: identity from ``x-api-key`` or ``x-tenant``, a
+device-time token bucket and an in-flight cap per tenant, 429
+``tenant_over_quota``; the dispatchers' queues become deficit-round-robin
+queues per tenant and class), and the response cache with singleflight
 (``serving/cache.py``): a repeated request is answered from the cache
 before any decode (``x-cache: hit``), identical requests in flight share
 one device row (``coalesced``), a deterministic 4xx is cached for
@@ -84,8 +97,10 @@ from deconv_api_tpu_torch.config import ServerConfig
 from deconv_api_tpu_torch.engine.capture import DEVICE_LOCK
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
 from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_programs
+from deconv_api_tpu_torch.engine import quant as quant_mod
+from deconv_api_tpu_torch.engine.quant import QUALITY_TIERS
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
-from deconv_api_tpu_torch.serving import codec
+from deconv_api_tpu_torch.serving import codec, durable
 from deconv_api_tpu_torch.serving import faults as faults_mod
 from deconv_api_tpu_torch.serving import trace as trace_mod
 from deconv_api_tpu_torch.serving import tsdb as tsdb_mod
@@ -96,6 +111,7 @@ from deconv_api_tpu_torch.serving.codec_pool import HostBufferRing, WorkerPool
 from deconv_api_tpu_torch.serving.http import HttpServer, Request, Response
 from deconv_api_tpu_torch.serving.metrics import Metrics, parse_slos, slo_prometheus
 from deconv_api_tpu_torch.serving.models import REGISTRY, ModelBundle, build_bundle, registry_info
+from deconv_api_tpu_torch.serving.qos import QosPolicy
 from deconv_api_tpu_torch.serving.trace import FlightRecorder, RequestTrace
 from deconv_api_tpu_torch.serving.weight_manager import WEIGHT_DTYPES, WeightManager
 from deconv_api_tpu_torch.utils import slog
@@ -120,6 +136,10 @@ COMPUTE_ROUTES = frozenset(("/", "/v1/deconv", "/v1/dream"))
 WEIGHTS_SOURCE = "he-normal:seed=0"
 # the serving programs' backward dtype (``_enqueue_program``)
 BACKWARD_DTYPE = "bfloat16"
+# the serving programs' forward dtype at quality=full: the JAX package's
+# ``dtype`` field at its default
+FORWARD_DTYPE = "float32"
+QOS_CLASSES = ("interactive", "standard", "bulk")
 
 
 class Program(NamedTuple):
@@ -131,6 +151,7 @@ class Program(NamedTuple):
     top_k: int = STITCH_K
     post: str = "grid"  # "grid" for POST /, "tiles" for /v1/deconv
     sweep: bool = False
+    quality: str = "full"  # the effective tier (``_effective_quality``)
 
 
 class Dream(NamedTuple):
@@ -185,6 +206,24 @@ class DeconvService:
         resolve_kpack_chan(cfg.lowc_kpack, DEFAULT_TOP_K)
         if cfg.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, got {cfg.weight_dtype!r}")
+        # the quality tiers, validated at boot: a mistyped tier fails the
+        # process, not the first bulk request
+        if cfg.quality_default not in QUALITY_TIERS:
+            raise ValueError(f"quality_default must be one of {QUALITY_TIERS}, got {cfg.quality_default!r}")
+        self._class_quality: dict[str, str] = {}
+        for part in (cfg.quality_by_class or "").split(","):
+            part = part.strip()
+            if not part:
+                continue
+            cls, _, tier = part.partition("=")
+            cls, tier = cls.strip(), tier.strip()
+            if cls not in QOS_CLASSES:
+                raise ValueError(f"quality_by_class: unknown class {cls!r} (expected interactive|standard|bulk)")
+            if tier not in QUALITY_TIERS:
+                raise ValueError(f"quality_by_class: tier for {cls!r} must be one of {QUALITY_TIERS}, got {tier!r}")
+            self._class_quality[cls] = tier
+        # per model: (the int8 walk's quant spec, the tag in its cache key)
+        self._calib_cache: dict[str, tuple] = {}
         # latency SLOs, metric history and alert rules, validated at boot
         # with the JAX package's messages: a malformed spec is a config
         # error, not a silently dropped objective
@@ -214,6 +253,13 @@ class DeconvService:
         self.metrics = Metrics("deconv")
         self.dream_metrics = Metrics("dream")
         self.sweep_metrics = Metrics("sweep")
+        # Multi-tenant QoS (serving/qos.py), built at boot so a mistyped
+        # tenants spec or weights string fails the process; None keeps the
+        # plain FIFOs and no admission wrap
+        self.qos = None
+        if cfg.qos:
+            self.qos = QosPolicy(cfg.tenants, default_class=cfg.qos_default_class, weights=cfg.qos_weights,
+                                 hit_cost_ms=cfg.qos_hit_cost_ms, metrics=self.metrics)
         # fault injection: a default-configured server pays one global load
         # and a None test per site consultation
         self.faults = None
@@ -228,6 +274,15 @@ class DeconvService:
             pinned=tuple(pinned), budget_bytes=cfg.hbm_budget_bytes, weight_dtype=cfg.weight_dtype,
             metrics=self.metrics,
         )
+        if cfg.calibration_dir:
+            # the artifacts are read here (written by engine/quant.py's
+            # save_calibration): the boot sweeps torn temporary files and
+            # loads the served models' artifacts, so /readyz reports the
+            # calibrated set from the first probe and no int8 dispatch
+            # reads a file on a worker thread
+            durable.sweep_tmp(cfg.calibration_dir)
+            for name in sorted(self.weights.served):
+                self._quant_spec(name)
         self.lowc_kpack = cfg.lowc_kpack
         self.max_batch = cfg.max_batch
         self.ready = False
@@ -306,6 +361,7 @@ class DeconvService:
             lambda key, images: dispatch(key, images)(), max_batch=max_batch, window_ms=window_ms,
             request_timeout_s=timeout_s, metrics=metrics, shed_factor=self.cfg.shed_factor,
             dispatch_runner=dispatch, pipeline_depth=self.cfg.pipeline_depth, lane_pool=self.lane_pool,
+            qos=self.qos,
         )
 
     def _parse_model_list(self, raw: str, default: str, what: str) -> list[str]:
@@ -394,12 +450,22 @@ class DeconvService:
         fetch, ``() -> {layer: {post, "valid", "indices"}}`` of the B real
         rows as numpy; ``post`` is ``program.post``, uint8 (B, 2H, 2W, 3)
         grids or (B, K, H, W, 3) tiles.  ``lowc_kpack`` defaults to the
-        service's policy.  The fetch carries ``page_in_s`` and
+        service's policy.  ``program.quality`` (an effective tier) picks the
+        program: ``bf16`` stages the batch in bfloat16, ``int8`` stages it
+        in float32 and runs the int8 walk on the model's quant spec
+        (``_quant_spec``).  The fetch carries ``page_in_s`` and
         ``page_model`` when the batch paged its weights in."""
         n = len(images)
         bucket = pad_bucket(n, self.max_batch)
         name = model or self.weights.default
         bundle = self.weights.bundle(name)
+        quant, dtype = None, torch.float32
+        if program.quality == "int8":
+            quant = self._quant_spec(name)[0]
+            self.metrics.inc_counter("quant_int8_batches_total")
+        elif program.quality == "bf16":
+            dtype = torch.bfloat16
+            self.metrics.inc_counter("quant_bf16_batches_total")
         _, page_s = self.weights.checkout(name)
         staging = slots = None
         try:
@@ -407,6 +473,7 @@ class DeconvService:
                 program.layer, program.mode, program.top_k, bucket, bug_compat=True,
                 backward_dtype=BACKWARD_DTYPE, post=program.post, fused_unpool=fused_unpool,
                 sweep=program.sweep, lowc_kpack=self.lowc_kpack if lowc_kpack is None else lowc_kpack,
+                quant=quant, dtype=dtype,
             )
             with bundle.programs.replaying():
                 staging = self.input_ring.assemble(images, bucket)
@@ -694,14 +761,16 @@ class DeconvService:
             self.input_ring.clear()
             self.output_ring.clear()
 
-    def submit(self, program: Program, x: np.ndarray, model: str | None = None) -> concurrent.futures.Future:
+    def submit(self, program: Program, x: np.ndarray, model: str | None = None, tenant: str = "",
+               tclass: str = "") -> concurrent.futures.Future:
         """Queue one image of ``model`` for ``program`` on its dispatcher (a
         sweep on the sweep dispatcher): requests batch together only with
         the same model and program.  Returns a future of the image's
         ``{layer: {...}}``."""
         dispatcher = self.sweep_dispatcher if program.sweep else self.dispatcher
         key = (model or self.weights.default, program)
-        return asyncio.run_coroutine_threadsafe(dispatcher.submit(x, key), self._ensure_loop())
+        return asyncio.run_coroutine_threadsafe(dispatcher.submit(x, key, tenant=tenant, tclass=tclass),
+                                                self._ensure_loop())
 
     # --- requests ----------------------------------------------------------
 
@@ -730,6 +799,83 @@ class DeconvService:
                 f"unknown or unserved model {name!r}; serving: {sorted(self.weights.served)}"
             )
         return name
+
+    def resolve_quality(self, form: dict[str, str], headers=None, tclass: str = "") -> str:
+        """The request's precision tier: the ``quality`` form field (wins),
+        else the ``x-quality`` header, else the QoS class's tier
+        (``quality_by_class``), else ``quality_default``.  Anything but
+        full|bf16|int8 is a 422 ``illegal_quality``."""
+        raw = (form.get("quality") or (headers or {}).get("x-quality", "")).strip().lower()
+        if not raw:
+            raw = self._class_quality.get(tclass, "") or self.cfg.quality_default
+        if raw not in QUALITY_TIERS:
+            raise errors.IllegalQuality(f"quality must be one of {QUALITY_TIERS}, got {raw!r}")
+        return raw
+
+    def _resolve_quality(self, req: Request | None, form: dict[str, str] | None = None, headers=None) -> str:
+        """``resolve_quality`` of the request, memoized on it so the cache
+        wrap and the route agree on one resolution (an unparseable body
+        takes the default: its handler answers 400).  Without a request
+        (the blocking helpers) it reads ``form`` and ``headers``."""
+        if req is None:
+            return self.resolve_quality(form or {}, headers)
+        if not req.quality:
+            if form is None:
+                try:
+                    form = req.form()
+                except Exception:  # noqa: BLE001 — any parse error: the handler 400s it
+                    form = {}
+            req.quality = self.resolve_quality(form, req.headers, req.tclass)
+            tr = trace_mod.current_trace()
+            if tr is not None and req.quality != "full":
+                tr.annotate(quality=req.quality)
+        return req.quality
+
+    def _effective_quality(self, quality: str, bundle: ModelBundle | None, route: str = "") -> str:
+        """The tier a (model, route) pair runs, which is also the one its
+        cache key carries: dreams have no quantized form (every tier runs
+        as full); a DAG model has no int8 walk (int8 runs as bf16); a
+        server whose forward is already bfloat16 runs bf16 as full."""
+        if quality == "full" or route == "/v1/dream":
+            return "full"
+        if quality == "int8" and bundle is not None and bundle.spec is None:
+            quality = "bf16"
+        if quality == "bf16" and FORWARD_DTYPE == "bfloat16":
+            return "full"
+        return quality
+
+    def _quality_prefix(self, eq: str, model: str) -> str:
+        """What an effective tier adds to the cache-key prefix: nothing for
+        full (the key stays the one without tiers), the tier's name for
+        bf16, and for int8 the tier and the model's calibration tag, so a
+        recalibration invalidates exactly the int8 entries."""
+        if eq == "int8":
+            return f"|q=int8:{self._quant_spec(model)[1]}"
+        if eq != "full":
+            return f"|q={eq}"
+        return ""
+
+    def _quant_spec(self, model: str) -> tuple:
+        """The int8 walk's scales for ``model``: ``(quant, tag)``, the
+        calibrated (entry, amax) pairs of its artifact in
+        ``calibration_dir`` with the artifact's digest, or ``("dynamic",
+        "dynamic")`` when there is no valid artifact.  Cached per model."""
+        got = self._calib_cache.get(model)
+        if got is None:
+            got = ("dynamic", "dynamic")
+            if self.cfg.calibration_dir:
+                payload = quant_mod.load_calibration(self.cfg.calibration_dir, model)
+                if payload is not None:
+                    got = (quant_mod.quant_spec(payload["ranges"]), payload["digest"])
+            self._calib_cache[model] = got
+        return got
+
+    @staticmethod
+    def _quality_key(program: Program, quality: str) -> Program:
+        """The dispatcher key of ``program`` at an effective tier: batches
+        group within one tier only (an int8 batch never shares a program
+        with a full one), and a full key stays the key without tiers."""
+        return program if quality == "full" else program._replace(quality=quality)
 
     def _check_ready(self) -> None:
         if not self.ready:
@@ -776,18 +922,23 @@ class DeconvService:
             raise errors.UnknownLayer(str(e)) from None
         return bundle, layer, self.decode_preprocess(file_uri, bundle)
 
-    async def _compat(self, parse: Callable[[], dict], size: int, headers=None, deadline=None) -> str:
+    async def _compat(self, parse: Callable[[], dict], size: int, headers=None, deadline=None,
+                      req: Request | None = None) -> str:
         """``POST /``: the data URL of the stitched grid."""
         self._check_ready()
 
         def validate(form, model):
-            _, layer, x = self._projection_input(form, model)
-            return model, layer, x
+            if not form.get("file") or not form.get("layer"):
+                raise errors.BadRequest("form fields 'file' and 'layer' are required")
+            quality = self._resolve_quality(req, form, headers)
+            bundle, layer, x = self._projection_input(form, model)
+            return model, self._quality_key(Program(layer), self._effective_quality(quality, bundle)), x
 
-        model, layer, x = await self._prepare(self.metrics, parse, size, headers, validate)
+        model, program, x = await self._prepare(self.metrics, parse, size, headers, validate)
         _annotate_model(model)
+        layer = program.layer
         with stage(self.metrics, "compute"):
-            result = (await self.dispatcher.submit(x, (model, Program(layer)), deadline=deadline))[layer]
+            result = (await self.dispatcher.submit(x, (model, program), deadline=deadline, **_tenancy(req)))[layer]
         if not result["valid"].any():
             raise errors.NoActiveFilters(f"no filters fired for layer {layer!r}")
         # encoded in the fetch thread; a failed encode there is retried here
@@ -805,24 +956,27 @@ class DeconvService:
             raise errors.BadRequest("top_k must be in [1, 64]")
         return mode, top_k, form.get("sweep", "").lower() in _TRUTHY
 
-    async def _deconv_v1(self, parse: Callable[[], dict], size: int, headers=None, deadline=None) -> dict:
+    async def _deconv_v1(self, parse: Callable[[], dict], size: int, headers=None, deadline=None,
+                         req: Request | None = None) -> dict:
         """``POST /v1/deconv``: ``{"layer", "mode", "filters", "images"}``
         for the fired filters (a prefix of the ranking), or ``{"layer",
         "mode", "sweep": true, "layers": {name: {"filters", "images"}}}``
         with ``sweep``, which runs on the sweep dispatcher."""
 
         def validate(form, model):
+            quality = self._resolve_quality(req, form, headers)
             mode, top_k, sweep = self._deconv_params(form)
             self._check_ready()
-            _, layer, x = self._projection_input(form, model)
-            return model, Program(layer, mode, top_k, "tiles", sweep), x
+            bundle, layer, x = self._projection_input(form, model)
+            program = Program(layer, mode, top_k, "tiles", sweep)
+            return model, self._quality_key(program, self._effective_quality(quality, bundle)), x
 
         model, program, x = await self._prepare(self.metrics, parse, size, headers, validate)
         _annotate_model(model)
         dispatcher, metrics = (self.sweep_dispatcher, self.sweep_metrics) if program.sweep else (
             self.dispatcher, self.metrics)
         with stage(metrics, "compute"):
-            result = await dispatcher.submit(x, (model, program), deadline=deadline)
+            result = await dispatcher.submit(x, (model, program), deadline=deadline, **_tenancy(req))
         with stage(self.metrics, "encode"):
             names = list(result)
             encoded = await asyncio.gather(*(self._encode_tiles(result[name]) for name in names))
@@ -863,13 +1017,17 @@ class DeconvService:
             raise errors.BadRequest("lr must be a finite value in (0, 1]")
         return Dream(layers, steps, octaves, lr)
 
-    async def _dream_v1(self, parse: Callable[[], dict], size: int, headers=None, deadline=None) -> dict:
+    async def _dream_v1(self, parse: Callable[[], dict], size: int, headers=None, deadline=None,
+                        req: Request | None = None) -> dict:
         """``POST /v1/dream``: ``{"layers", "loss", "image"}``, the dreamed
         image as a data URL and its final loss (``None`` when it is not
         finite)."""
         self._check_ready()
 
         def validate(form, model):
+            # validated for the 422, then run as full: a dream has no
+            # quantized or bf16-staged form (``_effective_quality``)
+            self._resolve_quality(req, form, headers)
             bundle = self.weights.bundle(model)
             file_uri = form.get("file")
             if not file_uri:
@@ -884,7 +1042,7 @@ class DeconvService:
         model, bundle, dream, x = await self._prepare(self.dream_metrics, parse, size, headers, validate)
         _annotate_model(model)
         with stage(self.dream_metrics, "compute"):
-            result = await self.dream_dispatcher.submit(x, (model, dream), deadline=deadline)
+            result = await self.dream_dispatcher.submit(x, (model, dream), deadline=deadline, **_tenancy(req))
         with stage(self.dream_metrics, "encode"):
             image = await self.codec_pool.run(lambda: codec.encode_data_url(bundle.unpreprocess(result["image"])))
         loss = result["loss"]
@@ -928,16 +1086,17 @@ class DeconvService:
             if self.incidents is not None:
                 r("GET", "/v1/debug/incidents")(self._debug_incidents)
         # the JAX package's wrap order: observation (outermost: its
-        # histogram and SLOs see every outcome) -> trace -> [the QoS
-        # admission wrap goes here] -> cache -> route
+        # histogram and SLOs see every outcome) -> trace -> QoS admission
+        # (identity and budget before any decode; a cache hit refunds the
+        # provisional debit) -> cache -> route
         for path, core, metrics in (("/", self._compat, self.metrics),
                                     ("/v1/deconv", self._deconv_v1, self.metrics),
                                     ("/v1/dream", self._dream_v1, self.dream_metrics)):
             handler = self._cache_wrap(path, self._compute_route(core, metrics), metrics)
-            r("POST", path)(self._obs_wrap(path, self._trace_wrap(path, handler)))
+            r("POST", path)(self._obs_wrap(path, self._trace_wrap(path, self._qos_wrap(handler, metrics))))
 
     def _compute_route(self, core, metrics: Metrics):
-        """A compute route: ``core(parse, size, headers, deadline)``'s
+        """A compute route: ``core(parse, size, headers, deadline, req)``'s
         result as JSON, a taxonomy error as its status and payload (with
         ``Retry-After`` where it carries one), each observed on
         ``metrics``."""
@@ -945,7 +1104,8 @@ class DeconvService:
         async def handler(req: Request) -> Response:
             t0 = time.perf_counter()
             try:
-                result = await core(functools.partial(_parse_form, req), len(req.body), req.headers, req.deadline)
+                result = await core(functools.partial(_parse_form, req), len(req.body), req.headers, req.deadline,
+                                    req)
             except errors.DeconvError as e:
                 metrics.observe_request(time.perf_counter() - t0, e.code)
                 return _error_response(e, req.id)
@@ -956,6 +1116,48 @@ class DeconvService:
             return Response.json(result)
 
         return handler
+
+    def _qos_wrap(self, handler, metrics: Metrics):
+        """Tenant admission in front of a compute route
+        (``serving/qos.py``): resolve the identity from ``x-api-key`` /
+        ``x-tenant``, enforce the in-flight cap and the device-time token
+        bucket (429 ``tenant_over_quota`` with a ``Retry-After`` from the
+        bucket's refill), stamp the tenant and class on the request (the
+        access log, the queue, ``quality_by_class``), the trace and the
+        grant (the cache's refund), and release the in-flight slot on every
+        exit.  An admission crash fails open to the default tenant inside
+        ``QosPolicy.admit``.  The handler itself while QoS is off."""
+        if self.qos is None:
+            return handler
+        qos = self.qos
+
+        async def admitted(req: Request) -> Response:
+            t0 = time.perf_counter()
+            tr = trace_mod.current_trace()
+            try:
+                grant = qos.admit(req.headers)
+            except errors.TenantOverQuota as e:
+                req.tenant = e.tenant or ""
+                metrics.observe_request(time.perf_counter() - t0, e.code)
+                if tr is not None:
+                    tr.annotate(tenant=e.tenant, quota=True)
+                return _error_response(e, req.id)
+            req.tenant, req.tclass, req._qos_grant = grant.tenant, grant.tclass, grant
+            if tr is not None:
+                tr.annotate(tenant=grant.tenant, tclass=grant.tclass)
+            try:
+                return await handler(req)
+            finally:
+                qos.release(grant)
+
+        return admitted
+
+    def _charge_hit(self, req: Request) -> None:
+        """Refund the request's provisional QoS debit down to the fixed hit
+        cost: no device work ran for it (a cache hit, a coalesced waiter, an
+        L2 read)."""
+        if self.qos is not None and req._qos_grant is not None:
+            self.qos.charge_hit(req._qos_grant)
 
     def _trace_wrap(self, route: str, handler):
         """Give every request on a compute route a span-structured trace,
@@ -994,13 +1196,13 @@ class DeconvService:
         ``request_duration_seconds{route,qos_class}`` histogram, its
         request id as the bucket's exemplar, and in every SLO that matches
         the route.  A cancelled request (client gone, shutdown) produced no
-        response and observes nothing.  ``qos_class`` is ``default`` until
-        a QoS admission wrap stamps the request's class."""
+        response and observes nothing.  ``qos_class`` is the class the QoS
+        admission wrap stamped on the request, ``default`` with QoS off."""
         slos = [t for t in self.slos if t.matches(route)]
 
         def observe(req: Request, dt: float, status: int) -> None:
-            self.metrics.observe_hist("request_duration_seconds", ("route", "qos_class"), (route, "default"),
-                                      dt, exemplar=req.id)
+            self.metrics.observe_hist("request_duration_seconds", ("route", "qos_class"),
+                                      (route, req.tclass or "default"), dt, exemplar=req.id)
             for t in slos:
                 t.observe(dt, status)
 
@@ -1031,7 +1233,7 @@ class DeconvService:
         if p is None:
             bundle = self.weights.bundle(model)
             p = "|".join(str(x) for x in (
-                model, bundle.image_size, "all", STITCH_K, DEFAULT_TOP_K, True, False, "float32",
+                model, bundle.image_size, "all", STITCH_K, DEFAULT_TOP_K, True, False, FORWARD_DTYPE,
                 BACKWARD_DTYPE, self.cfg.lowc_kpack, FUSED_DEFAULT, self.cfg.weight_dtype, WEIGHTS_SOURCE,
                 bundle.device.type,
             ))
@@ -1041,9 +1243,15 @@ class DeconvService:
     def _request_key(self, req: Request, route: str) -> str:
         """The request's cache and singleflight key: ``canonical_digest``
         of the memoized form (the same parse the route consumes on a miss)
-        under the resolved model's prefix, without the ``model`` and
-        ``quality`` fields.  Raises ``UnknownModel``."""
-        prefix = f"{self._model_prefix(self.resolve_request_model(req))}|{route}"
+        under the resolved model's prefix and its effective tier's
+        (``_quality_prefix``: nothing for full), without the ``model`` and
+        ``quality`` fields.  Raises ``UnknownModel`` and
+        ``IllegalQuality``."""
+        model = self.resolve_request_model(req)
+        quality = self._resolve_quality(req)
+        prefix = f"{self._model_prefix(model)}|{route}"
+        prefix += self._quality_prefix(self._effective_quality(quality, self.weights.peek_bundle(model), route),
+                                       model)
         return canonical_digest(prefix, req.headers.get("content-type", ""), req.body, req=req,
                                 exclude=("model", "quality"))
 
@@ -1065,7 +1273,7 @@ class DeconvService:
     def _cache_wrap(self, route: str, handler, metrics: Metrics):
         """The response cache and the singleflight table in front of a
         compute route (``deconv_api_tpu/serving/app.py:_cache_wrap``
-        without the QoS refunds and the peer fill).
+        without the peer fill).
 
         The key (``_request_key``) comes from the raw body before any
         image decode: on the event loop for a body of
@@ -1083,6 +1291,8 @@ class DeconvService:
         no-cache`` skips the cache read, the flight table and the L2 (a
         forced recompute, ``x-cache: bypass``) but refreshes the entry,
         unless ``no-store`` is also present, which skips the write too.
+        With QoS on, a hit, a coalesced waiter and an L2 read refund their
+        provisional device debit down to the fixed hit cost.
 
         Cache counters go to the main registry; per-request accounting to
         the route's own ``metrics``."""
@@ -1106,7 +1316,10 @@ class DeconvService:
                 return _error_response(e, req.id)
             _annotate_model(req.model)
             if self.cache is not None and not bypass:
-                entry = self.cache.lookup(key)
+                charge = None
+                if self.qos is not None and req._qos_grant is not None:
+                    charge = functools.partial(self._charge_hit, req)
+                entry = self.cache.lookup(key, charge=charge)
                 dt = time.perf_counter() - t0
                 if entry is not None:
                     self.metrics.observe_stage("cache_hit", dt)
@@ -1137,6 +1350,7 @@ class DeconvService:
                     self.flights.finish(key, exc=e)
                     raise
                 if filled is not None:
+                    self._charge_hit(req)
                     metrics.observe_request(time.perf_counter() - t0)
                     self.flights.finish(key, resp)
                 elif resp.status >= 400 and errors.code_from_body(resp.body) == "deadline_expired":
@@ -1149,6 +1363,7 @@ class DeconvService:
             else:
                 resp = None if bypass else await self._l2_lookup(key, tr)
                 if resp is not None:
+                    self._charge_hit(req)
                     metrics.observe_request(time.perf_counter() - t0)
                 else:
                     resp = await handler(req)
@@ -1187,6 +1402,8 @@ class DeconvService:
             if tr is not None:
                 tr.add_span("coalesce_wait", t_wait, time.perf_counter() - t_wait,
                             leader=getattr(fut, "leader_trace_id", None))
+            # a waiter runs no device work (the leader's item is charged)
+            self._charge_hit(req)
         metrics.observe_request(time.perf_counter() - t0, errors.code_from_body(resp.body) if resp.status >= 400 else None)
         # the leader's headers may already carry the leader's id
         return Response(status=resp.status, body=resp.body,
@@ -1255,6 +1472,13 @@ class DeconvService:
         body = {"ready": ok, "checks": checks}
         if len(self.weights.served) > 1:
             body["models"] = self.weights.ready_block()
+        # the tiers, and which models carry a calibration artifact (the
+        # snapshot first: dispatch threads insert into the cache)
+        calib = dict(self._calib_cache)
+        body["quality"] = {"default": self.cfg.quality_default, "by_class": dict(self._class_quality),
+                           "calibrated": sorted(m for m, (_q, tag) in calib.items() if tag != "dynamic")}
+        if self.qos is not None:
+            body["qos"] = self.qos.counts()
         # informational blocks: a burning SLO, a firing alert or a
         # degraded best-effort disk tier must not pull the server from
         # rotation (that turns a latency incident into an outage)
@@ -1419,8 +1643,14 @@ class DeconvService:
         ``graph_pool_bytes``, the device memory each resident model's
         captured programs hold (their two pools)."""
         cfg = dataclasses.asdict(self.cfg)
+        cfg["calibration_dir"] = bool(cfg["calibration_dir"])  # a path: reported as configured or not
         cfg["model_active"] = self.weights.default
         cfg["weights"] = self.weights.snapshot()
+        # the tiers and, per model whose int8 path was consulted, the
+        # calibration its int8 keys are bound to (a digest, or 'dynamic')
+        calib = dict(self._calib_cache)
+        cfg["quality"] = {"default": self.cfg.quality_default, "by_class": dict(self._class_quality),
+                          "calibration": {m: tag for m, (_q, tag) in sorted(calib.items())}}
         # the allocator's snapshot, taken while no capture runs
         with DEVICE_LOCK.shared() if torch.cuda.is_available() else contextlib.nullcontext():
             cfg["graph_pool_bytes"] = {
@@ -1449,6 +1679,15 @@ class DeconvService:
             cfg["incidents_state"] = {"writes_total": self.incidents.writes_total,
                                       "corrupt_total": self.incidents.corrupt_total,
                                       "swept_total": self.incidents.swept_total}
+        cfg["qos_active"] = self.qos is not None
+        cfg["tenants"] = bool(cfg["tenants"])  # the spec may be a path: not leaked
+        if self.qos is not None:
+            cfg["qos_state"] = self.qos.snapshot()
+            cfg["qos_state"]["queued_by_class"] = {
+                name: d.queued_by_class()
+                for name, d in (("deconv", self.dispatcher), ("dream", self.dream_dispatcher),
+                                ("sweep", self.sweep_dispatcher))
+            }
         cfg["breaker_active"] = self.cfg.breaker_threshold > 0
         if cfg["breaker_active"]:
             cfg["breaker_state"] = self.lane_pool.state_name()
@@ -1490,6 +1729,12 @@ def pool_bytes(pool) -> int:
         return 0
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def _tenancy(req: Request | None) -> dict:
+    """The dispatcher's tenancy arguments of a request (its DRR queue with
+    QoS on): none for a request that did not come over HTTP."""
+    return {"tenant": req.tenant, "tclass": req.tclass} if req is not None else {}
 
 
 def _annotate_model(model: str) -> None:

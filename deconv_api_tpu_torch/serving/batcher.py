@@ -1,5 +1,5 @@
 """Async batching dispatcher and batch buckets (a copy of
-``deconv_api_tpu/serving/batcher.py`` with its ``qos=None`` path, and the
+``deconv_api_tpu/serving/batcher.py``, and the
 tail padding of ``deconv_api_tpu/serving/codec_pool.py:assemble``).
 
 Requests ``await submit(image, key, deadline)``; the dispatcher coalesces
@@ -592,8 +592,12 @@ class BatchingDispatcher:
         qos=None,
     ):
         self._runner = runner
-        if qos is not None:
-            raise ValueError("qos: only qos=None is served (no tenant queues)")
+        # Multi-tenant QoS (serving/qos.py): with a policy installed the
+        # single FIFO becomes a deficit-round-robin multi-queue keyed by
+        # (tenant, class), and the resolve path charges each tenant its
+        # measured share of the batch wall (the device-time meter the
+        # admission buckets debit).  qos=None keeps the plain FIFO path.
+        self._qos = qos
         # Executor lanes: the service passes ONE pool shared by all its
         # dispatchers (their load and failures are correlated per chip); a
         # bare ``breaker=`` builds a single-stream pool around it.
@@ -608,7 +612,9 @@ class BatchingDispatcher:
         self._max_batch = max_batch
         self._window_s = window_ms / 1e3
         self._timeout_s = request_timeout_s
-        self._queue: asyncio.Queue[WorkItem] = asyncio.Queue()
+        # plain FIFO, or the QoS policy's DRR multi-queue: both expose the
+        # same put/get/get_nowait/qsize/empty slice
+        self._queue = qos.new_queue() if qos is not None else asyncio.Queue()
         # images per executed batch, the most recent ones
         self.batch_sizes: collections.deque[int] = collections.deque(maxlen=4096)
         self._task: asyncio.Task | None = None
@@ -705,6 +711,12 @@ class BatchingDispatcher:
                     )
                 await asyncio.sleep(backoff)
                 backoff = min(backoff * 2, 5.0)
+
+    def queued_by_class(self) -> dict[str, int]:
+        """Queued items per priority class (empty on the FIFO path: there
+        are no classes to split by)."""
+        depths = getattr(self._queue, "depths", None)
+        return depths() if depths is not None else {}
 
     def tasks_alive(self) -> bool:
         """Both pipeline tasks running (the /readyz batcher check).  The
@@ -854,19 +866,48 @@ class BatchingDispatcher:
         if self._shed_factor > 0:
             drain_s = self._estimated_drain_s()
             if drain_s > self._timeout_s * self._shed_factor:
-                if tr is not None:
-                    # a shed request never enqueues: its queue-wait span
-                    # is zero-length but carries the drain estimate that
-                    # shed it, so the error trace explains the 503
-                    tr.add_span(
-                        "queue_wait", time.perf_counter(), 0.0,
-                        shed=True, drain_estimate_s=round(drain_s, 3),
+                # Class-ordered shed: a non-bulk arrival on a QoS queue
+                # evicts the newest queued bulk item instead of being
+                # rejected, and the eviction is charged to the evicted
+                # item's tenant.
+                evicted = None
+                if self._qos is not None and tclass != "bulk":
+                    evicted = self._queue.evict_bulk()
+                if evicted is not None:
+                    self._qos.record_shed(evicted.tenant)
+                    if evicted.trace is not None:
+                        evicted.trace.add_span(
+                            "queue_wait", evicted.enqueued_at,
+                            time.perf_counter() - evicted.enqueued_at,
+                            shed=True, evicted_for_class=tclass,
+                            drain_estimate_s=round(drain_s, 3),
+                        )
+                    if not evicted.future.done():
+                        evicted.future.set_exception(
+                            errors.Overloaded(
+                                "bulk request evicted under overload for a "
+                                "higher-class arrival",
+                                retry_after_s=drain_s,
+                            )
+                        )
+                    # the arrival takes the evicted slot: fall through
+                else:
+                    if self._qos is not None:
+                        self._qos.record_shed(tenant)
+                    if tr is not None:
+                        # a shed request never enqueues: its queue-wait
+                        # span is zero-length but carries the drain
+                        # estimate that shed it, so the error trace
+                        # explains the 503
+                        tr.add_span(
+                            "queue_wait", time.perf_counter(), 0.0,
+                            shed=True, drain_estimate_s=round(drain_s, 3),
+                        )
+                    raise errors.Overloaded(
+                        f"queue drain estimate {drain_s:.1f}s exceeds "
+                        f"{self._timeout_s:.0f}s request timeout; shedding",
+                        retry_after_s=drain_s,
                     )
-                raise errors.Overloaded(
-                    f"queue drain estimate {drain_s:.1f}s exceeds "
-                    f"{self._timeout_s:.0f}s request timeout; shedding",
-                    retry_after_s=drain_s,
-                )
         item = WorkItem(
             image=image, key=key, trace=tr, deadline=deadline,
             tenant=tenant, tclass=tclass,
@@ -1326,6 +1367,13 @@ class BatchingDispatcher:
         now = time.perf_counter()
         lane_ix = lane.index if lane is not None else 0
         self.batch_sizes.append(len(items))
+        if self._qos is not None:
+            # device-time accounting: each member request is charged its
+            # share of the executed batch's wall, the measured cost the
+            # admission buckets debit
+            per_s = (now - t0) / max(1, len(items))
+            for it in items:
+                self._qos.charge(it.tenant, per_s)
         slog.event(
             _log, "batch_done", level=10,  # DEBUG: per-request http_request
             # lines already cover the serving story at INFO

@@ -82,11 +82,25 @@ class Request:
     # which attempt of a retried/hedged request it served.  None for
     # direct traffic or a malformed header — never an error.
     hop: tuple[int, str] | None = None
+    # Tenant identity (multi-tenant QoS): stamped by the admission wrap
+    # (serving/qos.py resolves x-api-key / x-tenant) so the access-log
+    # line, the flight-recorder trace and the dispatcher queue carry the
+    # same identity.  Empty while QoS is off.
+    tenant: str = ""
+    tclass: str = ""
     # Resolved per-request model: the validated ``model=`` form field /
     # ``x-model`` header, or the server default.  Memoized by
     # DeconvService.resolve_request_model so the cache wrap, the route
     # handler and the trace agree on ONE resolution.  Empty = not yet.
     model: str = ""
+    # Resolved per-request quality tier: the ``quality=`` form field, the
+    # ``x-quality`` header, the QoS class's default or the server's,
+    # validated against full|bf16|int8.  Memoized by
+    # DeconvService.resolve_quality, as ``model`` is.  Empty = not yet.
+    quality: str = ""
+    # the admission Grant the QoS wrap keeps so the cache wrap can refund
+    # a hit's provisional device debit
+    _qos_grant: object = field(default=None, repr=False, compare=False)
     # memoized form() result: one parse per request.  None = not parsed yet.
     _form: dict[str, str] | None = field(default=None, repr=False, compare=False)
 
@@ -304,11 +318,13 @@ class HttpServer:
                     else logging.WARNING if resp.status >= 500
                     else logging.INFO
                 )
+                extra = {"tenant": req.tenant} if req.tenant else {}
                 slog.event(
                     _log, "http_request", level=lvl,
                     method=req.method, path=req.path, status=resp.status,
                     id=req.id,
                     ms=round((time.perf_counter() - t0) * 1e3, 1),
+                    **extra,
                 )
                 act = faults.check("http.slow_write")
                 if act is not None:

@@ -199,6 +199,7 @@ class ModelBundle:
         fused_unpool: str = FUSED_DEFAULT,
         sweep: bool = False,
         lowc_kpack: str = "off",
+        quant=None,
     ):
         """``fn(params, batch)`` -> ``{layer: {indices, sums, valid, ...}}``,
         one entry per projected layer (every layer from ``layer`` down with
@@ -209,10 +210,14 @@ class ModelBundle:
         ``post=None`` keeps the raw projections.  ``lowc_kpack``
         (off|auto|forced|<chan>) sets the packed tail of a spec; a DAG model
         validates it and ``fused_unpool`` and leaves both inert, and
-        ignores ``bug_compat`` and ``backward_dtype``.  A ``BatchProgram``,
-        made once per setting (the reference's ``_vis_cache``)."""
+        ignores ``bug_compat`` and ``backward_dtype``.  ``quant`` (None,
+        ``"dynamic"`` or calibrated (entry, amax) pairs) runs a spec's
+        forward walk in int8 (``engine/deconv.py``); a DAG model has no
+        int8 walk and ignores it (the service runs its ``quality=int8`` as
+        bf16).  A ``BatchProgram``, made once per setting (the reference's
+        ``_vis_cache``)."""
         key = self._vis_key(layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep,
-                            lowc_kpack)
+                            lowc_kpack, quant)
         fn = self._vis_cache.get(key)
         if fn is not None:
             return fn
@@ -230,7 +235,7 @@ class ModelBundle:
                 self.spec, layer, top_k, mode, bug_compat,
                 backward_dtype=backward_dtype or None, fused_unpool=fused_unpool,
                 device=self.device, sweep=sweep,
-                kpack_chan=resolve_kpack_chan(lowc_kpack, top_k),
+                kpack_chan=resolve_kpack_chan(lowc_kpack, top_k), quant=quant,
             )
         if self.weight_dtype != "f32":
             # the program reads the stored tree and dequantizes inside its
@@ -239,35 +244,44 @@ class ModelBundle:
         fn = self._vis_cache[key] = raw if post is None else _fuse_post(raw, post)
         return fn
 
-    def _vis_key(self, layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack):
+    def _vis_key(self, layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack,
+                 quant=None):
         """Everything that changes a visualizer, as ``batched_visualizer``
         resolves it (a DAG model validates the sequential engine's knobs and
-        ignores them)."""
+        ignores them).  The float walk's key is the one it had before the
+        int8 tier; a quantized walk appends its quant spec."""
         fused_unpool, kpack_chan = resolve_fused_unpool(fused_unpool), resolve_kpack_chan(lowc_kpack, top_k)
         if self.spec is None:
             return (self.name, layer, mode, top_k, post, sweep)
-        return (self.name, layer, mode, top_k, post, sweep, fused_unpool, kpack_chan, bool(bug_compat),
-                backward_dtype or None)
+        key = (self.name, layer, mode, top_k, post, sweep, fused_unpool, kpack_chan, bool(bug_compat),
+               backward_dtype or None)
+        return key if quant is None else (*key, quant)
 
     def program(
         self, layer: str, mode: str, top_k: int, bucket: int, *, bug_compat: bool = True,
         backward_dtype: str | None = None, post: str | None = None,
-        fused_unpool: str = FUSED_DEFAULT, sweep: bool = False, lowc_kpack: str = "off",
+        fused_unpool: str = FUSED_DEFAULT, sweep: bool = False, lowc_kpack: str = "off", quant=None,
+        dtype: torch.dtype = torch.float32,
     ) -> CapturedProgram:
         """The captured ``batched_visualizer`` program of these settings at a
         batch of ``bucket`` images (``program(batch)`` loads a (bucket, H, W,
         3) batch and replays), from ``self.programs``: captured at its first
-        use, kept per (program key, bucket).  Replay it and read its outputs
-        inside ``self.programs.replaying()``."""
+        use, kept per (program key, bucket).  ``dtype`` is the staged
+        batch's (bfloat16 runs the forward in bf16: ``quality=bf16``).
+        Replay it and read its outputs inside ``self.programs.replaying()``."""
         vis = self.batched_visualizer(
-            layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack
+            layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack, quant
         )
         shape = (bucket, self.image_size, self.image_size, 3)
         key = ("deconv", *self._vis_key(layer, mode, top_k, bug_compat, backward_dtype, post,
-                                        fused_unpool, sweep, lowc_kpack), bucket, shape)
-        return self.programs.get(
-            key, lambda: (functools.partial(vis.body, self.program_params()), (vis.static_input(shape),))
-        )
+                                        fused_unpool, sweep, lowc_kpack, quant), bucket, shape)
+        if dtype != torch.float32:
+            key = (*key, str(dtype))
+
+        def make():
+            return functools.partial(vis.body, self.program_params()), (vis.static_input(shape, dtype),)
+
+        return self.programs.get(key, make)
 
     def dream_program(
         self, layers: tuple[str, ...], ladder: tuple[tuple[int, int], ...], bucket: int

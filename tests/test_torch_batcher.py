@@ -471,5 +471,11 @@ def test_submit_after_stop_fails_fast(impl):
 
 
 def test_the_port_serves_only_the_qos_none_path():
-    with pytest.raises(ValueError, match="qos"):
-        p_batcher.BatchingDispatcher(lambda k, i: i, qos=object())
+    """qos=None keeps the plain FIFO path, as the JAX dispatcher does; a
+    QoS policy's DRR queue replaces it only when one is given (the qos
+    path itself: tests/test_torch_qos.py)."""
+    from deconv_api_tpu_torch.serving.qos import DrrQueue, QosPolicy
+
+    assert isinstance(p_batcher.BatchingDispatcher(lambda k, i: i)._queue, asyncio.Queue)
+    assert isinstance(j_batcher.BatchingDispatcher(lambda k, i: i)._queue, asyncio.Queue)
+    assert isinstance(p_batcher.BatchingDispatcher(lambda k, i: i, qos=QosPolicy(""))._queue, DrrQueue)

@@ -865,3 +865,176 @@ def test_a_hit_and_a_coalesced_waiter_do_no_device_work(dev):
         gate.set()
         server.server_close()
         service.close()
+
+
+# --- the int8 execution tier: K5 and quality=int8 (ops/cuda_q8.py) -------------
+
+
+# (N, H, W, Cin, Cout, kernel, strides, padding, misaligned x): the vector
+# paths (Cin and Cout multiples of 16), the byte paths (Cin 3 and 5, Cout 8
+# and 40, a misaligned input), strides, VALID, 1x1, ragged rows and a
+# full-width VGG16 site
+Q8_CASES = [
+    (2, 9, 11, 3, 8, 3, (1, 1), "SAME", False),
+    (2, 17, 15, 16, 40, 3, (2, 2), "SAME", False),
+    (3, 9, 8, 5, 24, 3, (1, 2), "VALID", False),
+    (2, 6, 6, 64, 64, 1, (1, 1), "VALID", False),
+    (2, 7, 5, 32, 48, 3, (1, 1), "SAME", True),
+    (8, 14, 14, 512, 512, 3, (1, 1), "SAME", False),
+]
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,k,strides,padding,misaligned", Q8_CASES,
+                         ids=lambda c: str(c).replace(" ", ""))
+def test_conv_q8_kernel_is_bit_exact(dev, n, h, w, cin, cout, k, strides, padding, misaligned):
+    from deconv_api_tpu_torch.ops import conv, cuda_q8
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    for extreme in (False, True):
+        x = torch.randint(-127, 128, (n, h, w, cin), generator=g, device=dev, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (k, k, cin, cout), generator=g, device=dev, dtype=torch.int8)
+        if extreme:  # every product at +-127^2: the widest sums
+            x, wq = torch.where(x < 0, -127, 127).to(torch.int8), torch.where(wq < 0, -127, 127).to(torch.int8)
+        if misaligned:
+            x = _misaligned(x)
+        before = cuda_q8.launches["conv_q8"]
+        got = cuda_q8.conv2d_q8(x, wq, strides=strides, padding=padding)
+        assert cuda_q8.launches["conv_q8"] == before + 1
+        assert torch.equal(got, conv.conv2d_q8_plain(x, wq, strides=strides, padding=padding))
+        assert torch.equal(got, ops.conv2d_q8(x, wq, strides=strides, padding=padding))
+
+
+@pytest.mark.parametrize("b,din,dout", [(3, 75, 40), (20, 1024, 1000), (8, 25088, 4096)])
+def test_dense_q8_kernel_is_bit_exact(dev, b, din, dout):
+    from deconv_api_tpu_torch.ops import cuda_q8, linear
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randint(-127, 128, (b, din), generator=g, device=dev, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (din, dout), generator=g, device=dev, dtype=torch.int8)
+    assert torch.equal(cuda_q8.dense_q8(x, wq), linear.dense_q8_plain(x, wq))
+
+
+def test_the_q8_wrapper_raises_on_card_tensors_it_does_not_take(dev):
+    from deconv_api_tpu_torch.ops import cuda_q8
+
+    x = torch.zeros((1, 4, 4, 4), dtype=torch.int8, device=dev)
+    w = torch.zeros((3, 3, 4, 4), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        cuda_q8.conv2d_q8(x.float(), w)
+    with pytest.raises(ValueError, match="groups"):
+        cuda_q8.conv2d_q8(x, w[:, :, :2], feature_group_count=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_q8.conv2d_q8(x.permute(0, 2, 1, 3), w)
+    with pytest.raises(ValueError, match="input channels"):
+        cuda_q8.conv2d_q8(x, w[:, :, :2].contiguous())
+
+
+def test_the_int8_forward_on_the_card_is_its_cpu_run_bit_for_bit(dev):
+    """The int8 walk is exact integer contractions and IEEE elementwise
+    float32 ops (a division, a rounding, a product): vgg_tiny's int8
+    forward to fc1, dynamic and calibrated, gives the card the CPU's
+    switches and outputs bit for bit; the visualizer then the same
+    channels, and grids at 40 dB (the bf16 backward runs through cuDNN on
+    the card)."""
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
+    from deconv_api_tpu_torch.engine.deconv import _forward_chain
+    from deconv_api_tpu_torch.models.spec import entry_chain
+    from deconv_api_tpu_torch.serving.codec import stitch_grid
+
+    params = init_params(VGG_TINY_SPEC, torch.Generator().manual_seed(7), torch.device("cpu"))
+    cparams = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+    x = torch.randn((3, 32, 32, 3), generator=torch.Generator().manual_seed(8)) * 50
+    entries = entry_chain(VGG_TINY_SPEC.truncated("fc1"))
+    for quant in ("dynamic", (("block1_conv1", 150.0), ("block2_conv1", 40.0), ("fc1", 9.0))):
+        sw_cpu, sw_card = {}, {}
+        cpu = _forward_chain(entries, params, x, sw_cpu, quant)
+        card = _forward_chain(entries, cparams, x.to(dev), sw_card, quant)
+        for a, b in zip(cpu, card):
+            assert torch.equal(_bits(a), _bits(b.cpu()))
+        for name in sw_cpu:
+            assert torch.equal(sw_cpu[name][0], sw_card[name][0].cpu())
+        vis = {d: get_visualizer(VGG_TINY_SPEC, "block3_conv1", 4, "all", True, "bfloat16", device=d, quant=quant)
+               for d in ("cpu", "cuda")}
+        r_cpu = vis["cpu"](params, x)["block3_conv1"]
+        r_card = vis["cuda"](cparams, x.to(dev))["block3_conv1"]
+        assert torch.equal(r_cpu["indices"], r_card["indices"].cpu())
+        g_cpu, g_card = stitch_grid(r_cpu["images"], r_cpu["valid"]), stitch_grid(r_card["images"], r_card["valid"])
+        for a, b in zip(g_cpu.numpy(), g_card.cpu().numpy()):
+            assert psnr_db(a, b) >= 40.0
+
+
+def test_each_tier_captures_its_own_graph_and_int8_holds_k5(dev):
+    """The captured programs of full, bf16, dynamic and calibrated int8 at
+    one bucket: four graphs; the int8 ones hold one K5 per conv (5 to
+    block3_conv1) and K1 at each pool; each replay equals its eager run."""
+    bundle = _tiny_bundle(dev)
+    x = torch.randn((2, 32, 32, 3), generator=torch.Generator().manual_seed(9)) * 50
+    settings = dict(bug_compat=True, backward_dtype="bfloat16", post="grid")
+    tiers = {"full": {}, "bf16": {"dtype": torch.bfloat16}, "dynamic": {"quant": "dynamic"},
+             "calibrated": {"quant": (("block1_conv1", 150.0), ("block3_conv1", 20.0))}}
+    for name, tier in tiers.items():
+        prog = bundle.program("block3_conv1", "all", 4, 2, **settings, **tier)
+        eager = bundle.batched_visualizer("block3_conv1", "all", 4, quant=tier.get("quant"), **settings)
+        assert prog.kernels.get("conv_q8", 0) == (5 if "quant" in tier else 0), name
+        assert prog.kernels["pool_argmax"] == 2
+        with bundle.programs.replaying():
+            _same_tree(prog(x), eager(bundle.params, x.to(tier.get("dtype", torch.float32))))
+    assert len(bundle.programs) == 4
+
+
+def test_quality_and_qos_on_the_served_routes_on_the_card(dev):
+    """A vgg_tiny server on the card with ``--qos``: ``quality=bogus`` is a
+    422, bf16 and int8 run their own graphs (K5 five times per int8 replay
+    and per warm-up run of its capture), a bulk tenant's bare request is
+    served int8, and its repeat is a hit that replays nothing."""
+    import base64
+    import json
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    import cv2
+    import numpy as np
+
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.engine.capture import WARMUP_RUNS
+    from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
+
+    img = (np.random.default_rng(11).random((40, 48, 3)) * 255).astype(np.uint8)
+    uri = "data:image/png;base64," + base64.b64encode(cv2.imencode(".png", img)[1].tobytes()).decode()
+
+    def post(fields, headers=None):
+        data = urllib.parse.urlencode({"file": uri, "layer": "block3_conv1", **fields}).encode()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(url, data=data, headers=headers or {}),
+                                        timeout=120) as r:
+                return r.status, r.headers["x-cache"], json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers.get("x-cache"), json.loads(e.read())
+
+    tenants = '{"bulk1": {"class": "bulk"}, "inter": {"class": "interactive"}}'
+    service = DeconvService(_tiny_bundle(dev), ServerConfig(model="vgg_tiny", max_batch=2, qos=True, tenants=tenants))
+    service.start()
+    service.warmup()
+    server = DeconvHTTPServer(service, "127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.server_address[1]}/"
+    try:
+        assert post({"quality": "bogus"})[0] == 422
+        full = post({}, {"x-tenant": "inter"})
+        bf16 = post({"quality": "bf16"}, {"x-tenant": "inter"})
+        ops.reset_launch_counts()
+        bulk = post({}, {"x-tenant": "bulk1"})
+        # the int8 graph's capture (two eager warm-up runs) and one replay
+        counts = (ops.graph_counts["captures"], ops.graph_counts["replays"], ops.launch_counts()["conv_q8"])
+        assert counts == (1, 1, 5 * (1 + WARMUP_RUNS))
+        again = post({}, {"x-tenant": "bulk1"})
+        explicit = post({"quality": "int8"}, {"x-tenant": "inter"})
+        assert (ops.graph_counts["captures"], ops.graph_counts["replays"], ops.launch_counts()["conv_q8"]) == counts
+        assert [r[:2] for r in (full, bf16, bulk, again, explicit)] == [
+            (200, "miss"), (200, "miss"), (200, "miss"), (200, "hit"), (200, "hit")]
+        assert bulk[2] == again[2] == explicit[2] and len({full[2], bf16[2], bulk[2]}) == 3
+        assert service.metrics.counter("quant_int8_batches_total") == 1
+        assert service.metrics.counter("quant_bf16_batches_total") == 1
+    finally:
+        server.server_close()
+        service.close()

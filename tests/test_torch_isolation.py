@@ -43,10 +43,11 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "import deconv_api_tpu_torch.serving.metrics, deconv_api_tpu_torch.serving.weight_manager\n"
         "import deconv_api_tpu_torch.engine.autodeconv, deconv_api_tpu_torch.models.apply\n"
         "from deconv_api_tpu_torch.models import blocks, resnet50, inception_v3, mobilenet_v1, mobilenet_v2, vgg19\n"
-        "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv\n"
+        "from deconv_api_tpu_torch.ops import _build, cuda_pool, cuda_deconv, cuda_q8\n"
+        "from deconv_api_tpu_torch.engine import quant\n"
         "from deconv_api_tpu_torch.utils import slog\n"
         "from deconv_api_tpu_torch.serving import batcher, codec_pool, faults, http, trace\n"
-        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb\n"
+        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb, qos\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
         "assert not bad, bad\n"
@@ -62,7 +63,7 @@ def test_port_imports_without_jax_nvcc_or_triton():
 
 PIPELINE_MODULES = ("utils/slog.py", "serving/faults.py", "serving/trace.py", "serving/codec_pool.py",
                     "serving/http.py", "serving/batcher.py", "serving/durable.py", "serving/cache.py",
-                    "serving/tsdb.py", "serving/alerts.py")
+                    "serving/tsdb.py", "serving/alerts.py", "serving/qos.py", "engine/quant.py", "ops/cuda_q8.py")
 
 
 def test_the_request_pipeline_modules_are_the_ports_own():
@@ -113,6 +114,8 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         lambda: main(["serve", "--model", "mobilenet_v1", "--port", "0"]),
         lambda: main(["serve", "--model", "vgg_tiny", "--serve-models", "vgg_tiny,mobilenet_v2", "--port", "0"]),
         lambda: DeconvService(cfg=ServerConfig(model="vgg_tiny", serve_models="all", weight_dtype="int8")),
+        lambda: DeconvService(cfg=ServerConfig(model="vgg_tiny", qos=True, quality_default="int8")),
+        lambda: get_visualizer(VGG_TINY_SPEC, "fc1", quant="dynamic"),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
