@@ -18,8 +18,12 @@ Phases, each printing JSON lines:
    K2 also the time of one call with the L2 evicted before it, and each
    site's time, launch plan and share of its bound (for K3 its rate, the
    port's unfused pair's time and the fp32 kernel's time); K5, the int8
-   conv, bit for bit at every conv of the int8 forward and at fc1, beside
-   ``torch._int_mm`` on the im2col'd operands where its rules allow;
+   layer step, bit for bit at every conv of the int8 forward and at fc1:
+   its input quantizer, its K-major weight quantizer, its contraction as
+   the raw int32 accumulator and as the fused step (bias fold, relu,
+   dequantize), each beside its plain version and its bound, the raw
+   contraction beside ``torch._int_mm`` on the im2col'd operands where its
+   rules allow;
 4. main path ``POST /``: ``serve`` with VGG16 at full width on a free port,
    8 concurrent ``POST /`` at block5_conv1 plus one at block3_conv3 and one
    at fc1, then one batch repeated at the other ``fused_unpool`` setting
@@ -84,7 +88,8 @@ Phases, each printing JSON lines:
    the L2 tier across a restart (``phase_cache``);
 13. quality: a VGG16 server with ``--tenants`` (two tenants, so QoS on):
    ``quality=bogus`` a 422, the three tiers and a calibrated int8 server
-   on ``POST /`` (K5 11 times per int8 replay), the tiers' captured
+   on ``POST /`` (K5's contraction, input quantizer and weight quantizer
+   11 times each per int8 replay), the tiers' captured
    programs timed, and a QoS turn of an interactive and a bulk tenant
    (``phase_quality``).
 Phases 4-11 and 13 measure device work: their servers run with
@@ -163,6 +168,37 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, n: int = 20, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: ``n`` calls captured in a CUDA
+    graph, the median of ``reps`` replays by CUDA events over ``n``.  No
+    host work between the launches, so a kernel shorter than its wrapper's
+    host time is timed by itself (``time_ms`` counts that host time)."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
     return statistics.median(times)
 
 
@@ -429,9 +465,10 @@ def phase_kernels(torch) -> dict:
         "tflops": flops / ms / 1e9, "bound_share": bound_s * 1e3 / ms, "fp32_ms": fp32_ms,
     }
     rows.update(grouped_kernels(torch, gen))
-    rows["conv_q8"] = q8_kernels(torch, gen)
+    rows.update(q8_kernels(torch, gen))
     emit({"phase": "kernels", "checked": sorted(rows),
-          "exact": ["pool_argmax", "unpool_argmax", "unpool_argmax_grouped", "conv_q8"], "per_kernel": rows})
+          "exact": ["pool_argmax", "unpool_argmax", "unpool_argmax_grouped", "conv_q8", "quantize_q8",
+                    "quantize_w_q8"], "per_kernel": rows})
     return rows
 
 
@@ -543,77 +580,179 @@ def im2col_q8(torch, x, kh: int, kw: int):
 
 
 def q8_kernels(torch, gen) -> dict:
-    """K5 against its plain version (the contraction in float64), bit for
-    bit, at every conv of the int8 forward up to block5_conv1 and at fc1,
-    plus two strided geometries; its single-call time per site beside the
-    plain version's and, where ``torch._int_mm``'s shape rules allow (more
-    than 16 rows, a reduction and width in multiples of 8), that call's on
-    the im2col'd operands, the GEMM alone.  Bound: operations at the int8
-    tensor-core rate, or bytes where they take longer."""
-    from deconv_api_tpu_torch.ops import conv, cuda_q8, linear
+    """K5, the int8 layer step, at every conv of the int8 forward up to
+    block5_conv1 and at fc1, bit for bit against its plain versions on the
+    same card tensors: the input quantizer (``quantize_q8``), the weight
+    quantizer (``quantize_w_q8``, K-major), the contraction as the raw int32
+    accumulator (``plain``: the float64 contraction) and as the fused step
+    (bias fold, relu, dequantize; ``plain``: the op-by-op finish on the
+    float64 contraction), plus two strided geometries and a ragged width.
+    Per site: single-call times by CUDA events of each entry and of the
+    whole step (``ms``, the method of the earlier slices, host time of the
+    wrapper included), their device times by CUDA-graph replay
+    (``device_ms``, ``graph_ms``), the plain versions', ``torch._int_mm``
+    on the im2col'd operands (the GEMM alone, where its shape rules allow:
+    more than 16 rows, a reduction and width in multiples of 8), and each
+    entry's bound: bytes (each input read once, each output written once)
+    or operations at the int8 tensor-core rate, whichever takes longer.
+    Returns the kernels-line rows of the three entries."""
+    from deconv_api_tpu_torch.ops import conv, cuda_q8, linear, q8
 
     dev = torch.device("cuda")
 
-    def rand_q8(shape):
-        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+    def step_inputs(shape, kernel):
+        """Float input (row 1 zero: amax 0, scale 1.0) and its scales, a
+        He-normal float kernel (HWIO or (in, out)) and its scale, a float
+        bias."""
+        x = torch.randn(shape, generator=gen, device=dev) * 3
+        x[1] = 0
+        fan_in = kernel[0] * kernel[1] * kernel[2] if len(kernel) == 4 else kernel[0]
+        wf = torch.randn(kernel, generator=gen, device=dev) * (2.0 / fan_in) ** 0.5
+        sw = q8.q8_scale(q8.row_amax(wf.reshape(1, -1))[0])
+        b = torch.randn((kernel[-1],), generator=gen, device=dev) * 0.1
+        return x, q8.q8_scale(q8.row_amax(x)), wf, sw, b
 
-    sites, lib_sites = [], 0
-    for h, w, cin, cout in Q8_CONV_SITES:
-        x, wq = rand_q8((B, h, w, cin)), rand_q8((3, 3, cin, cout))
-        got = cuda_q8.conv2d_q8(x, wq)
-        if not torch.equal(got, conv.conv2d_q8_plain(x, wq)):
-            raise AssertionError(f"conv_q8 differs from plain at {(B, h, w, cin, cout)}")
-        site = {"site": [B, h, w, cin, cout], "ms": time_ms(lambda: cuda_q8.conv2d_q8(x, wq)),
-                "plain_ms": time_ms(lambda: conv.conv2d_q8_plain(x, wq), reps=3, warmup=1),
-                "ops": 2 * B * h * w * 9 * cin * cout, "bytes": x.numel() + wq.numel() + got.numel() * 4}
-        if 9 * cin % 8 == 0 and cout % 8 == 0:
-            a, bm = im2col_q8(torch, x, 3, 3), wq.reshape(9 * cin, cout)
-            if not torch.equal(torch._int_mm(a, bm).reshape(got.shape), got):
-                raise AssertionError(f"torch._int_mm differs from conv_q8 at {(B, h, w, cin, cout)}")
+    def check(what, got, want):
+        if got.dtype == torch.float32:
+            got, want = bits(torch, got), bits(torch, want)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what} differs from its plain version")
+
+    def site_row(name, x, sx, wf, sw, b, contract, contract_plain, fused, lib=None):
+        """One site: every entry checked, then timed."""
+        xq, wq = cuda_q8.quantize_rows(x, sx), cuda_q8.quantize_weight(wf, sw)
+        scale = sx * sw
+        check(f"quantize_q8 at {name}", xq, q8.quantize_rows_plain(x, sx))
+        check(f"quantize_w_q8 at {name}", wq, q8.quantize_weight_plain(wf, sw))
+        raw = contract(xq, wq)
+        check(f"conv_q8 (raw) at {name}", raw, contract_plain(xq, wq))
+        y = fused(xq, wq, b, scale)
+        plain_fused = lambda: q8.finish_plain(contract_plain(xq, wq), scale, b, "relu")
+        check(f"conv_q8 (fused) at {name}", y, plain_fused())
+        step = (q8.dense_q8_step if x.dim() == 2 else q8.conv2d_q8_step)
+        step_plain = (q8.dense_q8_step_plain if x.dim() == 2 else q8.conv2d_q8_step_plain)
+        check(f"the int8 step at {name}", step(x, sx, wq, sw, b, "relu"), step_plain(x, sx, wq, sw, b, "relu"))
+        ops_ = 2 * raw.numel() * wq[0].numel()
+        site = {
+            "site": name, "ms": time_ms(lambda: fused(xq, wq, b, scale)), "raw_ms": time_ms(lambda: contract(xq, wq)),
+            "device_ms": graph_ms(lambda: fused(xq, wq, b, scale)),
+            "raw_device_ms": graph_ms(lambda: contract(xq, wq)),
+            "quantize_device_ms": graph_ms(lambda: cuda_q8.quantize_rows(x, sx)),
+            "quantize_w_device_ms": graph_ms(lambda: cuda_q8.quantize_weight(wf, sw)),
+            "step_device_ms": graph_ms(lambda: step(x, sx, wq, sw, b, "relu")),
+            "plain_ms": time_ms(plain_fused, reps=3, warmup=1),
+            "raw_plain_ms": time_ms(lambda: contract_plain(xq, wq), reps=3, warmup=1),
+            "quantize_ms": time_ms(lambda: cuda_q8.quantize_rows(x, sx)),
+            "quantize_plain_ms": time_ms(lambda: q8.quantize_rows_plain(x, sx)),
+            "quantize_w_ms": time_ms(lambda: cuda_q8.quantize_weight(wf, sw)),
+            "quantize_w_plain_ms": time_ms(lambda: q8.quantize_weight_plain(wf, sw)),
+            "step_ms": time_ms(lambda: step(x, sx, wq, sw, b, "relu")),
+            "step_plain_ms": time_ms(lambda: step_plain(x, sx, wq, sw, b, "relu"), reps=3, warmup=1),
+            "ops": ops_,
+            "bytes": xq.numel() + wq.numel() + (b.numel() + scale.numel()) * 4 + y.numel() * 4,
+            "raw_bytes": xq.numel() + wq.numel() + raw.numel() * 4,
+            "quantize_bytes": x.numel() * 5 + sx.numel() * 4,
+            "quantize_w_bytes": wf.numel() * 5 + 4,
+            "library_ms": None,
+        }
+        if lib is not None:
+            a, bm = lib(xq, wq)
+            if not torch.equal(torch._int_mm(a, bm).reshape(raw.shape), raw):
+                raise AssertionError(f"torch._int_mm differs from conv_q8 at {name}")
             site["library_ms"] = time_ms(lambda: torch._int_mm(a, bm))
-            lib_sites += 1
             del a, bm
-        else:
-            site["library_ms"] = None  # a reduction of 27: _int_mm takes multiples of 8
-        sites.append(site)
-    din, dout = Q8_DENSE_SITE
-    x, wq = rand_q8((B, din)), rand_q8((din, dout))
-    got = cuda_q8.dense_q8(x, wq)
-    if not torch.equal(got, linear.dense_q8_plain(x, wq)):
-        raise AssertionError(f"dense_q8 differs from plain at {(B, din, dout)}")
-    dense = {"site": [B, din, dout], "ms": time_ms(lambda: cuda_q8.dense_q8(x, wq)),
-             "plain_ms": time_ms(lambda: linear.dense_q8_plain(x, wq), reps=3, warmup=1),
-             "library_ms": None,  # 8 rows: torch._int_mm takes more than 16
-             "ops": 2 * B * din * dout, "bytes": x.numel() + wq.numel() + got.numel() * 4}
-    del x, wq, got
-    # strided and VALID geometries and a ragged width (not on the path)
-    for (n, h, w, cin, cout), strides, padding in (((2, 15, 17, 16, 40), (2, 2), "SAME"),
-                                                   ((3, 9, 8, 5, 24), (1, 2), "VALID")):
-        x, wq = rand_q8((n, h, w, cin)), rand_q8((3, 3, cin, cout))
-        if not torch.equal(cuda_q8.conv2d_q8(x, wq, strides=strides, padding=padding),
-                           conv.conv2d_q8_plain(x, wq, strides=strides, padding=padding)):
-            raise AssertionError(f"conv_q8 differs from plain at {(n, h, w, cin, cout)} {strides} {padding}")
-    for site in sites + [dense]:
-        site["bound_ms"] = max(site["ops"] / INT8_OPS, site["bytes"] / HBM_BYTES_PER_S) * 1e3
+        for key, nbytes, nops in (("bound_ms", site["bytes"], ops_), ("raw_bound_ms", site["raw_bytes"], ops_),
+                                  ("quantize_bound_ms", site["quantize_bytes"], 0),
+                                  ("quantize_w_bound_ms", site["quantize_w_bytes"], 0)):
+            site[key] = max(nops / INT8_OPS, nbytes / HBM_BYTES_PER_S) * 1e3
         site["bound_share"] = site["bound_ms"] / site["ms"]
-        site["tops"] = site["ops"] / site["ms"] / 1e9
+        site["device_bound_share"] = site["bound_ms"] / site["device_ms"]
+        site["raw_bound_share"] = site["raw_bound_ms"] / site["raw_device_ms"]
+        site["quantize_bound_share"] = site["quantize_bound_ms"] / site["quantize_device_ms"]
+        site["tops"] = ops_ / site["device_ms"] / 1e9
+        return site
+
+    def conv_plain(xq, wq, **geo):
+        return conv.conv2d_q8_plain(xq, wq.permute(1, 2, 3, 0), **geo)
+
+    def im2col_lib(xq, wq):
+        return im2col_q8(torch, xq, 3, 3), wq.permute(1, 2, 3, 0).reshape(-1, wq.shape[0])
+
+    def relu_fused(xq, wq, b, scale):
+        return cuda_q8.conv2d_q8_fused(xq, wq, b, scale, relu=True)
+
+    sites = []
+    for h, w, cin, cout in Q8_CONV_SITES:
+        x, sx, wf, sw, b = step_inputs((B, h, w, cin), (3, 3, cin, cout))
+        lib = im2col_lib if 9 * cin % 8 == 0 and cout % 8 == 0 else None  # not a reduction of 27
+        sites.append(site_row([B, h, w, cin, cout], x, sx, wf, sw, b, cuda_q8.conv2d_q8_kmajor, conv_plain,
+                              relu_fused, lib))
+        del x, wf
+    din, dout = Q8_DENSE_SITE
+    x, sx, wf, sw, b = step_inputs((B, din), (din, dout))
+    dense = site_row([B, din, dout], x, sx, wf, sw, b, cuda_q8.dense_q8_kmajor,
+                     lambda xq, wq: linear.dense_q8_plain(xq, wq.T),
+                     lambda xq, wq, b, scale: cuda_q8.dense_q8_fused(xq, wq, b, scale, relu=True))
+    del x, wf
+    # strided and VALID geometries and ragged widths (not on the path)
+    for (n, h, w, cin, cout), strides, padding in (((2, 15, 17, 16, 40), (2, 2), "SAME"),
+                                                   ((3, 9, 8, 5, 24), (1, 2), "VALID"),
+                                                   ((3, 9, 11, 32, 70), (1, 1), "SAME")):
+        x, sx, wf, sw, b = step_inputs((n, h, w, cin), (3, 3, cin, cout))
+        wq = cuda_q8.quantize_weight(wf, sw)
+        xq = cuda_q8.quantize_rows(x, sx)
+        check(f"conv_q8 (raw) at {(n, h, w, cin, cout)} {strides} {padding}",
+              cuda_q8.conv2d_q8_kmajor(xq, wq, strides=strides, padding=padding),
+              conv_plain(xq, wq, strides=strides, padding=padding))
+        for act in ("relu", "linear", "relu6"):
+            check(f"the int8 step at {(n, h, w, cin, cout)} {strides} {padding} {act}",
+                  q8.conv2d_q8_step(x, sx, wq, sw, b, act, strides, padding),
+                  q8.conv2d_q8_step_plain(x, sx, wq, sw, b, act, strides, padding))
     emit({"phase": "kernels", "conv_q8_sites": sites, "dense_q8_site": dense})
-    ms = sum(s["ms"] for s in sites)
-    ops = sum(s["ops"] for s in sites)
-    nbytes = sum(s["bytes"] for s in sites)
-    bound_ms = sum(s["bound_ms"] for s in sites)
+
+    def total(key):
+        return sum(s[key] for s in sites)
+
+    ops_, nbytes = total("ops"), total("bytes")
     lib = [s for s in sites if s["library_ms"] is not None]
+    replaces = "none (XLA's conv2d_q8, deconv_api_tpu/ops/conv.py:55, dense_q8, ops/linear.py:27, and " \
+               "the int8 step around them, deconv_api_tpu/engine/deconv.py:69)"
     return {
-        "source": "deconv_api_tpu_torch/csrc/conv_q8.cu",
-        "replaces": "none (XLA's conv2d_q8, deconv_api_tpu/ops/conv.py:55, and dense_q8, ops/linear.py:27)",
-        "max_abs_err": 0.0, "ms": ms, "plain_ms": sum(s["plain_ms"] for s in sites), "bound_ms": bound_ms,
-        "bound_by": "operations" if ops / INT8_OPS >= nbytes / HBM_BYTES_PER_S else "bytes",
-        # summed over the sites _int_mm takes; the kernel's time on the same sites beside it
-        "library_ms": sum(s["library_ms"] for s in lib),
-        "library": f"torch._int_mm on the im2col'd operands, the GEMM alone, {len(lib)} of {len(sites)} convs",
-        "ms_on_library_sites": sum(s["ms"] for s in lib),
-        "tops": ops / ms / 1e9, "bound_share": bound_ms / ms, "gmac_per_image": ops / 2 / B / 1e9,
-        "fc1_ms": dense["ms"], "fc1_plain_ms": dense["plain_ms"],
+        "conv_q8": {
+            "source": "deconv_api_tpu_torch/csrc/conv_q8.cu", "replaces": replaces,
+            "max_abs_err": 0.0, "ms": total("ms"), "plain_ms": total("plain_ms"), "bound_ms": total("bound_ms"),
+            "bound_by": "operations" if ops_ / INT8_OPS >= nbytes / HBM_BYTES_PER_S else "bytes",
+            # summed over the sites _int_mm takes; the raw contraction's time on the same sites beside it
+            "library_ms": sum(s["library_ms"] for s in lib),
+            "library": f"torch._int_mm on the im2col'd operands, the GEMM alone, {len(lib)} of {len(sites)} convs",
+            "raw_ms_on_library_sites": sum(s["raw_ms"] for s in lib),
+            "device_ms": total("device_ms"), "device_bound_share": total("bound_ms") / total("device_ms"),
+            "raw_ms": total("raw_ms"), "raw_device_ms": total("raw_device_ms"), "raw_plain_ms": total("raw_plain_ms"),
+            "raw_bound_ms": total("raw_bound_ms"), "raw_bound_share": total("raw_bound_ms") / total("raw_device_ms"),
+            "step_ms": total("step_ms"), "step_device_ms": total("step_device_ms"),
+            "step_plain_ms": total("step_plain_ms"),
+            "tops": ops_ / total("device_ms") / 1e9, "bound_share": total("bound_ms") / total("ms"),
+            "gmac_per_image": ops_ / 2 / B / 1e9,
+            "fc1_ms": dense["ms"], "fc1_device_ms": dense["device_ms"], "fc1_raw_ms": dense["raw_ms"],
+            "fc1_plain_ms": dense["plain_ms"], "fc1_bound_ms": dense["bound_ms"],
+        },
+        "quantize_q8": {
+            "source": "deconv_api_tpu_torch/csrc/conv_q8.cu (quantize_rows_q8)", "replaces": replaces,
+            "max_abs_err": 0.0, "ms": total("quantize_ms"), "plain_ms": total("quantize_plain_ms"),
+            "bound_ms": total("quantize_bound_ms"), "bound_by": "bytes", "library_ms": None,
+            "device_ms": total("quantize_device_ms"),
+            "device_bound_share": total("quantize_bound_ms") / total("quantize_device_ms"),
+            "fc1_ms": dense["quantize_ms"],
+        },
+        "quantize_w_q8": {
+            "source": "deconv_api_tpu_torch/csrc/conv_q8.cu (quantize_t_q8)", "replaces": replaces,
+            "max_abs_err": 0.0, "ms": total("quantize_w_ms"), "plain_ms": total("quantize_w_plain_ms"),
+            "bound_ms": total("quantize_w_bound_ms"), "bound_by": "bytes", "library_ms": None,
+            "device_ms": total("quantize_w_device_ms"),
+            "device_bound_share": total("quantize_w_bound_ms") / total("quantize_w_device_ms"),
+            "fc1_ms": dense["quantize_w_ms"], "fc1_device_ms": dense["quantize_w_device_ms"],
+            "fc1_bound_ms": dense["quantize_w_bound_ms"],
+        },
     }
 
 
@@ -2888,9 +3027,9 @@ def phase_quality(torch, label: str) -> dict:
     zeroed before the first request and read after the last.
     1. ``quality=bogus`` answered 422 ``illegal_quality``; the 8 images at
        ``quality=full``, ``bf16`` and ``int8`` (dynamic), 8 at once each:
-       every answer 200, K5 launched INT8_CONVS times per int8 replay (and
-       per warm-up run of a capture) and not at all by the others, each
-       int8 graph holding INT8_CONVS K5;
+       every answer 200, K5's three entries launched INT8_CONVS times each
+       per int8 replay (and per warm-up run of a capture) and not at all by
+       the others, each int8 graph holding INT8_CONVS of each;
        the bf16 and int8 grids' PSNR against the full grids, printed;
     2. a calibration artifact that ``engine/quant.py:collect_ranges``
        writes from the 8 images, and a second server of the same bundle on
@@ -2959,21 +3098,23 @@ def phase_quality(torch, label: str) -> dict:
             answers[tier], counts = counted(lambda: _concurrent_posts(port, [{**f, "quality": tier} for f in forms]))
             k5 = counts["conv_q8"]
             tiers[tier] = {"statuses": sorted({a[0] for a in answers[tier]}), "replays": counts["replays"],
-                           "captures": counts["captures"], "conv_q8": k5, "pool_argmax": counts["pool_argmax"],
+                           "captures": counts["captures"], "conv_q8": k5, "quantize_q8": counts["quantize_q8"],
+                           "quantize_w_q8": counts["quantize_w_q8"], "pool_argmax": counts["pool_argmax"],
                            "int8_batches": service.metrics.counter("quant_int8_batches_total") - int8_before,
                            "p50_s": statistics.median(a[2] for a in answers[tier])}
             want_k5 = k5_launches(counts) if tier == "int8" else 0
-            if tiers[tier]["statuses"] != [200] or not counts["replays"] or k5 != want_k5:
+            if (tiers[tier]["statuses"] != [200] or not counts["replays"] or k5 != want_k5
+                    or counts["quantize_q8"] != want_k5 or counts["quantize_w_q8"] != want_k5):
                 failed.append(f"quality={tier}: {tiers[tier]}")
         for tier in ("bf16", "int8"):
             tiers[tier]["psnr_vs_full_db"] = psnrs(answers[tier], answers["full"])
         # a dynamic int8 program's key: ("deconv", the float key's ten
         # fields, "dynamic", bucket, shape)
-        int8_graphs = [p.kernels.get("conv_q8", 0) for k, p in bundle.programs.programs().items()
-                       if len(k) == 14 and k[11] == "dynamic"]
+        int8_graphs = [(p.kernels.get("conv_q8", 0), p.kernels.get("quantize_q8", 0), p.kernels.get("quantize_w_q8", 0))
+                       for k, p in bundle.programs.programs().items() if len(k) == 14 and k[11] == "dynamic"]
         tiers["int8"]["k5_per_graph"] = int8_graphs
-        if not int8_graphs or set(int8_graphs) != {INT8_CONVS}:
-            failed.append(f"int8 graphs hold {int8_graphs} K5, expected {INT8_CONVS} each")
+        if not int8_graphs or set(int8_graphs) != {(INT8_CONVS,) * 3}:
+            failed.append(f"int8 graphs hold {int8_graphs} K5 launches, expected {INT8_CONVS} of each entry")
         out["tiers"] = tiers
 
         # the calibrated int8 tier: an artifact from the 8 images
@@ -2998,6 +3139,7 @@ def phase_quality(torch, label: str) -> dict:
             cal = {"collect_s": time.perf_counter() - t_cal, "entries": len(ranges), "digest": digest,
                    "statuses": sorted({a[0] for a in cal_answers}), "replays": counts["replays"],
                    "captures": counts["captures"], "conv_q8": counts["conv_q8"],
+                   "quantize_q8": counts["quantize_q8"], "quantize_w_q8": counts["quantize_w_q8"],
                    "k5_expected": k5_launches(counts), "key_carries_digest": key == want_key,
                    "config_calibration": calibrated.service.config()["quality"]["calibration"],
                    "psnr_vs_full_db": psnrs(cal_answers, answers["full"]),
@@ -3006,7 +3148,8 @@ def phase_quality(torch, label: str) -> dict:
             _stop(calibrated)
         out["calibrated"] = cal
         if (cal["statuses"] != [200] or not cal["key_carries_digest"] or not cal["replays"]
-                or cal["conv_q8"] != cal["k5_expected"] or cal["config_calibration"] != {bundle.name: digest}):
+                or not cal["conv_q8"] == cal["quantize_q8"] == cal["quantize_w_q8"] == cal["k5_expected"]
+                or cal["config_calibration"] != {bundle.name: digest}):
             failed.append(f"calibrated int8: {cal}")
 
         # the captured batch-8 programs of each tier, timed in turns
@@ -3020,6 +3163,10 @@ def phase_quality(torch, label: str) -> dict:
                 times.setdefault(name, []).append(_timed(torch, runs[name], reps=20, profiled=turn == 0))
         out["captured"] = {name: {"p50_ms": [t["p50_ms"] for t in ts], "images_per_s": [t["images_per_s"] for t in ts],
                                   "profile": ts[0].get("profile")} for name, ts in times.items()}
+        out["tiers_summary"] = {name: {"p50_ms": c["p50_ms"], "images_per_s": c["images_per_s"],
+                                       "device_busy_ms": (c["profile"] or {}).get("device_busy_ms"),
+                                       "idle_share": (c["profile"] or {}).get("idle_share")}
+                                for name, c in out["captured"].items()}
 
         # the QoS turn: an interactive and a bulk tenant at once
         shares = {"inter": [], "bulk1": []}

@@ -37,7 +37,6 @@ from deconv_api_tpu_torch._device import resolve_device
 from deconv_api_tpu_torch.engine.capture import BatchProgram
 from deconv_api_tpu_torch.models.spec import Entry, ModelSpec, entry_chain
 from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT, resolve_fused_unpool
-from deconv_api_tpu_torch.utils.quantize import Q8_LEVELS
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -68,49 +67,24 @@ def _up_step(e: Entry, params, x, switches):
     raise AssertionError(l.kind)
 
 
-def _q8_scale(amax: torch.Tensor) -> torch.Tensor:
-    """The symmetric int8 scale ``amax / 127`` (1.0 where amax is 0), a
-    float32 division by a tensor: PyTorch's CUDA division by a CPU scalar
-    multiplies by its reciprocal instead, which can round differently."""
-    levels = torch.full_like(amax, Q8_LEVELS)
-    return torch.where(amax > 0, amax, levels) / levels
-
-
 def _up_step_q8(e: Entry, params, x, amax):
     """One int8 forward step of a conv or dense entry (the JAX package's
     ``_up_step_q8``).  ``amax`` is each row's input range: a calibrated
     constant (a Python float) or the rows' own max-abs as a (B,) tensor
-    (dynamic).  The input quantizes to
-    symmetric int8 at ``sx = amax / 127`` per row, the kernel at ``sw =
-    max|w| / 127``, the contraction runs int8 x int8 -> int32
-    (``ops.conv2d_q8`` / ``ops.dense_q8``), and the bias folds into the
-    accumulator at ``sx * sw``, clamped to +-2^30 so the int32 add cannot
-    wrap.  relu and linear apply on the accumulator, before the one
-    dequant multiply; other activations after it.  The arithmetic is the
-    JAX package's: a float32 division (not a multiply by the reciprocal),
-    round half to even, clip to +-127."""
+    (dynamic).  The input quantizes to symmetric int8 at ``sx = amax / 127``
+    per row, the kernel at ``sw = max|w| / 127``; the contraction, the bias
+    fold, relu and the dequantize are ``ops.conv2d_q8_step`` /
+    ``ops.dense_q8_step`` (``ops/q8.py``: K5 on the card)."""
     l = e.layer
-    w = params[l.name]["w"].float()
-    b = params[l.name]["b"].float()
     x = x.float()
     if not isinstance(amax, torch.Tensor):  # a calibrated constant, for every row
         amax = torch.full((x.shape[0],), amax, dtype=torch.float32, device=x.device)
-    sx = _q8_scale(amax).reshape(-1, *[1] * (x.dim() - 1))
-    sw = _q8_scale(w.abs().amax())
-    xq = torch.clamp(torch.round(x / sx), -Q8_LEVELS, Q8_LEVELS).to(torch.int8)
-    wq = torch.clamp(torch.round(w / sw), -Q8_LEVELS, Q8_LEVELS).to(torch.int8)
+    sx = ops.q8_scale(amax)
+    wq, sw = ops.quantize_weight_q8(params[l.name]["w"].float())
+    b = params[l.name]["b"].float()
     if l.kind == "conv":
-        acc = ops.conv2d_q8(xq, wq, strides=l.strides, padding=l.padding)
-    else:
-        acc = ops.dense_q8(xq, wq)
-    scale = sx * sw
-    bq = torch.clamp(torch.round(b / scale), -(2.0**30), 2.0**30).to(torch.int32)
-    acc = acc + bq
-    if ops.int8_safe_activation(l.activation):
-        if l.activation == "relu":
-            acc = torch.clamp_min(acc, 0)
-        return acc.float() * scale
-    return ops.apply_activation(acc.float() * scale, l.activation)
+        return ops.conv2d_q8_step(x, sx, wq, sw, b, l.activation, strides=l.strides, padding=l.padding)
+    return ops.dense_q8_step(x, sx, wq, sw, b, l.activation)
 
 
 def _forward_chain(entries, params, images, switches, quant=None):
@@ -125,7 +99,7 @@ def _forward_chain(entries, params, images, switches, quant=None):
         if quant is not None and not e.is_companion_act and e.layer.kind in ("conv", "dense"):
             amax = calibrated.get(e.name)
             if amax is None:
-                amax = x.float().abs().amax(dim=tuple(range(1, x.dim())))
+                amax = ops.row_amax(x.float())
             x = _up_step_q8(e, params, x, amax)
         else:
             x = _up_step(e, params, x, switches)

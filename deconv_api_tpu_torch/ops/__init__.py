@@ -21,6 +21,13 @@ from deconv_api_tpu_torch.ops.linear import (
     unflatten,
 )
 from deconv_api_tpu_torch.ops.pool import maxpool_with_argmax, unpool_with_argmax
+from deconv_api_tpu_torch.ops.q8 import (
+    conv2d_q8_step,
+    dense_q8_step,
+    q8_scale,
+    row_amax,
+)
+from deconv_api_tpu_torch.ops.q8 import quantize_weight as quantize_weight_q8
 
 
 # CUDA graphs captured and replayed (engine/capture.py).  A wrapper called
@@ -58,9 +65,11 @@ __all__ = [
     "conv2d_input_backward",
     "conv2d_input_backward_grouped",
     "conv2d_q8",
+    "conv2d_q8_step",
     "dense",
     "dense_input_backward",
     "dense_q8",
+    "dense_q8_step",
     "flatten",
     "flip_kernel",
     "fused_unpool_backward",
@@ -68,7 +77,10 @@ __all__ = [
     "int8_safe_activation",
     "launch_counts",
     "maxpool_with_argmax",
+    "q8_scale",
+    "quantize_weight_q8",
     "reset_launch_counts",
+    "row_amax",
     "unflatten",
     "unpool_with_argmax",
 ]

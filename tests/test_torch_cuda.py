@@ -929,6 +929,119 @@ def test_the_q8_wrapper_raises_on_card_tensors_it_does_not_take(dev):
         cuda_q8.conv2d_q8(x, w[:, :, :2].contiguous())
 
 
+# The fused int8 step (ops/q8.py on K5) against its plain version on the
+# same card tensors.  (rows, H, W, Cin, Cout, strides, padding, activation):
+# the 11 VGG16 convs of batch 8 up to block5_conv1, the strided and VALID
+# geometries chip_smoke.py checks, a ragged Cout, small Cin; H is None for a
+# dense layer (Cin -> Cout): fc1 of VGG16, a ragged one, and a softmax head.
+VGG16_Q8_CONVS = [(224, 3, 64), (224, 64, 64), (112, 64, 128), (112, 128, 128), (56, 128, 256), (56, 256, 256),
+                  (56, 256, 256), (28, 256, 512), (28, 512, 512), (28, 512, 512), (14, 512, 512)]
+STEP_CASES = [(8, hw, hw, cin, cout, (1, 1), "SAME", "relu") for hw, cin, cout in VGG16_Q8_CONVS] + [
+    (2, 15, 17, 16, 40, (2, 2), "SAME", "linear"),
+    (3, 9, 8, 5, 24, (1, 2), "VALID", "relu6"),
+    (3, 9, 11, 32, 70, (1, 1), "SAME", "relu"),
+    (3, 9, 11, 32, 70, (1, 1), "SAME", "linear"),
+    (3, 9, 11, 32, 70, (1, 1), "SAME", "relu6"),
+    (2, 33, 20, 3, 16, (1, 1), "SAME", "relu"),
+    (8, None, None, 25088, 4096, None, None, "relu"),
+    (3, None, None, 1000, 40, None, None, "linear"),
+    (5, None, None, 256, 100, None, None, "softmax"),
+]
+
+
+def _step_inputs(dev, rows, h, w, cin, cout, seed):
+    """Float input (row 1 all zeros: amax 0, scale 1.0), its per-row scales,
+    a quantized K-major kernel and a float bias, made on the card."""
+    from deconv_api_tpu_torch.ops import q8
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (rows, cin) if h is None else (rows, h, w, cin)
+    x = torch.randn(shape, generator=g, device=dev) * 3
+    x[1] = 0
+    kernel = (cin, cout) if h is None else (3, 3, cin, cout)
+    wf = torch.randn(kernel, generator=g, device=dev) * (2.0 / (9 * cin)) ** 0.5
+    wq, sw = q8.quantize_weight(wf)
+    b = torch.randn((cout,), generator=g, device=dev) * 0.1
+    b[0] = 1e9  # folds past 2^30: clipped
+    return x, q8.q8_scale(q8.row_amax(x)), wq, sw, b
+
+
+@pytest.mark.parametrize("case", STEP_CASES, ids=lambda c: "-".join(map(str, c)).replace(" ", ""))
+def test_the_fused_int8_step_is_its_plain_version_bit_for_bit(dev, case):
+    """The step on the card (the input quantizer, then K5 with the fold,
+    relu and dequantize in its epilogue) gives its plain version's float32
+    bits; one launch of each."""
+    from deconv_api_tpu_torch.ops import cuda_q8, q8
+
+    rows, h, w, cin, cout, strides, padding, act = case
+    x, sx, wq, sw, b = _step_inputs(dev, rows, h, w, cin, cout, seed=cin + cout)
+    before = dict(cuda_q8.launches)
+    if h is None:
+        got = q8.dense_q8_step(x, sx, wq, sw, b, act)
+        want = q8.dense_q8_step_plain(x, sx, wq, sw, b, act)
+    else:
+        got = q8.conv2d_q8_step(x, sx, wq, sw, b, act, strides, padding)
+        want = q8.conv2d_q8_step_plain(x, sx, wq, sw, b, act, strides, padding)
+    assert cuda_q8.launches["conv_q8"] == before["conv_q8"] + 1
+    assert cuda_q8.launches["quantize_q8"] == before["quantize_q8"] + 1
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("shape,misaligned", [((8, 56, 56, 128), False), ((3, 7, 5, 3), False),
+                                              ((4, 7, 16), True), ((2, 25088), False)],
+                         ids=lambda c: str(c).replace(" ", ""))
+def test_the_quantizers_are_clamp_round_of_the_division(dev, shape, misaligned):
+    """The input quantizer is ``clamp(round(x / sx))`` per row: halves to
+    even (x = (k + 0.5) sx), clipped at +-127, a zero row at scale 1; the
+    weight quantizer the same at one scale, written K-major."""
+    from deconv_api_tpu_torch.ops import cuda_q8, q8
+
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    x = torch.randn(shape, generator=g, device=dev) * 60
+    sx = q8.q8_scale(q8.row_amax(x)) * 0.5  # half the range: the widest values clip
+    x[0].view(-1)[:64] = (torch.arange(64, device=dev) - 32 + 0.5) * sx[0]
+    x[-1] = 0
+    sx[-1] = 1.0
+    if misaligned:
+        x = _misaligned(x)
+    want = torch.clamp(torch.round(x / sx.reshape(-1, *[1] * (x.dim() - 1))), -127, 127).to(torch.int8)
+    before = cuda_q8.launches["quantize_q8"]
+    got = cuda_q8.quantize_rows(x, sx)
+    assert cuda_q8.launches["quantize_q8"] == before + 1
+    assert torch.equal(got, want) and torch.equal(got.cpu(), q8.quantize_rows_plain(x.cpu(), sx.cpu()))
+    w = torch.randn((*shape[1:], 24) if len(shape) == 4 else (shape[-1], 24), generator=g, device=dev)
+    sw = q8.q8_scale(q8.row_amax(w.reshape(1, -1))[0])
+    assert torch.equal(cuda_q8.quantize_weight(w, sw), q8.quantize_weight_plain(w, sw))
+
+
+def test_the_step_wrappers_raise_on_card_tensors_they_do_not_take(dev):
+    from deconv_api_tpu_torch.ops import cuda_q8
+
+    q = torch.zeros((2, 4, 4, 16), dtype=torch.int8, device=dev)
+    w = torch.zeros((8, 3, 3, 16), dtype=torch.int8, device=dev)
+    b, s = torch.zeros(8, device=dev), torch.ones(2, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        cuda_q8.conv2d_q8_fused(q.float(), w, b, s, relu=True)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_q8.conv2d_q8_fused(q, w, b.double(), s, relu=True)
+    with pytest.raises(ValueError, match="do not fit"):
+        cuda_q8.conv2d_q8_fused(q, w, b[:4], s, relu=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_q8.conv2d_q8_fused(q.permute(0, 2, 1, 3), w, b, s, relu=True)
+    with pytest.raises(ValueError, match="input channels"):
+        cuda_q8.conv2d_q8_fused(q, w[..., :8].contiguous(), b, s, relu=True)
+    with pytest.raises(ValueError, match="inputs"):
+        cuda_q8.dense_q8_fused(q.reshape(2, -1), torch.zeros((8, 100), dtype=torch.int8, device=dev), b, s,
+                               relu=False)
+    with pytest.raises(ValueError, match="scales"):
+        cuda_q8.quantize_rows(q.float(), s[:1])
+    with pytest.raises(TypeError, match="float32"):
+        cuda_q8.quantize_weight(w.permute(1, 2, 3, 0).contiguous(), s[:1])
+    with pytest.raises(ValueError, match="one scale"):
+        cuda_q8.quantize_weight(torch.zeros((3, 3, 16, 8), device=dev), s)
+
+
 def test_the_int8_forward_on_the_card_is_its_cpu_run_bit_for_bit(dev):
     """The int8 walk is exact integer contractions and IEEE elementwise
     float32 ops (a division, a rounding, a product): vgg_tiny's int8
@@ -976,6 +1089,8 @@ def test_each_tier_captures_its_own_graph_and_int8_holds_k5(dev):
         prog = bundle.program("block3_conv1", "all", 4, 2, **settings, **tier)
         eager = bundle.batched_visualizer("block3_conv1", "all", 4, quant=tier.get("quant"), **settings)
         assert prog.kernels.get("conv_q8", 0) == (5 if "quant" in tier else 0), name
+        assert prog.kernels.get("quantize_q8", 0) == prog.kernels.get("quantize_w_q8", 0) == prog.kernels.get(
+            "conv_q8", 0), name
         assert prog.kernels["pool_argmax"] == 2
         with bundle.programs.replaying():
             _same_tree(prog(x), eager(bundle.params, x.to(tier.get("dtype", torch.float32))))

@@ -38,6 +38,7 @@ from deconv_api_tpu.ops import activations as j_activations
 from deconv_api_tpu.ops.conv import conv2d_q8 as j_conv2d_q8
 from deconv_api_tpu.ops.linear import dense_q8 as j_dense_q8
 from deconv_api_tpu.serving.codec import _stitch_grid_traced
+from deconv_api_tpu.utils.quantize import int8_scale as j_int8_scale
 from deconv_api_tpu_torch import ops
 from deconv_api_tpu_torch.engine import quant
 from deconv_api_tpu_torch.engine.deconv import _forward_chain, _up_step, _up_step_q8, get_visualizer
@@ -158,6 +159,93 @@ def test_up_step_q8_matches_jax_on_every_entry(calibrated):
             else:
                 np.testing.assert_array_equal(got.numpy(), want, err_msg=e.name)
         x = _up_step(e, tparams, x, switches)
+
+
+def _op_by_op_up_step_q8(e, params, x, amax):
+    """The int8 step written op by op on whole tensors, as a reference:
+    ``ops.conv2d_q8_step`` / ``dense_q8_step`` (and K5 on the card) must
+    give its bits."""
+    levels = lambda a: torch.where(a > 0, a, torch.full_like(a, 127.0)) / torch.full_like(a, 127.0)
+    l = e.layer
+    w, b, x = params[l.name]["w"].float(), params[l.name]["b"].float(), x.float()
+    if not isinstance(amax, torch.Tensor):
+        amax = torch.full((x.shape[0],), amax, dtype=torch.float32)
+    sx = levels(amax).reshape(-1, *[1] * (x.dim() - 1))
+    sw = levels(w.abs().amax())
+    xq = torch.clamp(torch.round(x / sx), -127, 127).to(torch.int8)
+    wq = torch.clamp(torch.round(w / sw), -127, 127).to(torch.int8)
+    if l.kind == "conv":
+        acc = ops.conv2d_q8(xq, wq, strides=l.strides, padding=l.padding)
+    else:
+        acc = ops.dense_q8(xq, wq)
+    scale = sx * sw
+    acc = acc + torch.clamp(torch.round(b / scale), -(2.0**30), 2.0**30).to(torch.int32)
+    if l.activation == "relu":
+        return torch.clamp_min(acc, 0).float() * scale
+    y = acc.float() * scale
+    return y if l.activation == "linear" else ops.apply_activation(y, l.activation)
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("calibrated", [False, True], ids=["dynamic", "calibrated"])
+def test_the_ops_step_equals_the_op_by_op_step_on_every_entry(calibrated):
+    """``_up_step_q8`` (the ops step, plain on the CPU) against the op-by-op
+    reference on every conv and dense entry of vgg_tiny, bit for bit
+    (-0.0 included), with a zero image among the rows (amax 0, scale 1)."""
+    _, _, tparams = _params()
+    x = torch.from_numpy(_images(4, seed=2))
+    x[1] = 0.0
+    switches, checked = {}, 0
+    for e in entry_chain(VGG_TINY_SPEC):
+        if not e.is_companion_act and e.layer.kind in ("conv", "dense"):
+            amax = ops.row_amax(x)
+            assert torch.equal(amax, x.abs().amax(dim=tuple(range(1, x.dim()))))
+            if calibrated:
+                amax = float(amax.max()) * 1.5
+            got = _up_step_q8(e, tparams, x, amax)
+            assert torch.equal(_bits(got), _bits(_op_by_op_up_step_q8(e, tparams, x, amax))), e.name
+            checked += 1
+        x = _up_step(e, tparams, x, switches)
+    assert checked == 7
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 3, 16), (3, 3, 16, 5), (1, 1, 8, 8), (40, 24)], ids=str)
+def test_the_weight_quantizes_k_major(shape):
+    """``quantize_weight_q8``: the int8 kernel at ``max|w| / 127``, as
+    (Cout, KH, KW, Cin) or (Dout, Din); its scale JAX's."""
+    w = torch.from_numpy(np.random.default_rng(len(shape)).standard_normal(shape).astype(np.float32))
+    wq, sw = ops.quantize_weight_q8(w)
+    want = torch.clamp(torch.round(w / (w.abs().amax() / 127)), -127, 127).to(torch.int8)
+    assert torch.equal(wq, want.permute(3, 0, 1, 2) if w.dim() == 4 else want.T)
+    assert wq.is_contiguous() and sw.dim() == 0
+    assert float(sw) == float(np.float32(j_int8_scale(float(np.abs(w.numpy()).max()))))
+    zero, s0 = ops.quantize_weight_q8(torch.zeros(shape))
+    assert float(s0) == 1.0 and not zero.any()
+
+
+@pytest.mark.parametrize("wrapper", ["quantize_rows", "quantize_weight", "conv2d_q8_fused", "dense_q8_fused",
+                                     "conv2d_q8_kmajor", "dense_q8_kmajor"])
+def test_the_step_wrappers_take_only_card_tensors(wrapper):
+    """No fallback in the K5 wrappers: a CPU tensor raises before any
+    kernel loads."""
+    f32 = torch.zeros((2, 4, 4, 16))
+    q = torch.zeros((2, 4, 4, 16), dtype=torch.int8)
+    w = torch.zeros((8, 3, 3, 16), dtype=torch.int8)
+    b, s = torch.zeros(8), torch.ones(2)
+    calls = {
+        "quantize_rows": lambda: cuda_q8.quantize_rows(f32, s),
+        "quantize_weight": lambda: cuda_q8.quantize_weight(torch.zeros((3, 3, 16, 8)), torch.ones(())),
+        "conv2d_q8_fused": lambda: cuda_q8.conv2d_q8_fused(q, w, b, s, relu=True),
+        "dense_q8_fused": lambda: cuda_q8.dense_q8_fused(q.reshape(2, -1), torch.zeros((8, 256), dtype=torch.int8),
+                                                         b, s, relu=False),
+        "conv2d_q8_kmajor": lambda: cuda_q8.conv2d_q8_kmajor(q, w),
+        "dense_q8_kmajor": lambda: cuda_q8.dense_q8_kmajor(q.reshape(2, -1), torch.zeros((8, 256), dtype=torch.int8)),
+    }
+    with pytest.raises(ValueError, match="CUDA"):
+        calls[wrapper]()
 
 
 def _jax_switches_and_ups(quant_spec, layer, images):
