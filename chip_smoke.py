@@ -91,8 +91,20 @@ Phases, each printing JSON lines:
    on ``POST /`` (K5's contraction, input quantizer and weight quantizer
    11 times each per int8 replay), the tiers' captured
    programs timed, and a QoS turn of an interactive and a bulk tenant
-   (``phase_quality``).
-Phases 4-11 and 13 measure device work: their servers run with
+   (``phase_quality``);
+14. jobs: a VGG16 server with ``--jobs-dir``: deconv (full and int8) and
+   sweep jobs from block3_conv1 byte-equal to the synchronous
+   ``/v1/deconv`` answers, a default dream job byte-equal to ``/v1/dream``
+   and to the same dream crash-resumed after its first octave, a cancel
+   mid-dream with no replay after it, and a dream parked by the drain and
+   finished by a second server on the directory with the same bytes, each
+   job's wall time beside its synchronous route's (``phase_jobs``);
+15. settings: ``warmup_wall_s`` with and without the default dream's
+   warmup and the first dream without it; a ``fused_unpool=auto`` server
+   (K3 4 times a grid replay), the same with ``backward_dtype=float32``
+   timed, and a ``dtype=bfloat16`` server's full grids equal to the
+   default server's bf16 tier (``phase_settings``).
+Phases 4-11 and 13-15 measure device work: their servers run with
 ``cache_bytes=0`` and no singleflight (``CACHE_OFF``), and each prints
 ``server_cache``.
 Every route serves through captured CUDA graphs, one per
@@ -110,6 +122,7 @@ from __future__ import annotations
 import base64
 import collections
 import contextlib
+import gc
 import json
 import logging
 import os
@@ -812,22 +825,37 @@ def warmup_report(torch, service, reserved_before: int, bundle=None) -> dict:
     (default: the default model's): its wall time, the programs of both
     caches, and the device memory reserved after it (in all, and more than
     ``reserved_before``, before the boot).
-    Fails unless every deconv bucket of both route defaults (grid top-4,
-    tiles top-8 at the deepest layer) and, where the model has dream
-    layers, the default dream at every dream bucket, were captured."""
+    Fails unless what the server's settings ask for was captured, as this
+    smoke reads them (not from the service's own list): at the deepest
+    layer in ``visualize_mode``, ``POST /``'s grid at ``stitch_k`` and
+    ``/v1/deconv``'s tiles at ``top_k`` at every deconv bucket (only the
+    first without ``warmup_all_buckets``); for the default model, with
+    ``warmup_sweep`` the sweep at the first bucket, and with
+    ``warmup_dream``, where it has dream layers, each rung of the default
+    dream at every dream bucket (or the first)."""
     from deconv_api_tpu_torch.engine.deepdream import octave_shapes
-    from deconv_api_tpu_torch.serving.app import DEFAULT_TOP_K, DREAM_DEFAULTS, STITCH_K, pool_bytes
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS, pool_bytes
     from deconv_api_tpu_torch.serving.batcher import buckets
 
+    cfg = service.cfg
     bundle = bundle or service.bundle
-    layer, size = bundle.deepest_layer(), bundle.image_size
-    deconv = {(k[2], k[4], k[5], k[-2]) for k in bundle.programs.keys()}
-    want = {(layer, top_k, post, b) for b in buckets(service.max_batch)
-            for top_k, post in ((STITCH_K, "grid"), (DEFAULT_TOP_K, "tiles"))}
-    ladder = octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4, bundle.min_dream_size)
+    layer, size, mode = bundle.deepest_layer(), max(0, cfg.image_size) or bundle.image_size, cfg.visualize_mode
+    is_default = bundle.name == service.weights.default
+    sizes = buckets(service.max_batch)
+    sizes = sizes if cfg.warmup_all_buckets else sizes[:1]
+    # a deconv key: ("deconv", model, layer, mode, top_k, post, sweep, ..., bucket, shape[, dtype])
+    deconv = {(*k[2:7], next(x for x in reversed(k) if isinstance(x, tuple))[0]) for k in bundle.programs.keys()}
+    want = {(layer, mode, top_k, post, False, b) for b in sizes
+            for top_k, post in ((cfg.stitch_k, "grid"), (cfg.top_k, "tiles"))}
+    if cfg.warmup_sweep and is_default:
+        want.add((layer, mode, cfg.top_k, "tiles", True, sizes[0]))
     dreams = {(k[1], k[2]) for k in bundle.dream_programs.keys() if k[0] == "step"}
-    want_dreams = ({(hw, b) for hw in ladder for b in buckets(service.cfg.dream_max_batch)}
-                   if bundle.dream_layers else set())
+    want_dreams = set()
+    if cfg.warmup_dream and is_default and bundle.dream_layers:
+        dream_sizes = buckets(cfg.dream_max_batch)
+        want_dreams = {(hw, b) for hw in octave_shapes(size, size, DREAM_DEFAULTS["octaves"], 1.4,
+                                                       bundle.min_dream_size)
+                       for b in (dream_sizes if cfg.warmup_all_buckets else dream_sizes[:1])}
     graphs = [p for c in (bundle.programs, bundle.dream_programs) for p in c.programs().values()]
     out = {"model": bundle.name, "ready": service.ready, "warmup_wall_s": service.warmup_wall_s,
            "deconv_programs": len(bundle.programs), "dream_programs": len(bundle.dream_programs),
@@ -1178,8 +1206,8 @@ def captured_run(bundle, batch, layer: str, top_k: int, post: str, **settings):
     bug_compat) as a callable that replays it on ``batch`` (on the card)
     and copies every projected layer's ``post`` to the host; and the
     program."""
-    prog = bundle.program(layer, "all", top_k, len(batch), bug_compat=True, backward_dtype="bfloat16",
-                          post=post, **settings)
+    prog = bundle.program(layer, "all", top_k, len(batch), post=post,
+                          **{"bug_compat": True, "backward_dtype": "bfloat16", **settings})
 
     def run():
         with bundle.programs.replaying():
@@ -3227,6 +3255,438 @@ def phase_quality(torch, label: str) -> dict:
     return {"counts": {k: v for k, v in total.items() if k in ops.launch_counts()}}
 
 
+# --- phase 14 -------------------------------------------------------------------
+
+
+JOBS_LAYER = "block3_conv1"  # the deconv and sweep jobs' layer
+JOBS_SLOW_MS = 300  # device.dispatch_delay_ms while a job is crashed, cancelled or parked mid-dream
+
+
+def _raw(port: int, path: str, method: str = "GET", form: dict | None = None, headers=None):
+    """(status, body bytes, seconds) of one request."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        body = urllib.parse.urlencode(form).encode() if form is not None else None
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body, headers={"content-type": "application/x-www-form-urlencoded",
+                                                       **(headers or {})})
+        resp = conn.getresponse()
+        return resp.status, resp.read(), time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def _job_doc(port: int, job_id: str) -> dict:
+    return _request(port, f"/v1/jobs/{job_id}")[1]
+
+
+def _await_job(port: int, job_id: str, checkpoints: int | None = None, timeout_s: float = 300.0) -> dict:
+    """Poll a job until it is terminal or parked, or with ``checkpoints``
+    until it has that many."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        doc = _job_doc(port, job_id)
+        if doc["state"] in ("done", "failed", "cancelled", "parked") or (
+                checkpoints is not None and doc["checkpoints"] >= checkpoints):
+            return doc
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"job {job_id} did not finish within {timeout_s} s: {doc}")
+        time.sleep(0.005)
+
+
+def _run_job(port: int, form: dict, headers=None) -> tuple[dict, bytes, float]:
+    """Submit a job and wait for it: (its final document, its answer's
+    bytes, seconds from the submit to the answer read)."""
+    t0 = time.perf_counter()
+    status, body, _ = _request(port, "/v1/jobs", "POST", form, headers)
+    if status != 202:
+        raise AssertionError(f"job submit {form.get('type')}: {status} {body}")
+    doc = _await_job(port, body["id"])
+    status, result, _ = _raw(port, f"/v1/jobs/{body['id']}/result")
+    return doc, result if status == 200 else b"", time.perf_counter() - t0
+
+
+def _arm(port: int, **form) -> None:
+    status, body, _ = _request(port, "/v1/debug/faults", "POST", form)
+    if status != 200:
+        raise AssertionError(f"faults {form}: {status} {body}")
+
+
+def phase_jobs(torch, label: str) -> dict:
+    """The durable job tier on a VGG16 server at 224 with ``--jobs-dir`` (a
+    directory under ``build/``), fault injection on and the cache off,
+    under ``cudnn.deterministic`` (so the restarted server's graphs compute
+    the bits the first one's do).  Each job but the parked one is counted
+    alone: the launch counts are zeroed just before its submit and read
+    just after its answer, with no synchronous request in that window, and
+    printed as the job's own path.
+    1. a deconv job at block3_conv1 (full, then ``quality=int8``) and a
+       sweep job from block3_conv1, each answer byte-equal to the
+       synchronous ``/v1/deconv`` answers at the same layers (the sweep's
+       entry by entry, one request a layer), with both wall times; each
+       job one replay a layer it projects, nothing captured, K1 and K2 once
+       for each pool up to that layer and, at int8, K5's three entries once
+       for each conv up to it;
+    2. a default dream job (the model's dream layers, 10 steps on the 8
+       rungs of 10 octaves over 16 px), byte-equal to ``/v1/dream``; two
+       dream jobs at once (their octaves batched together: whether the
+       first answers the solo bytes is printed); then
+       the same dream again with ``jobs.runner_crash`` armed once its first
+       octave is durable (its octaves slowed by ``device.dispatch_delay_ms``
+       to leave the time): resumed once, one checkpoint per rung plus the
+       input, byte-equal to the first;
+    3. a dream cancelled once its first octave is durable: cancelled with
+       fewer checkpoints; the octave in flight runs to its end (at most
+       one pyramid and ``steps`` step replays) and no replay follows it;
+    4. a dream parked by the server's drain once its first octave is
+       durable, and a second server on the same directory that reclaims
+       it and answers the first dream's bytes.
+    No hand-written kernel lies on a dream job's path: its counts stay 0
+    (the parked job's are not read: the second server's warmup shares its
+    window)."""
+    import shutil
+    import tempfile
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.deepdream import octave_shapes
+    from deconv_api_tpu_torch.serving.app import DREAM_DEFAULTS
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    jobs_dir = tempfile.mkdtemp(prefix="jobs-", dir=os.path.join(ROOT, "build"))
+    argv = ["serve", "--port", "0", "--model", "vgg16", "--device", "cuda", "--max-batch", str(B),
+            *CACHE_OFF_FLAGS, "--jobs-dir", jobs_dir, "--fault-injection"]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.empty_cache()
+    t0, reserved0 = time.perf_counter(), torch.cuda.memory_reserved()
+    server = build_server(argv)
+    service, bundle, port = server.service, server.service.bundle, server.server_address[1]
+    out = {"phase": "jobs", "card": label, "model": bundle.name, "server_cache": cache_state(service),
+           "cudnn_deterministic": True, "boot_s": time.perf_counter() - t0,
+           "warmup": warmup_report(torch, service, reserved0)}
+    failed, second = [], None
+    uri = image_uris(1)[0]
+    rungs = len(octave_shapes(bundle.image_size, bundle.image_size, DREAM_DEFAULTS["octaves"], 1.4,
+                              bundle.min_dream_size))
+    out["rungs"] = rungs
+    counts = {}
+
+    def counted(name, fn):
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        counts[name] = {**ops.launch_counts(), **ops.graph_counts}
+        return result
+
+    def slowed_dream(key: str):
+        """A default dream job, slowed, once its first octave is durable."""
+        _arm(port, arm=f"device.dispatch_delay_ms=p1:{JOBS_SLOW_MS}")
+        status, body, _ = _request(port, "/v1/jobs", "POST", {"type": "dream", "file": uri},
+                                   {"x-idempotency-key": key})
+        if status != 202:
+            raise AssertionError(f"dream job {key}: {status} {body}")
+        return body["id"], _await_job(port, body["id"], checkpoints=2)
+
+    try:
+        # 1. deconv and sweep jobs against the synchronous route.  Each job
+        # is counted alone: the counts are zeroed just before its submit and
+        # read just after its answer, and every synchronous request (which
+        # also captures the job's programs) runs outside that window
+        kinds = {l.name: l.kind for l in bundle.spec.layers}
+        order = list(kinds)
+
+        def per_replay(layer: str, quality: str) -> dict:
+            """Launches of one replay at ``layer``: K1 and K2 once for each
+            pool up to it; at int8, K5's three entries once for each conv."""
+            upto = [kinds[n] for n in order[: order.index(layer) + 1]]
+            convs = upto.count("conv") if quality == "int8" else 0
+            want = dict.fromkeys(ops.launch_counts(), 0)
+            want.update(pool_argmax=upto.count("pool"), unpool_argmax=upto.count("pool"),
+                        conv_q8=convs, quantize_q8=convs, quantize_w_q8=convs)
+            return want
+
+        def projections():
+            rows = {}
+            for name, form in (("deconv", {"type": "deconv", "layer": JOBS_LAYER}),
+                               ("deconv_int8", {"type": "deconv", "layer": JOBS_LAYER, "quality": "int8"}),
+                               ("sweep", {"type": "sweep", "layer": JOBS_LAYER})):
+                sync_form = {k: v for k, v in form.items() if k != "type"}
+                layers = bundle.sweep_layers(JOBS_LAYER) if name == "sweep" else (JOBS_LAYER,)
+                # the synchronous requests first, so that the job captures
+                # nothing and no timed call captures
+                sync_first = _raw(port, "/v1/deconv", "POST", {"file": uri, **sync_form})
+                if name == "sweep":
+                    _raw(port, "/v1/deconv", "POST", {"file": uri, **sync_form, "sweep": "true"})
+                    for layer in layers:
+                        _raw(port, "/v1/deconv", "POST", {"file": uri, "layer": layer})
+                doc, body, wall = counted(f"{name} job", lambda: _run_job(port, {**form, "file": uri}))
+                got = counts[f"{name} job"]
+                want = {k: sum(per_replay(layer, form.get("quality", "full"))[k] for layer in layers)
+                        for k in ops.launch_counts()}
+                row = {"state": doc["state"], "checkpoints": doc["checkpoints"], "job_s": wall,
+                       "first_sync_s": sync_first[2], "launches": {k: got[k] for k in want},
+                       "expected_launches": want, "replays": got["replays"], "captures": got["captures"]}
+                if name == "sweep":
+                    sync_sweep = _raw(port, "/v1/deconv", "POST", {"file": uri, **sync_form, "sweep": "true"})
+                    row["sync_sweep_s"] = sync_sweep[2]
+                    entries = json.loads(body)["layers"] if body else {}
+                    equal, per_layer_s = [], 0.0
+                    for layer, entry in entries.items():
+                        status, sync, secs = _raw(port, "/v1/deconv", "POST", {"file": uri, "layer": layer})
+                        per_layer_s += secs
+                        sync = json.loads(sync)
+                        equal.append(status == 200 and (sync["filters"], sync["images"]) ==
+                                     (entry["filters"], entry["images"]))
+                    row.update(layers=len(entries), equal_per_layer=equal, sync_per_layer_s=per_layer_s,
+                               equal=bool(equal) and all(equal) and doc["checkpoints"] == 1 + len(entries))
+                else:
+                    status, sync, secs = _raw(port, "/v1/deconv", "POST", {"file": uri, **sync_form})
+                    row.update(sync_s=secs, equal=status == 200 and body == sync)
+                rows[name] = row
+                if doc["state"] != "done" or not row["equal"]:
+                    failed.append(f"{name} job: {row}")
+                # one replay a dispatched layer, none captured, and each
+                # kernel launched as often as those replays launch it
+                if (row["launches"] != want or (got["replays"], got["captures"]) != (len(layers), 0)
+                        or not want["pool_argmax"] or (name == "deconv_int8" and not want["conv_q8"])):
+                    failed.append(f"{name} job launches {row['launches']} in {got['replays']} replays and "
+                                  f"{got['captures']} captures, expected {want} in {len(layers)} replays")
+            return rows
+
+        out["projections"] = projections()
+
+        # 2.-4. dream jobs
+        def dreams():
+            rows = {}
+            sync_first = _raw(port, "/v1/dream", "POST", {"file": uri})
+            doc, ref, wall = counted("dream job", lambda: _run_job(port, {"type": "dream", "file": uri},
+                                                                   {"x-idempotency-key": "ref"}))
+            sync = _raw(port, "/v1/dream", "POST", {"file": uri})
+            rows["dream"] = {"state": doc["state"], "checkpoints": doc["checkpoints"], "job_s": wall,
+                             "sync_s": sync[2], "first_sync_s": sync_first[2],
+                             "equal_to_sync": sync[0] == 200 and sync[1] == ref}
+            if doc["state"] != "done" or doc["checkpoints"] != 1 + rungs or not rows["dream"]["equal_to_sync"]:
+                failed.append(f"dream job: {rows['dream']}")
+            # two jobs at once (the server's two runners): their octaves
+            # share batches of 2; reported, not held, against the solo bytes
+            batches = len(service.dream_dispatcher.batch_sizes)
+            pair = [None, None]
+
+            def one(i):
+                pair[i] = _run_job(port, {"type": "dream", "file": image_uris(2)[i]}, {"x-idempotency-key": f"pair{i}"})
+
+            def both():
+                threads = [threading.Thread(target=one, args=(i,)) for i in range(2)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(300)
+
+            counted("two dream jobs at once", both)
+            sizes = list(service.dream_dispatcher.batch_sizes)[batches:]
+            rows["two_at_once"] = {"states": [p[0]["state"] for p in pair], "job_s": [p[2] for p in pair],
+                                   "batch_sizes": sizes, "first_equal_to_solo": pair[0][1] == ref}
+            def crashed():
+                try:
+                    job_id, at = slowed_dream("crash")
+                    _arm(port, arm="jobs.runner_crash=n1")
+                    return job_id, at, _await_job(port, job_id)
+                finally:
+                    _arm(port, disarm="all")
+
+            job_id, at, doc = counted("crash-resumed dream job", crashed)
+            body = _raw(port, f"/v1/jobs/{job_id}/result")[1]
+            rows["crash_resumed"] = {"state": doc["state"], "attempts": doc["attempts"], "resumed": doc["resumed"],
+                                     "checkpoints": doc["checkpoints"], "armed_at_checkpoints": at["checkpoints"],
+                                     "equal": body == ref}
+            if (doc["state"], doc["attempts"], doc["checkpoints"]) != ("done", 2, 1 + rungs) or body != ref:
+                failed.append(f"crash-resumed dream: {rows['crash_resumed']}")
+            def cancelled():
+                try:
+                    job_id, at = slowed_dream("cancel")
+                    status = _raw(port, f"/v1/jobs/{job_id}", "DELETE")[0]
+                    doc = _await_job(port, job_id)
+                    # the octave already dispatched runs to its end (its
+                    # answer is dropped); no octave after it is dispatched
+                    replays = [ops.graph_counts["replays"]]
+                    for wait_s in (JOBS_SLOW_MS / 1e3 + 0.5, 1.0):
+                        time.sleep(wait_s)
+                        replays.append(ops.graph_counts["replays"])
+                    return job_id, status, doc, replays
+                finally:
+                    _arm(port, disarm="all")
+
+            job_id, status, doc, replays = counted("cancelled dream job", cancelled)
+            in_flight, later = replays[1] - replays[0], replays[2] - replays[1]
+            rows["cancelled"] = {"delete_status": status, "state": doc["state"], "checkpoints": doc["checkpoints"],
+                                 "replays_of_the_octave_in_flight": in_flight, "replays_after_it": later,
+                                 "result_status": _raw(port, f"/v1/jobs/{job_id}/result")[0]}
+            if (status, doc["state"], later) != (200, "cancelled", 0) or in_flight > 1 + DREAM_DEFAULTS["steps"] \
+                    or doc["checkpoints"] >= 1 + rungs:
+                failed.append(f"cancelled dream: {rows['cancelled']}")
+            return rows, ref
+
+        rows, ref = dreams()
+        out["dreams"] = rows
+        dream_windows = [k for k in counts if "dream" in k]
+        if any(counts[w][k] for w in dream_windows for k in ops.launch_counts()):
+            failed.append(f"dream jobs launched hand-written kernels: { {w: counts[w] for w in dream_windows} }")
+
+        # 4. parked by the drain, finished by the next server
+        job_id, at = slowed_dream("park")
+        _stop(server)  # the drain: the running job parks at its next checkpoint
+        server = service = bundle = None
+        gc.collect()
+        parked = json.loads(open(os.path.join(jobs_dir, "journal.jsonl")).read().splitlines()[-1])
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        second = build_server(argv)
+        port2 = second.server_address[1]
+        doc = _await_job(port2, job_id)
+        body = _raw(port2, f"/v1/jobs/{job_id}/result")[1]
+        out["parked"] = {"last_journal_record": parked, "reclaimed": second.service.jobs.reclaimed,
+                         "state": doc["state"], "resumed": doc["resumed"], "checkpoints": doc["checkpoints"],
+                         "restart_to_done_s": time.perf_counter() - t1, "equal": body == ref}
+        if (parked.get("state") != "parked" or second.service.jobs.reclaimed != 1 or doc["state"] != "done"
+                or body != ref):
+            failed.append(f"parked dream: {out['parked']}")
+        out["jobs_state"] = second.service.config()["jobs"]
+    finally:
+        for s in (server, second):
+            if s is not None:
+                _stop(s)
+        server = second = service = bundle = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = deterministic
+        shutil.rmtree(jobs_dir, ignore_errors=True)
+    out["launches"] = counts
+    emit(out)
+    if failed:
+        raise AssertionError("jobs: " + "; ".join(failed))
+    return {"counts": {f"jobs: {window}": {k: c[k] for k in ops.launch_counts()} for window, c in counts.items()}}
+
+
+# --- phase 15 -------------------------------------------------------------------
+
+
+def phase_settings(torch, label: str) -> dict:
+    """The server settings on VGG16 at 224, block5_conv1, cache off.
+    1. boots: ``warmup_wall_s`` of a fresh VGG16 server at the defaults
+       (the default dream warmed) and of one with ``warmup_dream`` off, and
+       that one's first default ``/v1/dream`` (its graphs captured then)
+       beside its second;
+    2. on the second server's bundle, servers that warm one bucket: a
+       ``fused_unpool=auto`` server's 8 ``POST /`` at once, counted (K3 4
+       times a grid replay, K2 none); the same with ``backward_dtype=
+       float32`` (K3's fp32 form), timed as requests and as the captured
+       batch-8 grid program beside the default's; a ``dtype=bfloat16``
+       server's ``quality=full`` grids against the default server's
+       ``quality=bf16`` grids, one request at a time (equal bytes)."""
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.config import ServerConfig
+    from deconv_api_tpu_torch.engine.capture import WARMUP_RUNS
+    from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    def boot(bundle, **cfg):
+        gc.collect()  # the closed servers' graphs and pools, then their memory
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        service = DeconvService(bundle, ServerConfig(model=bundle.name, max_batch=B, **{**CACHE_OFF, **cfg}))
+        service.start()
+        service.warmup()
+        server = DeconvHTTPServer(service, "127.0.0.1", 0)
+        return server, {"warmup_wall_s": service.warmup_wall_s, "deconv_graphs": len(bundle.programs),
+                        "dream_graphs": len(bundle.dream_programs),
+                        "boot_reserved_bytes": torch.cuda.memory_reserved() - reserved0}
+
+    out = {"phase": "settings", "card": label, "layer": QUALITY_LAYER}
+    failed, servers = [], []
+    uris = image_uris(B)
+    forms = [{"file": u, "layer": QUALITY_LAYER} for u in uris]
+    by_path = {}
+
+    def counted(name, fn):
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {**ops.launch_counts(), **ops.graph_counts}
+        by_path[name] = {k: got[k] for k in ops.launch_counts()}
+        return result, got
+
+    try:
+        # 1. the boot with and without the default dream
+        with_dream, out["boot_with_dream"] = boot(build_bundle("vgg16", "cuda"))
+        first = _raw(with_dream.server_address[1], "/v1/dream", "POST", {"file": uris[0]})
+        out["boot_with_dream"]["first_dream_s"] = first[2]
+        _stop(with_dream)
+        del with_dream
+        bundle = build_bundle("vgg16", "cuda")
+        default, out["boot_without_dream"] = boot(bundle, warmup_dream=False)
+        servers.append(default)
+        dport = default.server_address[1]
+        dreams = [_raw(dport, "/v1/dream", "POST", {"file": uris[0]}) for _ in range(2)]
+        out["boot_without_dream"].update(first_dream_s=dreams[0][2], second_dream_s=dreams[1][2],
+                                         dream_graphs_after=len(bundle.dream_programs))
+        if first[0] != 200 or any(d[0] != 200 for d in dreams):
+            failed.append(f"default dreams: {[first[0]] + [d[0] for d in dreams]}")
+
+        # 2. fused_unpool=auto, with the bf16 and the fp32 backward, each
+        # server warming one bucket (the counts allow for captures)
+        one = {"warmup_all_buckets": False, "warmup_dream": False}
+        for name, cfg in (("fused_auto", {"fused_unpool": "auto"}),
+                          ("fused_auto_fp32", {"fused_unpool": "auto", "backward_dtype": "float32"})):
+            server, _ = boot(bundle, **one, **cfg)
+            servers.append(server)
+            port = server.server_address[1]
+            answers, counts = counted(f"settings {name} POST /", lambda: _concurrent_posts(port, forms))
+            seq = [_concurrent_posts(port, [forms[i % B]])[0][2] for i in range(10)]
+            row = {"statuses": sorted({a[0] for a in answers}), "replays": counts["replays"],
+                   "captures": counts["captures"], "fused_unpool_conv": counts["fused_unpool_conv"],
+                   "unpool_argmax": counts["unpool_argmax"],
+                   "pool_argmax": counts["pool_argmax"], "p50_request_ms_one_at_a_time": statistics.median(seq) * 1e3,
+                   "p50_request_ms_8_at_once": statistics.median(a[2] for a in answers) * 1e3,
+                   "resolved": server.service.config()["fused_unpool_resolved"]}
+            out[name] = row
+            # 4 a replay, and 4 in each eager warm-up run of a capture
+            k3 = 4 * (row["replays"] + WARMUP_RUNS * row["captures"])
+            if (row["statuses"] != [200] or not row["replays"] or row["fused_unpool_conv"] != k3
+                    or row["unpool_argmax"] or row["resolved"] != "kernel"):
+                failed.append(f"{name}: {row}")
+        batch = torch.from_numpy(np.stack([default.service.decode_preprocess(u) for u in uris])).cuda()
+        runs = {"default": captured_run(bundle, batch, QUALITY_LAYER, K, "grid")[0],
+                "fused_auto_fp32": captured_run(bundle, batch, QUALITY_LAYER, K, "grid", fused_unpool="auto",
+                                                backward_dtype="float32")[0]}
+        in_turns(torch, out, runs, "grid_program", reps=10, profile_repeats=False)
+
+        # 3. dtype=bfloat16 at quality=full against the default's bf16 tier,
+        # one request at a time (a row's bits depend on its batch-mates)
+        bf16, _ = boot(bundle, **one, dtype="bfloat16")
+        servers.append(bf16)
+        full_on_bf16, counts = counted("settings dtype=bfloat16 POST /",
+                                       lambda: [_concurrent_posts(bf16.server_address[1], [f])[0] for f in forms])
+        tier = [_concurrent_posts(dport, [{**f, "quality": "bf16"}])[0] for f in forms]
+        out["dtype_bfloat16"] = {"statuses": sorted({a[0] for a in full_on_bf16 + tier}),
+                                 "equal": [a[1] == b[1] for a, b in zip(full_on_bf16, tier)],
+                                 "replays": counts["replays"], "pool_argmax": counts["pool_argmax"],
+                                 "unpool_argmax": counts["unpool_argmax"]}
+        if out["dtype_bfloat16"]["statuses"] != [200] or not all(out["dtype_bfloat16"]["equal"]):
+            failed.append(f"dtype=bfloat16: {out['dtype_bfloat16']}")
+    finally:
+        for s in servers:
+            _stop(s)
+    emit(out)
+    if failed:
+        raise AssertionError("settings: " + "; ".join(failed))
+    return {"counts": by_path}
+
+
 def _request_raw(port: int, form: dict):
     """``_keep_alive_post`` on a connection of its own."""
     import http.client
@@ -3279,6 +3739,8 @@ def main() -> int:
     load = timed("load", phase_load, torch, env["nvidia_smi"])
     cache = timed("cache", phase_cache, torch, env["nvidia_smi"])
     quality = timed("quality", phase_quality, torch, env["nvidia_smi"])
+    jobs = timed("jobs", phase_jobs, torch, env["nvidia_smi"])
+    settings = timed("settings", phase_settings, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
@@ -3287,7 +3749,9 @@ def main() -> int:
                "multi_model vgg16 POST / (graphs captured after its page-out)": multi["vgg16_counts"],
                "load POST /": load["counts"], "load POST / (server defaults: cache on)": load["defaults_counts"],
                "cache POST / (misses, hits at 0, one coalesced row, two recomputes)": cache["counts"],
-               "quality POST / (full, bf16, int8, calibrated int8, the QoS turn)": quality["counts"]}
+               "quality POST / (full, bf16, int8, calibrated int8, the QoS turn)": quality["counts"],
+               **jobs["counts"],
+               **settings["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

@@ -1,38 +1,49 @@
 """``python -m deconv_api_tpu_torch serve --port P [--model vgg16|vgg19|
 resnet50|inception_v3|mobilenet_v1|mobilenet_v2|vgg_tiny] [--device
 cuda|cpu] [--max-batch 8] [--lowc-kpack off|auto|forced|<chan>]
-[--serve-models all|M1,M2] [--pinned-models M1,M2] [--hbm-budget-bytes N]
-[--weight-dtype f32|bf16|int8] [--pipeline-depth 2] [--request-timeout-s 60]
-[--fault SITE=SPEC] [--trace-ring 256] [--cache-bytes N] [--no-singleflight]
-[--l2-dir DIR] [--slo NAME=MS:PCT[:ROUTE],...] [--tsdb off|on] [--alerts
-JSON|PATH] [--qos] [--tenants JSON|PATH] [--quality-default full|bf16|int8]
-[--quality-by-class CLASS=TIER,...] [--calibration-dir DIR] ...``: serve
-the reference's ``POST /``, the
-JSON API ``POST /v1/deconv`` and DeepDream's ``POST /v1/dream`` (``file``,
-optional ``layers``, ``steps``, ``octaves``, ``lr``; dreams have a
-dispatcher of their own, up to 4 a batch), for ``--model`` and every model
-of ``--serve-models`` (a request names its model with ``model=`` or
-``x-model``, and its precision tier with ``quality=`` or
-``x-quality``: full, bf16 or int8), and the control routes ``/healthz``, ``/readyz``,
-``/metrics``, ``/v1/config``, ``/v1/models`` and ``/v1/debug/requests``.
-The request pipeline's fields of ``config.ServerConfig`` (timeouts,
-connection limits, shedding, pipeline depth, codec pool, tracing, faults
-and the breaker) and the response cache's, the SLOs', the metric
-history's, the alerts', the QoS policy's and the quality tiers' each
-have a flag, spelled as the JAX package's CLI spells it (``--slo`` for
-``slos``, ``--no-singleflight``, ``--tenants`` implying ``--qos``), else
-after the field."""
+[--fused-unpool off|auto|forced] [--top-k 8] [--stitch-k 4]
+[--visualize-mode all|max] [--dtype float32|bfloat16] [--backward-dtype
+bfloat16|float32|''] [--jobs-dir DIR] [--jobs-workers 2]
+[--jobs-queue-depth 64] [--drain-grace-s 0] [--serve-models all|M1,M2]
+[--weight-dtype f32|bf16|int8] [--fault SITE=SPEC] [--cache-bytes N]
+[--no-singleflight] [--slo NAME=MS:PCT[:ROUTE],...] [--tsdb off|on]
+[--qos] [--tenants JSON|PATH] [--calibration-dir DIR] ...``: serve the
+reference's ``POST /``, the JSON API ``POST /v1/deconv`` and DeepDream's
+``POST /v1/dream`` (``file``, optional ``layers``, ``steps``, ``octaves``,
+``lr``; dreams have a dispatcher of their own, up to 4 a batch), for
+``--model`` and every model of ``--serve-models`` (a request names its
+model with ``model=`` or ``x-model``, and its precision tier with
+``quality=`` or ``x-quality``: full, bf16 or int8), with ``--jobs-dir``
+the durable async jobs ``POST /v1/jobs``, ``GET /v1/jobs``, ``GET
+/v1/jobs/{id}[/result|/events]`` and ``DELETE /v1/jobs/{id}``, and the
+control routes ``/healthz``, ``/readyz``, ``/metrics``, ``/v1/config``,
+``/v1/models`` and ``/v1/debug/requests``.  Every field of
+``config.ServerConfig`` the port honours is read from its ``DECONV_<FIELD>``
+variable and most have a flag, spelled as the JAX package's CLI spells it
+(``--slo`` for ``slos``, ``--no-singleflight``, ``--tenants`` implying
+``--qos``), else after the field; a flag given wins over the variable.
+
+``python -m deconv_api_tpu_torch calibrate --out DIR [--model vgg16]
+[--images DIR] [--n-images 16] [--device cuda|cpu]`` writes the model's
+int8 calibration artifact (``<DIR>/<model>.calib.json``) that a
+``--calibration-dir DIR`` server loads (the JAX package's
+``tools/calibrate.py``)."""
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
 import sys
 
+import numpy as np
+
 from deconv_api_tpu_torch.config import ServerConfig
+from deconv_api_tpu_torch.engine import quant
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
 from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
-from deconv_api_tpu_torch.serving.models import REGISTRY
+from deconv_api_tpu_torch.serving.models import REGISTRY, build_bundle
 from deconv_api_tpu_torch.utils import slog
 
 
@@ -79,92 +90,142 @@ _FIELD_FLAGS = {
     "incidents_retention_s": "seconds incident bundles are kept",
     "qos_weights": "DRR quantum weights per class, 'class=weight,...' (default interactive=8,standard=4,bulk=1)",
     "qos_hit_cost_ms": "device-ms a response-cache hit debits from its tenant's bucket",
+    # the server settings
+    "image_size": "pixels every request resizes to (0 = each model's own size)",
+    "top_k": "/v1/deconv's filters when the request names no top_k",
+    "stitch_k": "filters POST / projects into its 2x2 grid",
+    "visualize_mode": "the projection's mode when the request names none: all|max",
+    "bug_compat": "reproduce the reference's projection quirks",
+    "strict_compat": "answer 422 no_active_filters when fewer than stitch_k filters fired",
+    "dtype": "the forward's dtype: float32|bfloat16",
+    "backward_dtype": "the projection's dtype: bfloat16|float32|'' (no cast)",
+    "fused_unpool": "the fused unpool + conv backward tail (K3): off|auto|forced",
+    "warmup_all_buckets": "capture every batch bucket at boot (else the first)",
+    "warmup_sweep": "capture the sweep program at boot",
+    "warmup_dream": "capture the default dream at boot",
+    "drain_grace_s": "seconds /readyz answers 503 before the dispatchers stop on shutdown",
+    # the durable job tier
+    "jobs_dir": "journal and spill directory of the async job tier (empty: no /v1/jobs routes)",
+    "jobs_workers": "concurrent job runners",
+    "jobs_queue_depth": "queued-or-running jobs before a submit gets 429",
+    "jobs_retention_s": "seconds finished jobs and their results are kept",
+    "jobs_max_attempts": "runner crashes a job resumes from before it fails",
 }
 
 
-def build_server(argv=None) -> DeconvHTTPServer:
-    """Parse the command line, build the default model on its device,
-    start the dispatchers, warm every pinned model's programs up and bind
-    the HTTP server (not yet serving)."""
+def _parser() -> argparse.ArgumentParser:
+    """The two subcommands: ``serve`` and ``calibrate``.  Every flag of
+    ``serve`` that names a ``ServerConfig`` field defaults to None: a flag
+    given wins over the field's ``DECONV_<FIELD>`` variable, which wins
+    over the default (``ServerConfig.from_env``)."""
     ap = argparse.ArgumentParser(prog="python -m deconv_api_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("serve", help="serve POST /, POST /v1/deconv and POST /v1/dream on HTTP")
+    s = sub.add_parser("serve", help="serve POST /, POST /v1/deconv, POST /v1/dream and the job routes on HTTP")
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--port", type=int, default=8000)
-    s.add_argument("--model", default="vgg16", choices=sorted(REGISTRY))
+    s.add_argument("--model", default=None, choices=sorted(REGISTRY), help="the default model (default vgg16)")
     s.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    s.add_argument("--max-batch", type=int, default=8, help="images per deconv batch (default 8)")
+    s.add_argument("--max-batch", type=int, default=None, help="images per deconv batch (default 8)")
     s.add_argument(
-        "--lowc-kpack", type=_kpack_policy, default="off",
+        "--lowc-kpack", type=_kpack_policy, default=None,
         help="packed low-channel backward tail: off|auto|forced|<chan> (default off)",
     )
     s.add_argument(
-        "--serve-models", default="", metavar="all|M1,M2",
+        "--serve-models", default=None, metavar="all|M1,M2",
         help="registry models served per-request via model=/x-model "
         "('all', a comma list, or unset for single-model)",
     )
     s.add_argument(
-        "--pinned-models", default="", metavar="M1,M2",
+        "--pinned-models", default=None, metavar="M1,M2",
         help="models paged in + warmed at boot, never evicted (default: just --model)",
     )
     s.add_argument(
-        "--hbm-budget-bytes", type=int, default=0,
+        "--hbm-budget-bytes", type=int, default=None,
         help="device byte budget for resident model weights (LRU page-out above it; 0 = unlimited)",
     )
     s.add_argument(
-        "--weight-dtype", default="f32", metavar="f32|bf16|int8",
+        "--weight-dtype", default=None, metavar="f32|bf16|int8",
         help="stored weight precision on the device (quantized tiers trade "
         "PSNR-bounded fidelity for resident models)",
     )
-    # the request pipeline's and the cache's fields, each named after its
-    # ServerConfig field (the JAX CLI's names where it has one)
+    # the other fields, each named after its ServerConfig field (the JAX
+    # CLI's names where it has one)
     for field in dataclasses.fields(ServerConfig):
         if field.name in _FIELD_FLAGS:
             flag = "--" + field.name.replace("_", "-")
             if field.type == "bool":
-                s.add_argument(flag, action="store_true", help=_FIELD_FLAGS[field.name])
-            else:
-                s.add_argument(flag, type=_TYPES[field.type], default=field.default,
+                s.add_argument(flag, action=argparse.BooleanOptionalAction, default=None,
                                help=f"{_FIELD_FLAGS[field.name]} (default {field.default})")
+            else:
+                s.add_argument(flag, type=_TYPES[field.type], default=None,
+                               help=f"{_FIELD_FLAGS[field.name]} (default {field.default!r})")
     s.add_argument("--no-singleflight", action="store_true",
                    help="do not coalesce concurrent identical requests onto one computation")
-    s.add_argument("--slo", default="", metavar="NAME=MS:PCT[:ROUTE],...",
+    s.add_argument("--slo", default=None, metavar="NAME=MS:PCT[:ROUTE],...",
                    help="latency SLO objects: burn-rate gauges on /metrics, an slo block on /readyz "
                    "(default none)")
-    s.add_argument("--tsdb", default="off", choices=("off", "on"),
+    s.add_argument("--tsdb", default=None, choices=("off", "on"),
                    help="embedded metric history and GET /v1/metrics/history (default off)")
-    s.add_argument("--alerts", default="", metavar="JSON|PATH",
+    s.add_argument("--alerts", default=None, metavar="JSON|PATH",
                    help="alert rules, inline JSON or a JSON file (implies --tsdb on; default none)")
     s.add_argument("--qos", action="store_true",
                    help="enable multi-tenant QoS: tenant identity, priority classes, device-time budgets, "
                    "DRR fair queues (default off)")
-    s.add_argument("--tenants", default="", metavar="JSON|PATH",
+    s.add_argument("--tenants", default=None, metavar="JSON|PATH",
                    help="tenant policy spec, inline JSON or a JSON file (implies --qos)")
-    s.add_argument("--qos-default-class", default="standard", metavar="interactive|standard|bulk",
-                   help="priority class for tenants with no explicit class")
-    s.add_argument("--quality-default", default="full", metavar="full|bf16|int8",
+    s.add_argument("--qos-default-class", default=None, metavar="interactive|standard|bulk",
+                   help="priority class for tenants with no explicit class (default standard)")
+    s.add_argument("--quality-default", default=None, metavar="full|bf16|int8",
                    help="precision tier for requests that name none via quality=/x-quality (default full)")
-    s.add_argument("--quality-by-class", default="bulk=int8", metavar="CLASS=TIER,...",
+    s.add_argument("--quality-by-class", default=None, metavar="CLASS=TIER,...",
                    help="per-QoS-class default tiers (default 'bulk=int8'; empty disables class defaults)")
-    s.add_argument("--calibration-dir", default="", metavar="DIR",
+    s.add_argument("--calibration-dir", default=None, metavar="DIR",
                    help="per-model int8 calibration artifacts (absent models use dynamic ranges)")
     s.add_argument(
         "--fault", action="append", default=None, metavar="SITE=SPEC",
         help="arm a fault-injection site at startup (repeatable; implies "
         "fault injection enabled — see serving/faults.py for sites/specs)",
     )
-    args = ap.parse_args(argv)
+    c = sub.add_parser("calibrate", help="write a model's int8 calibration artifact for --calibration-dir")
+    c.add_argument("--model", default="vgg16", help="registry model name (default vgg16)")
+    c.add_argument("--out", required=True, metavar="DIR", help="calibration dir the server reads (--calibration-dir)")
+    c.add_argument("--images", default="", metavar="DIR",
+                   help="directory of jpeg/png calibration captures (default: seeded synthetic noise)")
+    c.add_argument("--n-images", type=int, default=16,
+                   help="synthetic image count when --images is unset (default 16)")
+    c.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    return ap
 
-    cfg = ServerConfig(
-        model=args.model, max_batch=args.max_batch, lowc_kpack=args.lowc_kpack,
-        serve_models=args.serve_models, pinned_models=args.pinned_models,
-        hbm_budget_bytes=args.hbm_budget_bytes, weight_dtype=args.weight_dtype,
-        faults=",".join(args.fault or ()), singleflight=not args.no_singleflight, slos=args.slo,
-        tsdb=args.tsdb, alerts=args.alerts, qos=args.qos or bool(args.tenants), tenants=args.tenants,
-        qos_default_class=args.qos_default_class, quality_default=args.quality_default,
-        quality_by_class=args.quality_by_class, calibration_dir=args.calibration_dir,
-        **{name: getattr(args, name) for name in _FIELD_FLAGS},
-    )
+
+# serve's other flags that name their field
+_FIELD_ARGS = ("model", "max_batch", "lowc_kpack", "serve_models", "pinned_models", "hbm_budget_bytes",
+               "weight_dtype", "tsdb", "alerts", "tenants", "qos_default_class", "quality_default",
+               "quality_by_class", "calibration_dir", *_FIELD_FLAGS)
+
+
+def server_config(args) -> ServerConfig:
+    """``serve``'s configuration: the defaults, the ``DECONV_*`` variables,
+    then the flags given."""
+    overrides = {name: getattr(args, name) for name in _FIELD_ARGS if getattr(args, name) is not None}
+    if args.slo is not None:
+        overrides["slos"] = args.slo
+    if args.fault:
+        overrides["faults"] = ",".join(args.fault)
+    if args.no_singleflight:
+        overrides["singleflight"] = False
+    if args.qos or args.tenants is not None:
+        overrides["qos"] = True
+    return ServerConfig.from_env(**overrides)
+
+
+def build_server(argv=None) -> DeconvHTTPServer:
+    """Parse a ``serve`` command line, build the default model on its
+    device, start the dispatchers (and the job runners), warm every pinned
+    model's programs up and bind the HTTP server (not yet serving)."""
+    args = _parser().parse_args(argv)
+    if args.cmd != "serve":
+        raise SystemExit(f"build_server serves; got the {args.cmd!r} command")
+    cfg = server_config(args)
     service = DeconvService(cfg=cfg, device=args.device)
     service.start()
     try:
@@ -174,14 +235,80 @@ def build_server(argv=None) -> DeconvHTTPServer:
         service.close()
         raise
     served = ",".join(sorted(service.weights.served))
-    print(f"serving {served} (default {args.model}, lowc_kpack={args.lowc_kpack}, "
-          f"weight_dtype={args.weight_dtype}) on "
+    print(f"serving {served} (default {cfg.model}, lowc_kpack={cfg.lowc_kpack}, "
+          f"weight_dtype={cfg.weight_dtype}) on "
           f"http://{args.host}:{server.server_address[1]}",
           file=sys.stderr, flush=True)
     return server
 
 
+def _calibration_images(images_dir: str, size: int, preprocess) -> list:
+    """The jpeg/png files of ``images_dir`` in name order, loaded as the JAX
+    package's ``tools/calibrate.py`` loads them, so that the same captures
+    give the same ranges: PIL's RGB decode, PIL's default ``resize`` to
+    ``size`` x ``size``, then ``preprocess`` on that RGB array (which the
+    preprocess reads as BGR: the reference tool's channel order, ROADMAP
+    Queue C).  An unreadable file is skipped with a line on stderr."""
+    from PIL import Image
+
+    out = []
+    for fn in sorted(os.listdir(images_dir)):
+        if not fn.lower().endswith((".jpg", ".jpeg", ".png")):
+            continue
+        try:
+            with Image.open(os.path.join(images_dir, fn)) as f:
+                img = f.convert("RGB")
+        except (OSError, ValueError) as e:
+            print(f"skipping {fn}: {type(e).__name__}: {e}", file=sys.stderr)
+            continue
+        out.append(preprocess(np.asarray(img.resize((size, size)), np.float32)))
+    return out
+
+
+def _synthetic_images(n: int, size: int, preprocess) -> list:
+    """``n`` seeded noise images: the same set, so the same artifact, on
+    every run and host."""
+    return [preprocess(np.random.default_rng(i).integers(0, 256, (size, size, 3)).astype(np.float32))
+            for i in range(n)]
+
+
+def calibrate(args) -> int:
+    """``calibrate``: per-layer int8 input ranges of ``--model`` (its
+    registry weights) over ``--images`` (else ``--n-images`` seeded noise
+    images), written as ``<out>/<model>.calib.json``
+    (``engine/quant.py:collect_ranges`` and ``save_calibration``), the
+    artifact a ``--calibration-dir`` server binds its int8 keys to.  Runs
+    on ``--device``; prints one JSON line."""
+    if args.model not in REGISTRY:
+        print(f"unknown model {args.model!r}; available: {sorted(REGISTRY)}", file=sys.stderr)
+        return 2
+    bundle = build_bundle(args.model, args.device)
+    if bundle.spec is None:
+        print(f"model {args.model!r} is a DAG backbone: quality=int8 runs as bf16 there and needs no "
+              "calibration", file=sys.stderr)
+        return 2
+    size = bundle.image_size
+    if args.images:
+        images = _calibration_images(args.images, size, bundle.preprocess)
+        source = f"images:{os.path.abspath(args.images)}"
+        if not images:
+            print(f"no decodable images in {args.images}", file=sys.stderr)
+            return 2
+    else:
+        images = _synthetic_images(args.n_images, size, bundle.preprocess)
+        source = f"synthetic:{args.n_images}"
+    ranges = quant.collect_ranges(bundle.spec, bundle.params, images)
+    path, digest = quant.save_calibration(args.out, args.model, ranges, image_size=size, n_images=len(images),
+                                          source=source)
+    print(json.dumps({"which": "calibrate", "model": args.model, "path": path, "digest": digest,
+                      "layers": len(ranges), "n_images": len(images), "source": source}))
+    return 0
+
+
 def main(argv=None) -> int:
+    args = _parser().parse_args(argv)
+    if args.cmd == "calibrate":
+        return calibrate(args)
     slog.configure()  # the server entry point owns the logging setup (embedders don't)
     server = build_server(argv)
     try:
@@ -189,8 +316,10 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
-        server.server_close()
+        # the drain first, with the listener up: /readyz answers 503 for
+        # drain_grace_s and running jobs park, then the listener closes
         server.service.close()
+        server.server_close()
     return 0
 
 

@@ -1,19 +1,55 @@
 """The server's configuration (counterpart of ``deconv_api_tpu/config.py``),
-holding only the fields the port honours, with the JAX package's names and
-defaults.  ``DeconvService`` validates it at boot with the JAX package's
-messages."""
+holding the fields the port honours, with the JAX package's names,
+defaults and ``DECONV_<FIELD>`` environment variables
+(``ServerConfig.from_env``).  ``DeconvService`` validates it at boot with
+the JAX package's messages.
+
+Left out, as they have no counterpart here: ``host`` and ``port`` (the
+CLI's flags), ``donate_inputs`` (XLA buffer donation),
+``compilation_cache_dir`` (a CUDA graph is captured per process),
+``platform`` and ``profile_dir`` (a jax backend and trace directory), the
+mesh, lanes and pod fields (one card, one lane), the fleet, AOT and
+autoscale fields (not ported yet), and ``weights_path`` (the Keras h5
+loaders are not ported yet).
+
+One default differs from the JAX package's: ``warmup_dream`` is on, as the
+H100's boot and first-dream times decide (``PERF.md``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Any
 
 
 @dataclasses.dataclass
 class ServerConfig:
     model: str = "vgg16"
+    image_size: int = 0  # 0 = the model's native size (224 VGG/ResNet, 299 Inception)
+    top_k: int = 8
+    stitch_k: int = 4  # tiles in the response grid (reference: 4, 2x2)
+    visualize_mode: str = "all"  # 'all' | 'max' (the reference hardcodes 'all')
+    bug_compat: bool = True  # reproduce the reference's projection quirks for parity
+    strict_compat: bool = False  # also reproduce the reference's <stitch_k-filters error
     # batching dispatcher (fixes the reference's 1-concurrency)
     max_batch: int = 8
     batch_window_ms: float = 3.0
+    # Warm every power-of-two batch bucket at startup (the first concurrent
+    # burst otherwise pays a per-bucket capture at request time); off =
+    # warm only the smallest bucket (fast dev/test startup).
+    warmup_all_buckets: bool = True
+    # Also capture the sweep program at startup (bucket 1): its program is
+    # ~15x a single-layer request and the first sweep request otherwise
+    # pays its capture inside its own sweep_timeout_s window.  Off by
+    # default: sweeps are an opt-in surface.
+    warmup_sweep: bool = False
+    # Also capture the default dream (every rung's pyramid and ascent step)
+    # at startup, for the default model, so the first default dream is
+    # served from graphs.  On by default in the port (the JAX package
+    # defaults it off): on the H100 a first dream without it waits 0.4-0.5 s
+    # more inside its request, for captures a boot makes in 2-4 s before
+    # /ready (PERF.md).
+    warmup_dream: bool = True
     request_timeout_s: float = 60.0
     dream_timeout_s: float = 300.0  # dreams run minutes; own queue + timeout
     # Layer sweeps project ~13x a single-layer request; they ride their own
@@ -150,11 +186,53 @@ class ServerConfig:
     # half-open single-probe recovery after the cooldown).  0 disables.
     breaker_threshold: int = 5
     breaker_cooldown_s: float = 5.0
+    # Seconds between /readyz flipping to 503 (drain begin) and the
+    # dispatchers stopping on shutdown, so load balancers observe the flip
+    # and stop routing before connections start dying; running jobs reach
+    # their next checkpoint in it.  0 = immediate (tests, dev loops).
+    drain_grace_s: float = 0.0
+    # --- durable async jobs (serving/jobs.py) ---
+    # Directory for the job tier's write-ahead journal (journal.jsonl) and
+    # checkpoint/result spill files.  Empty = DISABLED: no /v1/jobs routes,
+    # no runner tasks, no cost on the synchronous path.  Heavy dreams and
+    # sweeps run for seconds; POST /v1/jobs with SSE progress is the
+    # durable alternative (execution checkpoints at octave/layer
+    # boundaries and resumes from the journal after a crash or restart).
+    jobs_dir: str = ""
+    # Queued-or-running jobs the tier will hold; a full queue 429s new
+    # submissions with a Retry-After from the running job cost.
+    jobs_queue_depth: int = 64
+    # Concurrent job runner tasks (each job's device work still rides the
+    # shared dispatchers: this bounds how many jobs make progress at once,
+    # not device parallelism).
+    jobs_workers: int = 2
+    # Completed/failed/cancelled job records (and their result payloads)
+    # survive this long across boots before compaction drops them: the
+    # idempotent-resubmit and late-GET window.
+    jobs_retention_s: float = 3600.0
+    # Runner-crash resume budget per job: a job that crashes (not a
+    # deterministic taxonomy failure) re-queues and resumes from its last
+    # checkpoint at most this many times before failing for good.
+    jobs_max_attempts: int = 3
     # Low-channel backward-tail packing of the sequential engine: 'off'
     # (default) | 'auto' (pack the C<=64 tail when top_k > 1) | 'forced'
     # (whole certified C<=128 tail) | an explicit channel threshold.  DAG
     # models and dreams leave it inert.  Output bytes are identical on/off.
     lowc_kpack: str = "off"  # 'off' | 'auto' | 'forced' | '<channels>'
+    # The fused unpool + flipped-conv backward tail (K3, csrc/
+    # fused_unpool_conv.cu): fuse each certified pool -> backward-ReLU ->
+    # flipped-conv triple of the backward walk into one kernel.  'off'
+    # (default: K2 + cuDNN is faster on the H100, PERF.md) | 'auto' (fuse
+    # certified sites on the card; elsewhere inert) | 'forced' (fuse
+    # everywhere: the plain version on the CPU, the parity harness).
+    # Sequential models only; DAG models and dreams leave it inert.
+    # Validated at boot; it folds into the response-cache key prefix.
+    fused_unpool: str = "off"  # 'off' | 'auto' | 'forced'
+    dtype: str = "float32"  # forward/selection dtype: 'float32' | 'bfloat16'
+    # Backward-projection dtype.  bfloat16 is the default: selection and
+    # switches stay exact (the forward runs in `dtype`); '' runs the
+    # backward in the forward's dtype (no cast).
+    backward_dtype: str = "bfloat16"  # '' | 'float32' | 'bfloat16'
     # --- multi-model serving (serving/weight_manager.py) ---
     # The set of registry models THIS process serves per-request
     # (``model=`` form field / ``x-model`` header): '' = only `model`
@@ -223,3 +301,30 @@ class ServerConfig:
     # key); without one, each example's own ranges ('dynamic').  A corrupt
     # artifact reads as absent.
     calibration_dir: str = ""
+
+    @classmethod
+    def from_env(cls, **overrides: Any) -> "ServerConfig":
+        """The defaults, then each ``DECONV_<FIELD>`` variable that is set,
+        then ``overrides`` (a name that is no field raises)."""
+        cfg = cls()
+        for f in dataclasses.fields(cls):
+            env = os.environ.get(f"DECONV_{f.name.upper()}")
+            if env is not None:
+                setattr(cfg, f.name, _coerce(env, f.type, getattr(cfg, f.name)))
+        for k, v in overrides.items():
+            if not hasattr(cfg, k):
+                raise ValueError(f"unknown config field {k!r}")
+            setattr(cfg, k, v)
+        return cfg
+
+
+def _coerce(raw: str, annotation: Any, default: Any):
+    if isinstance(default, bool):
+        return raw.lower() in ("1", "true", "yes", "on")
+    if isinstance(default, int):
+        return int(raw)
+    if isinstance(default, float):
+        return float(raw)
+    if isinstance(default, tuple):
+        return tuple(int(x) for x in raw.split(",") if x)
+    return raw

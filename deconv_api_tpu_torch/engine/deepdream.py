@@ -164,23 +164,34 @@ def dream_programs(
     return rungs
 
 
-def run_dream_programs(rungs, base: torch.Tensor, steps: int, lr: float):
-    """A whole dream of ``base`` (on the programs' device) through
-    ``dream_programs``' rungs: each rung's pyramid step, then ``steps``
-    replays of its ascent step.  Returns (x, losses): the last step
-    program's static batch and its losses output (zeros for 0 steps),
-    which the next replay of the cache overwrites; call it, and read them,
-    inside the cache's ``replaying()``."""
-    x = losses = None
-    for i, (pyramid, step) in enumerate(rungs):
-        start = pyramid(base) if i == 0 else pyramid(x, base)
-        step.load(start)
-        step.static[1].fill_(lr)
-        for _ in range(steps):
-            losses = step.replay()
-        x = step.static[0]
+def run_dream_rung(rungs, i: int, x, base: torch.Tensor, steps: int, lr: float):
+    """Rung ``i`` of a dream through ``dream_programs``' rungs: its pyramid
+    step from ``x`` (the previous rung's result, unused at rung 0) and
+    ``base``, then ``steps`` replays of its ascent step.  Returns (x,
+    losses): the step program's static batch and its losses output (zeros
+    for 0 steps), which the next replay of the cache overwrites; call it,
+    and read them, inside the cache's ``replaying()``.  A dream job runs
+    its octaves one rung a dispatch through this, so its checkpointed walk
+    is the whole dream's."""
+    pyramid, step = rungs[i]
+    step.load(pyramid(base) if i == 0 else pyramid(x, base))
+    step.static[1].fill_(lr)
+    losses = None
+    for _ in range(steps):
+        losses = step.replay()
+    x = step.static[0]
     if losses is None:
         losses = torch.zeros((x.shape[0],), dtype=x.dtype, device=x.device)
+    return x, losses
+
+
+def run_dream_programs(rungs, base: torch.Tensor, steps: int, lr: float):
+    """A whole dream of ``base`` (on the programs' device) through
+    ``dream_programs``' rungs, one ``run_dream_rung`` after another.
+    Returns (x, losses) of the last rung, read as ``run_dream_rung``'s."""
+    x = None
+    for i in range(len(rungs)):
+        x, losses = run_dream_rung(rungs, i, x, base, steps, lr)
     return x, losses
 
 

@@ -112,6 +112,39 @@ class BreakerOpen(DeconvError):
         self.retry_after_s = retry_after_s
 
 
+class JobQueueFull(DeconvError):
+    """The async job queue is at capacity: 429 with a ``Retry-After`` from
+    the queue depth and the running job cost (``serving/jobs.py``)."""
+
+    status = 429
+    code = "job_queue_full"
+
+    def __init__(self, message: str, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class JobNotFound(DeconvError):
+    """No such job id: never submitted, or compacted out after its
+    retention window."""
+
+    status = 404
+    code = "job_not_found"
+
+
+class UndurableWrite(DeconvError):
+    """A fail-loud persistence surface could not make a pre-ack write
+    durable (a job submit whose journal append cannot fsync): 503 with a
+    ``Retry-After`` rather than a 202 the server cannot keep."""
+
+    status = 503
+    code = "undurable_write"
+
+    def __init__(self, message: str, retry_after_s: float | None = 1.0):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
 class TenantOverQuota(DeconvError):
     """A tenant exhausted one of its QoS budgets (``serving/qos.py``): the
     device-time token bucket or the in-flight cap.  429 with a

@@ -14,9 +14,9 @@ show which branch ran.
 
 Policy vocabulary (the reference's): ``off`` never fuses, ``auto`` fuses on
 CUDA, ``forced`` fuses on every device.  TPU measurements set the
-reference's default to off; they decide nothing here.  The port's default,
-``FUSED_DEFAULT``, is set by the measurement on the H100 that ``PERF.md``
-records.
+reference's default to off; they decide nothing here.  The port's default
+is ``ServerConfig.fused_unpool`` (``FUSED_DEFAULT`` names it for the engine),
+set by the measurement on the H100 that ``PERF.md`` records.
 
 ``groups > 1`` is the channel-packed ("kpack") form: ``y`` carries
 ``groups`` projections group-major in its channels, ``idx`` the switches of
@@ -36,6 +36,7 @@ from typing import Sequence
 
 import torch
 
+from deconv_api_tpu_torch.config import ServerConfig
 from deconv_api_tpu_torch.ops import _build
 from deconv_api_tpu_torch.ops.conv import (
     conv2d_input_backward,
@@ -50,7 +51,7 @@ from deconv_api_tpu_torch.ops.pool import (
 )
 
 FUSED_MODES = ("off", "auto", "forced")
-FUSED_DEFAULT = "off"  # the engine's and the service's fused_unpool
+FUSED_DEFAULT = ServerConfig.fused_unpool  # the engine's and the service's fused_unpool
 launches = {"fused_unpool_conv": 0, "fused_unpool_conv_grouped": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

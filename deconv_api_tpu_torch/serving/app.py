@@ -40,6 +40,20 @@ one device row (``coalesced``), a deterministic 4xx is cached for
 ``cache_negative_ttl_s`` (``hit-negative``), and with ``l2_dir`` the
 answers outlive the process on disk (``l2``).
 
+With ``jobs_dir`` (``serving/jobs.py``): ``POST /v1/jobs`` (``type`` dream,
+deconv or sweep, with the fields of the matching route) answers 202 and a
+job whose stages run on the same dispatchers, checkpointed to the
+directory at each octave or layer: ``GET /v1/jobs``, ``GET
+/v1/jobs/{id}[/result|/events]`` (the answer is the synchronous route's
+bytes; the events are server-sent) and ``DELETE /v1/jobs/{id}``.
+
+The server's settings (``config.ServerConfig``, the JAX package's fields
+and ``DECONV_*`` variables): ``visualize_mode``, ``stitch_k`` and
+``top_k`` are the routes' defaults, ``bug_compat``, ``backward_dtype``,
+``dtype`` and ``fused_unpool`` pick the programs, ``strict_compat`` turns
+fewer than ``stitch_k`` fired filters into 422 ``no_active_filters``, and
+``image_size`` overrides every model's input size.
+
 Control routes: ``GET /healthz`` (liveness), ``GET /readyz`` (readiness,
 with each check named, and the residency block when several models are
 served; 503 while draining), ``GET /metrics`` and ``GET /v1/metrics`` (the
@@ -83,6 +97,7 @@ import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import json
 import logging
 import math
 import threading
@@ -96,10 +111,10 @@ from deconv_api_tpu_torch import errors
 from deconv_api_tpu_torch.config import ServerConfig
 from deconv_api_tpu_torch.engine.capture import DEVICE_LOCK
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
-from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_programs
+from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_programs, run_dream_rung
 from deconv_api_tpu_torch.engine import quant as quant_mod
 from deconv_api_tpu_torch.engine.quant import QUALITY_TIERS
-from deconv_api_tpu_torch.ops.cuda_deconv import FUSED_DEFAULT
+from deconv_api_tpu_torch.ops.cuda_deconv import fused_engaged, resolve_fused_unpool
 from deconv_api_tpu_torch.serving import codec, durable
 from deconv_api_tpu_torch.serving import faults as faults_mod
 from deconv_api_tpu_torch.serving import trace as trace_mod
@@ -109,6 +124,7 @@ from deconv_api_tpu_torch.serving.batcher import BatchingDispatcher, CircuitBrea
 from deconv_api_tpu_torch.serving.cache import L2Store, ResponseCache, Singleflight, canonical_digest
 from deconv_api_tpu_torch.serving.codec_pool import HostBufferRing, WorkerPool
 from deconv_api_tpu_torch.serving.http import HttpServer, Request, Response
+from deconv_api_tpu_torch.serving.jobs import Checkpoint, JobManager, Result
 from deconv_api_tpu_torch.serving.metrics import Metrics, parse_slos, slo_prometheus
 from deconv_api_tpu_torch.serving.models import REGISTRY, ModelBundle, build_bundle, registry_info
 from deconv_api_tpu_torch.serving.qos import QosPolicy
@@ -118,10 +134,12 @@ from deconv_api_tpu_torch.utils import slog
 
 log = logging.getLogger(__name__)
 
-# The reference serves the top 4 of its ranking as a 2x2 grid: computing
-# only those 4 projections gives the same grid.
-STITCH_K = 4
-DEFAULT_TOP_K = 8  # /v1/deconv's default
+# The route defaults of a default-configured server (the service reads its
+# own ``cfg``): the reference serves the top 4 of its ranking as a 2x2 grid,
+# and computing only those 4 projections gives the same grid; /v1/deconv
+# answers the top 8.
+STITCH_K = ServerConfig.stitch_k
+DEFAULT_TOP_K = ServerConfig.top_k
 # /v1/dream's defaults (deconv_api_tpu/config.py)
 DREAM_DEFAULTS = {"steps": 10, "octaves": 10, "lr": 0.01}
 _TRUTHY = ("1", "true", "yes", "on")
@@ -131,14 +149,6 @@ _POLL_S = (5e-5, 1e-3)
 # the compute routes the observation wrap covers: an SLO scoped to any
 # other route would never observe
 COMPUTE_ROUTES = frozenset(("/", "/v1/deconv", "/v1/dream"))
-# the weights' identity in the cache-key prefix: no weight file ships with
-# the port, every registry bundle is He-normal from generator seed 0
-WEIGHTS_SOURCE = "he-normal:seed=0"
-# the serving programs' backward dtype (``_enqueue_program``)
-BACKWARD_DTYPE = "bfloat16"
-# the serving programs' forward dtype at quality=full: the JAX package's
-# ``dtype`` field at its default
-FORWARD_DTYPE = "float32"
 QOS_CLASSES = ("interactive", "standard", "bulk")
 
 
@@ -161,6 +171,19 @@ class Dream(NamedTuple):
     steps: int = DREAM_DEFAULTS["steps"]
     octaves: int = DREAM_DEFAULTS["octaves"]
     lr: float = DREAM_DEFAULTS["lr"]
+
+
+class DreamOctave(NamedTuple):
+    """One checkpointable octave of a dream job (the JAX package's
+    ``("__dream_octave__", layers, steps, lr, shapes, i)`` key): rung
+    ``index`` of the ladder ``shapes``.  Jobs at the same octave of the
+    same dream share a batch."""
+
+    layers: tuple[str, ...]
+    steps: int
+    lr: float
+    shapes: tuple[tuple[int, int], ...]
+    index: int
 
 
 @contextlib.contextmanager
@@ -203,7 +226,18 @@ class DeconvService:
         registry: dict[str, Callable[[], ModelBundle]] | None = None, device=None, **overrides,
     ):
         self.cfg = cfg = dataclasses.replace(cfg or ServerConfig(), **overrides)
-        resolve_kpack_chan(cfg.lowc_kpack, DEFAULT_TOP_K)
+        # the settings, validated at boot: a typo fails the process, not the
+        # first request, and a setting the card cannot run never starts
+        resolve_kpack_chan(cfg.lowc_kpack, cfg.top_k)
+        resolve_fused_unpool(cfg.fused_unpool)
+        if cfg.visualize_mode not in ("all", "max"):
+            raise ValueError(f"visualize_mode must be 'all' or 'max', got {cfg.visualize_mode!r}")
+        if cfg.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {cfg.dtype!r}")
+        if cfg.backward_dtype not in ("", "float32", "bfloat16"):
+            raise ValueError(f"backward_dtype must be '', 'float32' or 'bfloat16', got {cfg.backward_dtype!r}")
+        if not 1 <= cfg.top_k <= 64 or not 1 <= cfg.stitch_k <= 64:
+            raise ValueError(f"top_k and stitch_k must be in [1, 64], got {cfg.top_k} and {cfg.stitch_k}")
         if cfg.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, got {cfg.weight_dtype!r}")
         # the quality tiers, validated at boot: a mistyped tier fails the
@@ -269,6 +303,11 @@ class DeconvService:
                 self.faults.arm_string(cfg.faults)
             faults_mod.install(self.faults)
         self.bundle = bundle if bundle is not None else self._registry[cfg.model]()
+        # the operator's image size applies to every model; 0 means each
+        # model's own, and reads back as the default model's
+        self._image_size_override = max(0, cfg.image_size)
+        if cfg.image_size <= 0:
+            cfg.image_size = self.bundle.image_size
         self.weights = WeightManager(
             {name: self._registry[name] for name in served}, cfg.model, default_bundle=self.bundle,
             pinned=tuple(pinned), budget_bytes=cfg.hbm_budget_bytes, weight_dtype=cfg.weight_dtype,
@@ -348,6 +387,17 @@ class DeconvService:
                                                  cfg.sweep_timeout_s, self.sweep_metrics)
         self.server = HttpServer(idle_timeout_s=cfg.conn_idle_timeout_s, body_timeout_s=cfg.body_read_timeout_s,
                                  max_connections=cfg.max_connections)
+        # Durable async jobs (serving/jobs.py): long dreams and sweeps as
+        # 202-accepted, journaled, checkpoint-resumed work on the three
+        # dispatchers.  Only with a jobs_dir: a default server has no job
+        # routes and no runner tasks.
+        self.jobs = None
+        if cfg.jobs_dir:
+            self.jobs = JobManager(
+                cfg.jobs_dir, self._execute_job, metrics=self.metrics, lane_pool=self.lane_pool,
+                queue_depth=cfg.jobs_queue_depth, workers=cfg.jobs_workers, retention_s=cfg.jobs_retention_s,
+                max_attempts=cfg.jobs_max_attempts,
+            )
         self._add_routes()
         self._loop: asyncio.AbstractEventLoop | None = None
         self._loop_thread: threading.Thread | None = None
@@ -438,42 +488,47 @@ class DeconvService:
                     self.output_ring.release(buf)
 
     def _enqueue_program(
-        self, program: Program, images, fused_unpool: str = FUSED_DEFAULT, lowc_kpack: str | None = None,
+        self, program: Program, images, fused_unpool: str | None = None, lowc_kpack: str | None = None,
         model: str | None = None,
     ) -> Callable[[], dict]:
         """The dispatch step of a deconv batch: ``images`` (B preprocessed
         (H, W, 3) images of ``model``, default the default model) through
-        one device program with the reference's serving settings (bf16
-        backward, bug_compat; a DAG model ignores both and projects in
-        fp32), run as the captured program of its bucket (``pad_bucket`` of
-        ``max_batch``), its tail padded with the last image.  Returns the
-        fetch, ``() -> {layer: {post, "valid", "indices"}}`` of the B real
-        rows as numpy; ``post`` is ``program.post``, uint8 (B, 2H, 2W, 3)
-        grids or (B, K, H, W, 3) tiles.  ``lowc_kpack`` defaults to the
-        service's policy.  ``program.quality`` (an effective tier) picks the
-        program: ``bf16`` stages the batch in bfloat16, ``int8`` stages it
-        in float32 and runs the int8 walk on the model's quant spec
+        one device program with the server's settings (``bug_compat``,
+        ``backward_dtype``, ``dtype``, ``fused_unpool``; a DAG model ignores
+        the first two and projects in fp32), run as the captured program of
+        its bucket (``pad_bucket`` of ``max_batch``), its tail padded with
+        the last image.  Returns the fetch, ``() -> {layer: {post, "valid",
+        "indices"}}`` of the B real rows as numpy; ``post`` is
+        ``program.post``, uint8 (B, 2H, 2W, 3) grids or (B, K, H, W, 3)
+        tiles.  ``fused_unpool`` and ``lowc_kpack`` default to the server's
+        policies.  ``program.quality`` (an effective tier) picks the
+        program: ``bf16`` (or ``dtype=bfloat16``) stages the batch in
+        bfloat16, ``int8`` runs the int8 walk on the model's quant spec
         (``_quant_spec``).  The fetch carries ``page_in_s`` and
         ``page_model`` when the batch paged its weights in."""
         n = len(images)
         bucket = pad_bucket(n, self.max_batch)
         name = model or self.weights.default
         bundle = self.weights.bundle(name)
-        quant, dtype = None, torch.float32
+        quant = None
         if program.quality == "int8":
             quant = self._quant_spec(name)[0]
             self.metrics.inc_counter("quant_int8_batches_total")
         elif program.quality == "bf16":
-            dtype = torch.bfloat16
             self.metrics.inc_counter("quant_bf16_batches_total")
+        # dtype is the forward's (the engine follows the staged batch):
+        # quality=bf16 is the per-request form of dtype=bfloat16
+        bf16 = self.cfg.dtype == "bfloat16" or program.quality == "bf16"
+        dtype = torch.bfloat16 if bf16 else torch.float32
         _, page_s = self.weights.checkout(name)
         staging = slots = None
         try:
             prog = bundle.program(
-                program.layer, program.mode, program.top_k, bucket, bug_compat=True,
-                backward_dtype=BACKWARD_DTYPE, post=program.post, fused_unpool=fused_unpool,
+                program.layer, program.mode, program.top_k, bucket, bug_compat=self.cfg.bug_compat,
+                backward_dtype=self.cfg.backward_dtype or None, post=program.post,
+                fused_unpool=self.cfg.fused_unpool if fused_unpool is None else fused_unpool,
                 sweep=program.sweep, lowc_kpack=self.lowc_kpack if lowc_kpack is None else lowc_kpack,
-                quant=quant, dtype=dtype,
+                quant=quant, dtype=dtype, image_size=self._model_image_size(bundle),
             )
             with bundle.programs.replaying():
                 staging = self.input_ring.assemble(images, bucket)
@@ -512,7 +567,7 @@ class DeconvService:
         _, page_s = self.weights.checkout(name)
         staging = slots = None
         try:
-            size = bundle.image_size
+            size = self._model_image_size(bundle)
             ladder = octave_shapes(size, size, dream.octaves, 1.4, bundle.min_dream_size)
             rungs = bundle.dream_program(dream.layers, ladder, bucket)
             with bundle.dream_programs.replaying():
@@ -537,6 +592,54 @@ class DeconvService:
                 self.weights.release(name)
 
         fetch.base = base  # read by the queued rungs until the event
+        fetch.page_in_s, fetch.page_model = page_s, name
+        return fetch
+
+    def _enqueue_dream_octave(self, octave: DreamOctave, pairs: list, model: str | None = None) -> Callable[[], tuple]:
+        """The dispatch step of one dream octave of a batch of jobs (the
+        JAX package's ``_dispatch_dream_octave``): ``pairs`` are (x, base),
+        the dream at the previous rung's size (ignored at rung 0) and the
+        full-size input.  Rung ``octave.index`` of the captured programs of
+        the whole dream (``ModelBundle.dream_program``, the same graphs at
+        the same bucket) runs as ``run_dream_programs`` runs it: its
+        pyramid step from x and the base, then ``steps`` ascent steps.  The
+        fetch returns (x at the rung's size, losses (B,)) as numpy, so the
+        walk's x round-trips the host exactly (float32) between octaves."""
+        n = len(pairs)
+        bucket = pad_bucket(n, self.cfg.dream_max_batch)
+        name = model or self.weights.default
+        bundle = self.weights.bundle(name)
+        _, page_s = self.weights.checkout(name)
+        staged = []
+        slots = None
+        try:
+            rungs = bundle.dream_program(octave.layers, octave.shapes, bucket)
+            with bundle.dream_programs.replaying():
+                # the pyramid steps read their inputs on the card: they live
+                # there until the fetch
+                inputs = [[b for _, b in pairs]] + ([[x for x, _ in pairs]] if octave.index else [])
+                for rows in inputs:
+                    staged.append(self.input_ring.assemble(rows, bucket))
+                base, *prev = [t.to(bundle.device, non_blocking=True) for t in staged]
+                x, losses = run_dream_rung(rungs, octave.index, prev[0] if prev else None, base, octave.steps,
+                                           octave.lr)
+                slots, event = self._host_rows(bundle.device, {"dream": {"image": x, "loss": losses}}, n)
+        except BaseException:
+            for buf in staged:
+                self.input_ring.release(buf)
+            self.weights.release(name)
+            raise
+
+        def fetch() -> tuple:
+            try:
+                rows = self._fetch_rows(slots, event, n)["dream"]
+                return rows["image"], rows["loss"]
+            finally:
+                for buf in staged:
+                    self.input_ring.release(buf)
+                self.weights.release(name)
+
+        fetch.inputs = (base, *prev)  # read by the queued rung until the event
         fetch.page_in_s, fetch.page_model = page_s, name
         return fetch
 
@@ -578,11 +681,16 @@ class DeconvService:
             materialise.page_in_s, materialise.page_model = fetch.page_in_s, fetch.page_model
         return materialise
 
-    def _dispatch_dream(self, key: tuple[str, Dream], images: list) -> Callable[[], list]:
-        """The dream dispatcher's dispatch runner."""
+    def _dispatch_dream(self, key: tuple[str, Dream | DreamOctave], images: list) -> Callable[[], list]:
+        """The dream dispatcher's dispatch runner: a whole dream, or with a
+        ``DreamOctave`` key one octave of dream jobs (``images`` are then
+        (x, base) pairs)."""
         model, dream = key
         self._device_faults()
-        fetch = self._enqueue_dream(dream, images, model)
+        if isinstance(dream, DreamOctave):
+            fetch = self._enqueue_dream_octave(dream, images, model)
+        else:
+            fetch = self._enqueue_dream(dream, images, model)
 
         def materialise() -> list:
             out, losses = fetch()
@@ -593,7 +701,7 @@ class DeconvService:
         return materialise
 
     def run_program(
-        self, program: Program, xs, fused_unpool: str = FUSED_DEFAULT, lowc_kpack: str | None = None,
+        self, program: Program, xs, fused_unpool: str | None = None, lowc_kpack: str | None = None,
         model: str | None = None,
     ) -> dict[str, dict[str, np.ndarray]]:
         """``_enqueue_program`` and its fetch, on the calling thread:
@@ -608,29 +716,49 @@ class DeconvService:
         return self._enqueue_dream(dream, xs, model)()
 
     def visualize_batch(
-        self, layer: str, xs: np.ndarray, fused_unpool: str = FUSED_DEFAULT, model: str | None = None,
+        self, layer: str, xs: np.ndarray, fused_unpool: str | None = None, model: str | None = None,
     ):
         """The ``POST /`` program on a batch: ``{"grid", "valid", "indices"}``."""
-        return self.run_program(Program(layer), xs, fused_unpool, model=model)[layer]
+        return self.run_program(self._grid_program(layer), xs, fused_unpool, model=model)[layer]
+
+    def _grid_program(self, layer: str) -> Program:
+        """``POST /``'s program at ``layer``: the server's visualize mode and
+        stitch k."""
+        return Program(layer, self.cfg.visualize_mode, self.cfg.stitch_k)
+
+    def _model_image_size(self, bundle: ModelBundle) -> int:
+        """The size a model's requests resize to: the operator's
+        ``image_size`` when one was configured, else the model's own."""
+        return self._image_size_override or bundle.image_size
 
     def warmup_programs(self, model: str | None = None) -> list[tuple[Program | Dream, int]]:
         """What the card's warmup captures for ``model`` (default: the
-        default model), as (program, bucket): the grid and the tiles
-        programs at its deepest layer at every deconv bucket, and the
-        default dream at every dream bucket where the model has dream
-        layers (the reference's ``warmup_all_buckets``)."""
-        bundle = self.weights.bundle(model or self.weights.default)
-        layer = bundle.deepest_layer()
-        out = [(p, b) for b in buckets(self.max_batch)
-               for p in (Program(layer), Program(layer, top_k=DEFAULT_TOP_K, post="tiles"))]
-        if bundle.dream_layers:
-            out += [(Dream(bundle.dream_layers), b) for b in buckets(self.cfg.dream_max_batch)]
+        default model), as (program, bucket), as the JAX package's warmup
+        runs them: both route defaults at its deepest layer (``POST /``'s
+        grid at ``stitch_k``, ``/v1/deconv``'s tiles at ``top_k``, in the
+        server's ``visualize_mode``) at every deconv bucket, or only the
+        first without ``warmup_all_buckets``; for the default model, with
+        ``warmup_sweep`` the sweep at bucket 1 and with ``warmup_dream`` the
+        default dream at every dream bucket (or the first) where the model
+        has dream layers."""
+        name = model or self.weights.default
+        bundle = self.weights.bundle(name)
+        layer, mode, is_default = bundle.deepest_layer(), self.cfg.visualize_mode, name == self.weights.default
+        first = not self.cfg.warmup_all_buckets
+        sizes = buckets(self.max_batch)[:1] if first else buckets(self.max_batch)
+        out = [(p, b) for b in sizes
+               for p in (self._grid_program(layer), Program(layer, mode, self.cfg.top_k, "tiles"))]
+        if self.cfg.warmup_sweep and is_default:
+            out.append((Program(layer, mode, self.cfg.top_k, "tiles", True), sizes[0]))
+        if self.cfg.warmup_dream and is_default and bundle.dream_layers:
+            dream_sizes = buckets(self.cfg.dream_max_batch)
+            out += [(Dream(bundle.dream_layers), b) for b in (dream_sizes[:1] if first else dream_sizes)]
         return out
 
     def warm(self, program: Program | Dream, bucket: int, model: str | None = None) -> None:
         """Run ``program`` once on a zero batch of ``bucket`` images, which
         captures it on the card (and fills the staging rings)."""
-        size = self.weights.bundle(model or self.weights.default).image_size
+        size = self._model_image_size(self.weights.bundle(model or self.weights.default))
         xs = np.zeros((bucket, size, size, 3), np.float32)
         if isinstance(program, Dream):
             self.run_dream(program, xs, model)
@@ -654,7 +782,7 @@ class DeconvService:
                 for program, bucket in self.warmup_programs(name):
                     self.warm(program, bucket, name)
             else:
-                size = bundle.image_size
+                size = self._model_image_size(bundle)
                 xs = gen.normal(0, 50, (1, size, size, 3)).astype(np.float32)
                 self.visualize_batch(bundle.deepest_layer(), xs, model=name)
             self.warmup_wall_s_by_model[name] = time.perf_counter() - t_model
@@ -679,9 +807,11 @@ class DeconvService:
         return asyncio.run_coroutine_threadsafe(coro, self._ensure_loop()).result(timeout)
 
     def start(self) -> None:
-        """Start the three dispatchers and, with ``tsdb`` on, the
-        self-scrape task (and the codec pool and the L2 writer anew after
-        a ``close``: the L2's entries outlive it)."""
+        """Start the three dispatchers, then with ``jobs_dir`` the job
+        runners (their stages ride the dispatchers; the boot already
+        re-queued reclaimed jobs), and with ``tsdb`` on the self-scrape
+        task (and the codec pool and the L2 writer anew after a ``close``:
+        the L2's entries outlive it)."""
         if self.codec_pool.closed:
             self.codec_pool = WorkerPool(self.cfg.codec_workers, max_pending=self.cfg.codec_queue_depth,
                                          metrics=self.metrics)
@@ -692,6 +822,8 @@ class DeconvService:
         async def start():
             for d in (self.dispatcher, self.dream_dispatcher, self.sweep_dispatcher):
                 await d.start()
+            if self.jobs is not None:
+                self.jobs.start()
             if self.tsdb is not None and self._tsdb_task is None:
                 self._tsdb_task = asyncio.get_running_loop().create_task(self._tsdb_loop(), name="tsdb-scrape")
 
@@ -714,25 +846,44 @@ class DeconvService:
     def begin_drain(self) -> None:
         """Flip into draining before the listener closes: ``/readyz``
         answers 503 so load balancers stop routing, and every response on
-        a live keep-alive connection carries ``connection: close``."""
+        a live keep-alive connection carries ``connection: close``.  Queued
+        jobs park now (journaled: the next boot reclaims them), running
+        jobs at their next checkpoint boundary."""
         self.draining = True
         self.server.draining = True
+        if self.jobs is not None and not self.jobs.draining:
+            if self._loop is None or threading.current_thread() is self._loop_thread:
+                self.jobs.begin_drain()
+            else:  # the manager's state lives on the event loop
+                async def park():
+                    self.jobs.begin_drain()
+
+                self.on_loop(park())
 
     def close(self, timeout: float = 10.0) -> None:
         """Begin the drain (``/readyz`` answers 503 and every response
-        carries ``connection: close`` from here), then stop the three
-        dispatchers within one shared grace of ``timeout`` seconds, the
-        codec pool, the scrape task, the L2 writer (its queued writes
-        flushed) and the fault hook.  The listener, if any, stays up until
-        ``stop_listening``."""
+        carries ``connection: close`` from here), hold it ``drain_grace_s``
+        so load balancers see the flip, then stop the job runners (running
+        jobs park at their next checkpoint, cancelled mid-octave past 5 s),
+        the three dispatchers within one shared grace of ``timeout``
+        seconds, the codec pool, the scrape task, the L2 writer (its queued
+        writes flushed) and the fault hook.  The listener, if any, stays up
+        until ``stop_listening``."""
         self.begin_drain()
         if self._loop is not None and not self._closed:
             async def stop():
+                if self.cfg.drain_grace_s > 0:
+                    await asyncio.sleep(self.cfg.drain_grace_s)
                 if self._tsdb_task is not None:
                     self._tsdb_task.cancel()
                     with contextlib.suppress(asyncio.CancelledError):
                         await self._tsdb_task
                     self._tsdb_task = None
+                if self.jobs is not None:
+                    # before the dispatchers: a runner parking mid-octave
+                    # journals from its cancellation handler, and its
+                    # in-flight item is dropped at the reap boundary
+                    await self.jobs.stop()
                 deadline = time.perf_counter() + timeout
                 for d in (self.dispatcher, self.dream_dispatcher, self.sweep_dispatcher):
                     await d.stop(grace_s=max(0.0, deadline - time.perf_counter()))
@@ -740,6 +891,8 @@ class DeconvService:
             self.on_loop(stop())
         self._closed = True
         self.codec_pool.close()
+        if self.jobs is not None:
+            self.jobs.journal.close()
         if self.l2 is not None:
             self.l2.close()
         if self.faults is not None:
@@ -840,7 +993,7 @@ class DeconvService:
             return "full"
         if quality == "int8" and bundle is not None and bundle.spec is None:
             quality = "bf16"
-        if quality == "bf16" and FORWARD_DTYPE == "bfloat16":
+        if quality == "bf16" and self.cfg.dtype == "bfloat16":
             return "full"
         return quality
 
@@ -889,7 +1042,7 @@ class DeconvService:
             img = codec.decode_data_url(file_uri)
         except codec.CodecError as e:
             raise errors.InvalidImage(str(e)) from None
-        size = bundle.image_size
+        size = self._model_image_size(bundle)
         return bundle.preprocess(codec.resize224(img, (size, size)))
 
     async def _prepare(self, metrics: Metrics, parse: Callable[[], dict], size: int, headers, validate):
@@ -932,24 +1085,30 @@ class DeconvService:
                 raise errors.BadRequest("form fields 'file' and 'layer' are required")
             quality = self._resolve_quality(req, form, headers)
             bundle, layer, x = self._projection_input(form, model)
-            return model, self._quality_key(Program(layer), self._effective_quality(quality, bundle)), x
+            return model, self._quality_key(self._grid_program(layer), self._effective_quality(quality, bundle)), x
 
         model, program, x = await self._prepare(self.metrics, parse, size, headers, validate)
         _annotate_model(model)
         layer = program.layer
         with stage(self.metrics, "compute"):
             result = (await self.dispatcher.submit(x, (model, program), deadline=deadline, **_tenancy(req)))[layer]
-        if not result["valid"].any():
+        n_valid = int(result["valid"].sum())
+        if n_valid == 0:
             raise errors.NoActiveFilters(f"no filters fired for layer {layer!r}")
+        if self.cfg.strict_compat and n_valid < self.cfg.stitch_k:
+            raise errors.NoActiveFilters(f"only {n_valid} filters fired; need {self.cfg.stitch_k}")
         # encoded in the fetch thread; a failed encode there is retried here
         return result["data_url"] or await self.codec_pool.run(codec.encode_data_url, result["grid"])
 
     def _deconv_params(self, form: dict[str, str]) -> tuple[str, int, bool]:
-        mode = form.get("mode", "all")
+        """A deconv request's (mode, top_k, sweep), the server's
+        ``visualize_mode`` and ``top_k`` where the form names none: the one
+        rule set of ``/v1/deconv`` and of ``POST /v1/jobs``."""
+        mode = form.get("mode", self.cfg.visualize_mode)
         if mode not in ("all", "max"):
             raise errors.IllegalMode(f"mode must be 'all' or 'max', got {mode!r}")
         try:
-            top_k = int(form.get("top_k", DEFAULT_TOP_K))
+            top_k = int(form.get("top_k", self.cfg.top_k))
         except ValueError:
             raise errors.BadRequest(f"top_k must be an integer, got {form['top_k']!r}") from None
         if not 1 <= top_k <= 64:
@@ -1064,6 +1223,327 @@ class DeconvService:
         """``POST /v1/dream`` from a parsed form, on the calling thread."""
         return self.on_loop(self._dream_v1(lambda: form, len(form.get("file", "")), headers))
 
+    # --- durable async jobs (serving/jobs.py) ------------------------------
+
+    def _job_deadline_pc(self, job) -> float | None:
+        """A job's wall-clock completion deadline (it survives restarts) as
+        the perf_counter deadline the dispatchers' reap boundaries use."""
+        if job.deadline_ts is None:
+            return None
+        return time.perf_counter() + (job.deadline_ts - time.time())
+
+    async def _job_dispatch(self, job, dispatcher: BatchingDispatcher, payload, key):
+        """One device stage of a job on a shared dispatcher, cancellable:
+        the submit rides its own task, which DELETE cancels.  A stage still
+        queued is then dropped at the dispatcher's reap boundary and never
+        reaches the card; one already dispatched runs to its end (a
+        dream's octave: its pyramid and every step) and its answer is
+        dropped.  The job's tenant (from its journal) queues and pays for
+        it, also after a restart."""
+        tr = job._trace
+        token = trace_mod.activate(tr) if tr is not None else None
+        try:
+            tclass = self.qos.class_of(job.tenant) if self.qos is not None else ""
+            fut = asyncio.ensure_future(dispatcher.submit(payload, key, deadline=self._job_deadline_pc(job),
+                                                          tenant=job.tenant, tclass=tclass))
+            job._inflight = fut
+            try:
+                return await fut
+            finally:
+                job._inflight = None
+                if not fut.done():
+                    # the await was interrupted (a runner's teardown): the
+                    # submit must not keep the item queued
+                    fut.cancel()
+        finally:
+            if token is not None:
+                trace_mod.deactivate(token)
+
+    async def _execute_job(self, job, ckpts, load):
+        """The executor the ``JobManager`` drives: by job kind, with a
+        trace per attempt filed in the flight recorder, so a job's stages
+        show in ``/v1/debug/requests`` as a request's spans do."""
+        tr = None
+        if self.recorder is not None:
+            tr = job._trace = RequestTrace(f"{job.id}-a{job.attempts}", f"job:{job.kind}")
+        try:
+            run = {"dream": self._job_dream, "sweep": self._job_sweep}.get(job.kind, self._job_deconv)
+            async for step in run(job, ckpts, load):
+                yield step
+        except GeneratorExit:
+            # the manager stopped after the Result (done), or at a
+            # checkpoint where it parked or cancelled the job
+            if tr is not None:
+                done = job.state == "done"
+                tr.finish(status=200 if done else 503, error=None if done else job.state)
+                self.recorder.record(tr)
+                tr = None
+            raise
+        except BaseException as e:
+            if tr is not None:
+                tr.finish(status=500, error=type(e).__name__)
+                self.recorder.record(tr)
+                tr = None
+            raise
+        else:
+            # ending without a Result is the manager's no_result failure
+            if tr is not None:
+                tr.finish(status=500, error="no_result")
+                self.recorder.record(tr)
+                tr = None
+        finally:
+            job._trace = None
+
+    def _job_model(self, job) -> tuple[str, ModelBundle]:
+        """The (model, bundle) a journaled job targets: a resume after a
+        restart runs on the same model, and a model no longer served is a
+        deterministic failure."""
+        name = job.params.get("model") or self.weights.default
+        if name not in self.weights.served:
+            raise errors.DeconvError(
+                f"job {job.id} targets model {name!r}, no longer in the served set {sorted(self.weights.served)}")
+        return name, self.weights.bundle(name)
+
+    @staticmethod
+    def _job_input(ckpts, load) -> np.ndarray:
+        """The decoded input out of a job's checkpoints (spilled at submit,
+        so a resume never decodes again).  A missing or corrupt input spill
+        is a deterministic failure, not a crash to retry."""
+        for rec in ckpts:
+            if rec.get("stage") == "input":
+                arrs = load(rec)
+                if arrs is not None and "input" in arrs:
+                    return arrs["input"]
+        raise errors.DeconvError("job input checkpoint missing or corrupt in the spill dir")
+
+    async def _job_dream(self, job, ckpts, load):
+        """An octave-by-octave dream: one dispatch per rung on the dream
+        dispatcher, each rung's float32 host array a checkpoint.  A resume
+        starts after the last durable octave; x round-trips the host
+        exactly, so a resumed dream's answer is byte-identical to an
+        uninterrupted one."""
+        p = job.params
+        model, bundle = self._job_model(job)
+        layers = tuple(s for s in p.get("layers", "").split(",") if s) or bundle.dream_layers
+        steps = int(p.get("steps", DREAM_DEFAULTS["steps"]))
+        octaves = int(p.get("octaves", DREAM_DEFAULTS["octaves"]))
+        lr = float(p.get("lr", DREAM_DEFAULTS["lr"]))
+        base = self._job_input(ckpts, load)
+        shapes = octave_shapes(*base.shape[:2], octaves, 1.4, bundle.min_dream_size)
+        start, x, loss = 0, base, None
+        last = next((rec for rec in reversed(ckpts) if rec.get("stage") == "octave"), None)
+        if last is not None and int(last.get("index", -1)) < len(shapes):
+            arrs = load(last)
+            if arrs is not None and "x" in arrs:
+                start, x, loss = int(last["index"]) + 1, arrs["x"], (last.get("meta") or {}).get("loss")
+        for i in range(start, len(shapes)):
+            faults_mod.raise_if_armed("jobs.runner_crash")
+            try:
+                res = await self._job_dispatch(job, self.dream_dispatcher, (x, base),
+                                               (model, DreamOctave(layers, steps, lr, shapes, i)))
+            except KeyError as e:  # an unknown dream activation: deterministic
+                raise errors.UnknownLayer(str(e)) from e
+            x, loss = np.asarray(res["image"]), res["loss"]
+            yield Checkpoint(stage="octave", index=i, total=len(shapes), arrays={"x": x},
+                             meta={"loss": loss, "hw": list(shapes[i])})
+        image = await self.codec_pool.run(lambda: codec.encode_data_url(bundle.unpreprocess(np.asarray(x))))
+        body = {"layers": list(layers), "loss": loss if loss is not None and math.isfinite(loss) else None,
+                "image": image}
+        yield Result(200, "application/json", json.dumps(body).encode())
+
+    async def _job_sweep(self, job, ckpts, load):
+        """A layer-by-layer sweep: one single-layer tiles dispatch per swept
+        layer on the sweep dispatcher (the program ``POST /v1/deconv`` runs
+        at that layer), each layer's encoded entry a checkpoint; a resume
+        projects only the layers with no durable checkpoint."""
+        p = job.params
+        model, bundle = self._job_model(job)
+        layer, mode = p["layer"], p.get("mode", self.cfg.visualize_mode)
+        top_k, quality = int(p.get("top_k", self.cfg.top_k)), p.get("quality", "full")
+        x = self._job_input(ckpts, load)
+        done: dict[str, dict] = {}
+        for rec in ckpts:
+            if rec.get("stage") == "layer":
+                payload = load(rec)
+                if payload is not None and "name" in payload:
+                    done[payload["name"]] = payload["entry"]
+        names = bundle.sweep_layers(layer)
+        for i, name in enumerate(names):
+            if name in done:
+                continue
+            faults_mod.raise_if_armed("jobs.runner_crash")
+            program = self._quality_key(Program(name, mode, top_k, "tiles"), quality)
+            result = await self._job_dispatch(job, self.sweep_dispatcher, x, (model, program))
+            done[name] = entry = await self._encode_tiles(result[name])
+            yield Checkpoint(stage="layer", index=i, total=len(names), data={"name": name, "entry": entry},
+                             meta={"layer": name})
+        # in ladder order whichever layers a resume ran: byte-identical
+        body = {"layer": layer, "mode": mode, "sweep": True, "layers": {name: done[name] for name in names}}
+        yield Result(200, "application/json", json.dumps(body).encode())
+
+    async def _job_deconv(self, job, ckpts, load):
+        """A single-layer deconv as a job: one dispatch of ``POST
+        /v1/deconv``'s program on the deconv dispatcher (the input spill
+        already made the submit durable)."""
+        p = job.params
+        model, _ = self._job_model(job)
+        layer, mode = p["layer"], p.get("mode", self.cfg.visualize_mode)
+        top_k = int(p.get("top_k", self.cfg.top_k))
+        x = self._job_input(ckpts, load)
+        faults_mod.raise_if_armed("jobs.runner_crash")
+        program = self._quality_key(Program(layer, mode, top_k, "tiles"), p.get("quality", "full"))
+        result = await self._job_dispatch(job, self.dispatcher, x, (model, program))
+        body = {"layer": layer, "mode": mode, **await self._encode_tiles(result[layer])}
+        yield Result(200, "application/json", json.dumps(body).encode())
+
+    async def _jobs_submit(self, req: Request) -> Response:
+        """``POST /v1/jobs``: 202 and the job's document.  ``type`` is
+        dream (default), deconv or sweep, with the fields of the matching
+        synchronous route, validated now (a bad request is answered at
+        submit); the image is decoded once and spilled as the job's input
+        checkpoint, and the runner does the device work.  Retry-safe: an
+        ``x-idempotency-key`` (default: the canonical digest of the body
+        under the model's prefix and the effective tier) dedups onto the
+        live or completed job; with QoS, per tenant."""
+        try:
+            self._check_ready()
+            form = _parse_form(req)
+            kind = form.get("type", "dream")
+            if kind not in ("deconv", "dream", "sweep"):
+                raise errors.BadRequest(f"type must be deconv, dream or sweep, got {kind!r}")
+            model = req.model = self.resolve_model(form, req.headers)
+            bundle = self.weights.peek_bundle(model) or await asyncio.to_thread(self.weights.bundle, model)
+            # the jobs route has no admission wrap: the class default tier
+            # needs the tenant's class here
+            if self.qos is not None and not req.tclass:
+                req.tclass = self.qos.class_of(self.qos.tenant_of(req.headers))
+            quality = self._resolve_quality(req, form, req.headers)
+            # the effective tier is journaled, so a resume runs it whatever
+            # the restarted server's config; dreams run full
+            eq = "full" if kind == "dream" else self._effective_quality(quality, bundle)
+            file_uri = form.get("file")
+            if not file_uri:
+                raise errors.BadRequest("form field 'file' is required")
+            if kind == "dream":
+                dream = self.dream_params(form, bundle)
+                params = {"layers": ",".join(dream.layers), "steps": str(dream.steps),
+                          "octaves": str(dream.octaves), "lr": repr(dream.lr), "model": model}
+            else:
+                layer = form.get("layer")
+                if not layer:
+                    raise errors.BadRequest("form field 'layer' is required")
+                try:
+                    bundle.check_layer(layer)
+                except ValueError as e:
+                    raise errors.UnknownLayer(str(e)) from None
+                mode, top_k, _ = self._deconv_params(form)
+                params = {"layer": layer, "mode": mode, "top_k": str(top_k), "model": model}
+                if eq != "full":
+                    params["quality"] = eq
+            idem = req.headers.get("x-idempotency-key", "")
+            if idem and not trace_mod.RID_RE.match(idem):
+                raise errors.BadRequest("x-idempotency-key must match [A-Za-z0-9._-]{1,64}")
+            if not idem:
+                # the model's own prefix and the effective tier: identical
+                # bodies for two models, or two tiers, never share a job
+                idem = canonical_digest(f"{self._model_prefix(model)}|jobs{self._quality_prefix(eq, model)}",
+                                        req.headers.get("content-type", ""), req.body, req=req,
+                                        exclude=("model", "quality"))
+            tenant = ""
+            if self.qos is not None:
+                # the index is per tenant: two tenants' identical bodies
+                # never dedup onto one job (or one budget)
+                tenant = req.tenant = self.qos.tenant_of(req.headers)
+                idem = f"{tenant}|{idem}"
+            # dedup and capacity before the decode: a retried submit and a
+            # 429 cost no codec-pool slot
+            job = self.jobs.lookup(idem)
+            deduped = job is not None
+            if job is None:
+                self.jobs.ensure_capacity()
+                budget = 0
+                if self.qos is not None:
+                    budget = self.qos.job_budget(tenant)
+                    try:
+                        self.jobs.ensure_tenant_capacity(tenant, budget)
+                    except errors.TenantOverQuota:
+                        self.qos.record_shed(tenant)
+                        raise
+                with stage(self.metrics, "decode"):
+                    x = await self.codec_pool.run(self.decode_preprocess, file_uri, bundle)
+                deadline_ts = None
+                if req.deadline is not None:
+                    # x-deadline-ms on a submit is the job's completion
+                    # deadline, on the wall clock so it survives a restart
+                    deadline_ts = time.time() + max(0.0, req.deadline - time.perf_counter())
+                # the submit's one large fsync'd write, off the loop
+                spilled = await asyncio.to_thread(self.jobs.spill_input, {"input": np.asarray(x, np.float32)})
+                try:
+                    # submit re-checks the tenant budget with no await
+                    # between the check and the job's registration
+                    job, deduped = self.jobs.submit(kind, params, idem, input_spilled=spilled,
+                                                    deadline_ts=deadline_ts, tenant=tenant, tenant_budget=budget)
+                except errors.TenantOverQuota:
+                    if self.qos is not None:
+                        self.qos.record_shed(tenant)
+                    raise
+        except errors.DeconvError as e:
+            return _error_response(e, req.id)
+        except ValueError as e:
+            return _error_response(errors.BadRequest(str(e)), req.id)
+        doc = self.jobs.describe(job)
+        doc["deduped"] = deduped
+        resp = Response.json(doc, status=202)
+        resp.headers["location"] = f"/v1/jobs/{job.id}"
+        return resp
+
+    async def _jobs_collection(self, _req: Request) -> Response:
+        """``GET /v1/jobs``: every known job (newest last) and the counts."""
+        return Response.json({"jobs": self.jobs.jobs_snapshot(), "counts": self.jobs.counts(),
+                              "queue_depth": self.jobs.queue_depth})
+
+    async def _jobs_entity(self, req: Request) -> Response:
+        """``GET /v1/jobs/{id}[/result|/events]``: the job's document, its
+        answer (the synchronous route's bytes), or its SSE progress stream
+        (``Last-Event-ID`` or ``?last_event_id=`` replays what was missed)."""
+        parts = [p for p in req.path[len("/v1/jobs/"):].split("/") if p]
+        if not parts:
+            return await self._jobs_collection(req)
+        try:
+            job = self.jobs.get(parts[0])
+        except errors.DeconvError as e:
+            return _error_response(e, req.id)
+        if len(parts) == 1:
+            return Response.json(self.jobs.describe(job))
+        if parts[1] == "result":
+            if job.state != "done" or job.result is None:
+                return _error_response(errors.BadRequest(f"job {job.id} is {job.state!r}; no result yet"), req.id)
+            body = self.jobs.result_body(job)
+            if body is None:
+                return _error_response(errors.DeconvError("job result spill unreadable"), req.id)
+            return Response(status=job.result["status"], body=body,
+                            headers={"content-type": job.result["content_type"], "x-job-id": job.id})
+        if parts[1] == "events":
+            last = -1
+            raw = req.headers.get("last-event-id") or req.query.get("last_event_id")
+            if raw:
+                try:
+                    last = int(raw)
+                except ValueError:
+                    return _error_response(errors.BadRequest("Last-Event-ID must be an int"), req.id)
+            return Response(status=200, headers={"content-type": "text/event-stream"},
+                            stream=self.jobs.event_stream(job, last))
+        return _error_response(errors.BadRequest(f"unknown job subresource {parts[1]!r}"), req.id)
+
+    async def _jobs_delete(self, req: Request) -> Response:
+        """``DELETE /v1/jobs/{id}``: cancel.  A terminal job answers its
+        state; a running job's in-flight octave is reaped before dispatch."""
+        try:
+            job = self.jobs.cancel(req.path[len("/v1/jobs/"):].strip("/"))
+        except errors.DeconvError as e:
+            return _error_response(e, req.id)
+        return Response.json(self.jobs.describe(job))
+
     # --- HTTP routes -------------------------------------------------------
 
     def _add_routes(self) -> None:
@@ -1080,6 +1560,12 @@ class DeconvService:
         if self.faults is not None:
             # routed only with fault injection on: a default server 404s it
             r("POST", "/v1/debug/faults")(self._debug_faults)
+        if self.jobs is not None:
+            # routed only with a jobs_dir: a default server 404s them
+            r("POST", "/v1/jobs")(self._jobs_submit)
+            r("GET", "/v1/jobs")(self._jobs_collection)
+            self.server.route_prefix("GET", "/v1/jobs/")(self._jobs_entity)
+            self.server.route_prefix("DELETE", "/v1/jobs/")(self._jobs_delete)
         if self.tsdb is not None:
             r("GET", "/v1/metrics/history")(self._metrics_history)
             r("GET", "/v1/alerts")(self._alerts)
@@ -1222,19 +1708,21 @@ class DeconvService:
 
     def _model_prefix(self, model: str) -> str:
         """The response-cache key prefix of one served model: every
-        setting that decides its response bytes.  The JAX package's
-        fields (model, image size, visualize mode, stitch k, top k,
+        setting that decides its response bytes, in the JAX package's
+        order (model, image size, visualize mode, stitch k, top k,
         bug_compat, strict_compat, dtype, backward dtype, lowc_kpack,
-        fused_unpool, weight dtype, weights) with the port's values, and
-        the device type: the card's bytes and the CPU's differ in their
-        last bits, and one ``l2_dir`` may outlive a device.  Builds the
-        model's bundle at its first use (called off the event loop)."""
+        fused_unpool, weight dtype, the weights file: none, and the JAX
+        package's bf16 low-channel forward knob, which the port does not
+        have: "0"), then the device type: the card's bytes and the CPU's
+        differ in their last bits, and one ``l2_dir`` may outlive a device.
+        Builds the model's bundle at its first use (called off the event
+        loop)."""
         p = self._prefix_cache.get(model)
         if p is None:
-            bundle = self.weights.bundle(model)
+            bundle, c = self.weights.bundle(model), self.cfg
             p = "|".join(str(x) for x in (
-                model, bundle.image_size, "all", STITCH_K, DEFAULT_TOP_K, True, False, FORWARD_DTYPE,
-                BACKWARD_DTYPE, self.cfg.lowc_kpack, FUSED_DEFAULT, self.cfg.weight_dtype, WEIGHTS_SOURCE,
+                model, self._model_image_size(bundle), c.visualize_mode, c.stitch_k, c.top_k, c.bug_compat,
+                c.strict_compat, c.dtype, c.backward_dtype, c.lowc_kpack, c.fused_unpool, c.weight_dtype, "", "0",
                 bundle.device.type,
             ))
             self._prefix_cache[model] = p
@@ -1477,6 +1965,10 @@ class DeconvService:
         calib = dict(self._calib_cache)
         body["quality"] = {"default": self.cfg.quality_default, "by_class": dict(self._class_quality),
                            "calibrated": sorted(m for m, (_q, tag) in calib.items() if tag != "dynamic")}
+        if self.jobs is not None:
+            # the park and queue picture an operator's drain reads
+            c = self.jobs.counts()
+            body["jobs"] = {"running": c["running"], "parked": c["parked"], "queued": c["queued"]}
         if self.qos is not None:
             body["qos"] = self.qos.counts()
         # informational blocks: a burning SLO, a firing alert or a
@@ -1489,6 +1981,9 @@ class DeconvService:
             body["alerts"] = {"firing": self.alert_engine.firing(), "pending": snap["pending"],
                               "eval_errors": snap["eval_errors_total"]}
         surfaces = {}
+        if self.jobs is not None:
+            surfaces["jobs.journal"] = self.jobs.journal.surface.snapshot()
+            surfaces["jobs.spill"] = self.jobs.spill.surface.snapshot()
         if self.l2 is not None:
             surfaces["cache.l2"] = self.l2.surface.snapshot()
         if self.incidents is not None:
@@ -1638,12 +2133,18 @@ class DeconvService:
         return Response.json({"faults": self.faults.snapshot()})
 
     def config(self) -> dict:
-        """``GET /v1/config``: the effective configuration, the default
-        model, the weight manager's live residency, and, under
-        ``graph_pool_bytes``, the device memory each resident model's
-        captured programs hold (their two pools)."""
+        """``GET /v1/config``: the effective configuration (``image_size``
+        resolved to the default model's when unset; ``warmup_dream`` on by
+        default, unlike the JAX package's: on the H100 a first default dream
+        without it waits 0.4-0.5 s more, inside the request, for the
+        captures a boot makes in 2-4 s before ``/ready``, PERF.md), the
+        default model, the weight manager's live residency,
+        the job tier's counts, and, under ``graph_pool_bytes``, the device
+        memory each resident model's captured programs hold (their two
+        pools)."""
         cfg = dataclasses.asdict(self.cfg)
-        cfg["calibration_dir"] = bool(cfg["calibration_dir"])  # a path: reported as configured or not
+        # paths: reported as configured or not
+        cfg["calibration_dir"], cfg["jobs_dir"] = bool(cfg["calibration_dir"]), bool(cfg["jobs_dir"])
         cfg["model_active"] = self.weights.default
         cfg["weights"] = self.weights.snapshot()
         # the tiers and, per model whose int8 path was consulted, the
@@ -1659,6 +2160,12 @@ class DeconvService:
                 if (b := self.weights.peek_bundle(name)) is not None
             }
         cfg["lowc_kpack_chan"] = resolve_kpack_chan(self.cfg.lowc_kpack) if self.bundle.spec is not None else 0
+        # where the fused tail engages: 'kernel' (K3 on the card), 'plain'
+        # (forced on the CPU: its plain version) or 'off' (the policy, a
+        # DAG model, or auto off the card)
+        engaged = self.bundle.spec is not None and fused_engaged(resolve_fused_unpool(self.cfg.fused_unpool),
+                                                                 self.bundle.device)
+        cfg["fused_unpool_resolved"] = ("kernel" if self.bundle.device.type == "cuda" else "plain") if engaged else "off"
         cfg["trace_active"] = self.recorder is not None  # counts: /v1/debug/requests
         cfg["cache_active"] = self.cache is not None
         cfg["singleflight_active"] = self.flights is not None
@@ -1692,6 +2199,10 @@ class DeconvService:
         if cfg["breaker_active"]:
             cfg["breaker_state"] = self.lane_pool.state_name()
         cfg["warmup_wall_s"] = self.warmup_wall_s
+        cfg["jobs_active"] = self.jobs is not None
+        if self.jobs is not None:
+            cfg["jobs"] = {**self.jobs.counts(), "queue_depth": self.jobs.queue_depth, "workers": self.jobs.workers,
+                           "reclaimed_on_boot": self.jobs.reclaimed, "torn_records_on_boot": self.jobs.torn_records}
         cfg["fault_injection_active"] = self.faults is not None
         if self.faults is not None:
             cfg["faults_state"] = self.faults.snapshot()

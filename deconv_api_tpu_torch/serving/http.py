@@ -1,5 +1,5 @@
 """A minimal asyncio HTTP/1.1 server (a copy of
-``deconv_api_tpu/serving/http.py`` without its streaming responses).
+``deconv_api_tpu/serving/http.py``).
 
 Enough of HTTP/1.1 for the reference's wire surface (urlencoded, multipart
 and JSON form POSTs, JSON responses, CORS with allow-all origins and no
@@ -11,7 +11,9 @@ deadline.  Connections beyond ``max_connections`` get a 503 and are
 closed; a header block (or an idle keep-alive gap) slower than
 ``idle_timeout_s`` closes the connection, a body slower than
 ``body_timeout_s`` gets a 408.  While ``draining``, every response
-carries ``connection: close``.
+carries ``connection: close``.  A response with a ``stream`` (the jobs'
+server-sent events) is written head first, then chunk by chunk until the
+stream ends, and the connection closes.
 """
 
 from __future__ import annotations
@@ -155,6 +157,12 @@ class Response:
     status: int = 200
     body: bytes = b""
     headers: dict[str, str] = field(default_factory=dict)
+    # Progressive delivery (the jobs' SSE stream): an async iterator of
+    # byte chunks.  When set, the serve loop writes the head (no
+    # content-length, ``connection: close``) and then each chunk as the
+    # iterator yields it: body-until-close framing, which is what
+    # EventSource clients expect.  ``body`` is ignored.
+    stream: object | None = field(default=None, repr=False, compare=False)
 
     @classmethod
     def json(cls, obj, status: int = 200) -> "Response":
@@ -310,6 +318,10 @@ class HttpServer:
                 # shed 503, handler-crash 500 — so a client-side log line
                 # joins server logs and flight-recorder traces on one key
                 resp.headers.setdefault("x-request-id", req.id)
+                if resp.stream is not None:
+                    # head now, chunks as they come, close at the end
+                    await self._write_stream(writer, req, resp, t0)
+                    break
                 # 500 = handler crash -> ERROR.  503/504 are DESIGNED
                 # backpressure (shedding, timeouts) — WARNING, or they
                 # would flood error alerting exactly at peak load.
@@ -370,6 +382,50 @@ class HttpServer:
                 await writer.wait_closed()
             except ConnectionResetError:
                 pass
+
+    async def _write_stream(
+        self,
+        writer: asyncio.StreamWriter,
+        req: Request,
+        resp: Response,
+        t0: float,
+    ) -> None:
+        """Write a streaming response: head without content-length, then
+        every chunk the iterator yields.  The access log line lands when
+        the stream ENDS (its ms is the stream's whole lifetime).  A
+        client that disconnects mid-stream surfaces as ConnectionReset
+        in the caller's handler; the generator is always closed so its
+        finally blocks (subscription cleanup) run."""
+        headers = {
+            **CORS_HEADERS,
+            "connection": "close",
+            "cache-control": "no-cache",
+            **resp.headers,
+        }
+        head = (
+            f"HTTP/1.1 {resp.status} "
+            f"{_STATUS_TEXT.get(resp.status, 'Unknown')}\r\n"
+        )
+        head += "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+        try:
+            writer.write(head.encode() + b"\r\n")
+            await writer.drain()
+            async for chunk in resp.stream:
+                writer.write(chunk)
+                await writer.drain()
+        finally:
+            aclose = getattr(resp.stream, "aclose", None)
+            if aclose is not None:
+                try:
+                    await aclose()
+                except Exception:  # noqa: BLE001 — cleanup must not mask
+                    pass
+            slog.event(
+                _log, "http_request", level=logging.INFO,
+                method=req.method, path=req.path, status=resp.status,
+                id=req.id, stream=True,
+                ms=round((time.perf_counter() - t0) * 1e3, 1),
+            )
 
     async def _read_request(self, reader: asyncio.StreamReader) -> Request | None:
         try:

@@ -261,18 +261,20 @@ class ModelBundle:
         self, layer: str, mode: str, top_k: int, bucket: int, *, bug_compat: bool = True,
         backward_dtype: str | None = None, post: str | None = None,
         fused_unpool: str = FUSED_DEFAULT, sweep: bool = False, lowc_kpack: str = "off", quant=None,
-        dtype: torch.dtype = torch.float32,
+        dtype: torch.dtype = torch.float32, image_size: int = 0,
     ) -> CapturedProgram:
         """The captured ``batched_visualizer`` program of these settings at a
-        batch of ``bucket`` images (``program(batch)`` loads a (bucket, H, W,
-        3) batch and replays), from ``self.programs``: captured at its first
-        use, kept per (program key, bucket).  ``dtype`` is the staged
-        batch's (bfloat16 runs the forward in bf16: ``quality=bf16``).
-        Replay it and read its outputs inside ``self.programs.replaying()``."""
+        batch of ``bucket`` images of ``image_size`` (default the model's)
+        (``program(batch)`` loads a (bucket, H, W, 3) batch and replays),
+        from ``self.programs``: captured at its first use, kept per (program
+        key, bucket, shape).  ``dtype`` is the staged batch's (bfloat16 runs
+        the forward in bf16: ``quality=bf16``).  Replay it and read its
+        outputs inside ``self.programs.replaying()``."""
         vis = self.batched_visualizer(
             layer, mode, top_k, bug_compat, backward_dtype, post, fused_unpool, sweep, lowc_kpack, quant
         )
-        shape = (bucket, self.image_size, self.image_size, 3)
+        size = image_size or self.image_size
+        shape = (bucket, size, size, 3)
         key = ("deconv", *self._vis_key(layer, mode, top_k, bug_compat, backward_dtype, post,
                                         fused_unpool, sweep, lowc_kpack, quant), bucket, shape)
         if dtype != torch.float32:

@@ -110,8 +110,10 @@ def servers(mix_params):
                          serve_models="mixa,mixb", serve_lanes="off", warmup_all_buckets=False, cache_bytes=0,
                          singleflight=False)
     # both without the response cache and singleflight: the requests
-    # below reach the dispatchers on both
-    port = _Served(DeconvService(cfg=_mix_cfg(cache_bytes=0, singleflight=False),
+    # below reach the dispatchers on both; and with the JAX server's
+    # warmup settings, which the port honours too
+    port = _Served(DeconvService(cfg=_mix_cfg(cache_bytes=0, singleflight=False, warmup_all_buckets=False,
+                                              warmup_dream=False),
                                  registry=_port_registry(mix_params)))
     try:
         with ServiceFixture(None, service=JDeconvService(jcfg, registry=jreg)) as jax_served:

@@ -47,7 +47,7 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "from deconv_api_tpu_torch.engine import quant\n"
         "from deconv_api_tpu_torch.utils import slog\n"
         "from deconv_api_tpu_torch.serving import batcher, codec_pool, faults, http, trace\n"
-        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb, qos\n"
+        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb, qos, jobs\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
         "assert not bad, bad\n"
