@@ -103,7 +103,18 @@ Phases, each printing JSON lines:
    warmup and the first dream without it; a ``fused_unpool=auto`` server
    (K3 4 times a grid replay), the same with ``backward_dtype=float32``
    timed, and a ``dtype=bfloat16`` server's full grids equal to the
-   default server's bf16 tier (``phase_settings``).
+   default server's bf16 tier (``phase_settings``);
+16. fleet: three VGG16 ``serve`` processes (every default, the cache on,
+   ``--peer-fill``) registered with one ``fleet-router`` process: 16
+   misses then 16 hits through the router, each hit from its miss's
+   backend; 64 hits through the router against the same straight to
+   their owners, in turns; hedges around one backend slowed by the
+   router's ``fleet.head_delay_ms``, within their budget; the federated
+   metrics and one joined trace; a SIGTERM drain under traffic (every
+   answer 200, the drained keys filled from the draining backend's cache
+   with no device batch, exit 0); a SIGKILL failover (every answer 200,
+   the backend ejected). The backends' launches are read back from each
+   process (``phase_fleet``).
 Phases 4-11 and 13-15 measure device work: their servers run with
 ``cache_bytes=0`` and no singleflight (``CACHE_OFF``), and each prints
 ``server_cache``.
@@ -3687,6 +3698,343 @@ def phase_settings(torch, label: str) -> dict:
     return {"counts": by_path}
 
 
+FLEET_MODEL, FLEET_DEVICE, FLEET_LAYER = "vgg16", "cuda", "block5_conv1"
+FLEET_TOKEN = "chip-smoke-fleet"
+FLEET_HITS = 64  # hits timed through the router and straight to their owners, in turns
+FLEET_HEDGE_DELAY_MS = 300  # fleet.head_delay_ms on one backend during the hedge run
+FLEET_DRAIN_GRACE_S = 2.0
+# a backend process: main() of ``serve`` with its kernel launch counts
+# zeroed on SIGUSR1 and written to a file on SIGUSR2 and at exit, so the
+# phase reads what each process launched between its boot and its end
+FLEET_BACKEND = r"""
+import json, os, signal, sys
+from deconv_api_tpu_torch import ops
+out = sys.argv[1]
+def dump(*_):
+    with open(out + ".tmp", "w") as f:
+        json.dump({"launches": ops.launch_counts(), "replays": ops.graph_counts["replays"]}, f)
+    os.replace(out + ".tmp", out)
+signal.signal(signal.SIGUSR1, lambda *_: ops.reset_launch_counts())
+signal.signal(signal.SIGUSR2, dump)
+from deconv_api_tpu_torch.__main__ import main
+rc = main(sys.argv[2:])
+dump()
+sys.exit(rc)
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metric_lines(port: int, path: str = "/metrics") -> dict:
+    """``name{labels}`` -> value of a Prometheus exposition."""
+    status, body, _ = _raw(port, path)
+    assert status == 200, (path, status)
+    out = {}
+    for line in body.decode().splitlines():
+        if line and not line.startswith("#"):
+            name, _, value = line.rpartition(" ")
+            try:
+                out[name] = float(value)
+            except ValueError:
+                pass
+    return out
+
+
+def _fleet_post(conn, body: bytes, headers=None):
+    """(status, x-backend, x-cache, body, seconds) of one kept-alive ``POST /``."""
+    t0 = time.perf_counter()
+    conn.request("POST", "/", body=body, headers={"content-type": "application/x-www-form-urlencoded",
+                                                  **(headers or {})})
+    resp = conn.getresponse()
+    data = resp.read()
+    return resp.status, resp.getheader("x-backend"), resp.getheader("x-cache"), data, time.perf_counter() - t0
+
+
+def phase_fleet(torch, label: str) -> dict:
+    """The fleet router of ``serving/fleet.py`` in front of three VGG16
+    ``serve`` processes on the card (b0, b1, b2: every default, so the
+    response cache and singleflight are on, with ``--peer-fill``, the fleet
+    token and ``--drain-grace-s 2``), which register with one
+    ``fleet-router`` process (no ``--backends``).
+    1. affinity: the load phase's 16 PNGs posted twice through the router
+       at block5_conv1: 16 misses then 16 hits, each hit from its miss's
+       backend, the backends' ``cache_misses_total`` up by 16, every answer
+       byte-equal to the same post made to its owner;
+    2. router cost: 64 hits through the router and the same 64 straight to
+       their owners, in turns (p50, p99);
+    3. hedging: ``fleet.head_delay_ms`` of 300 ms armed on b2 through the
+       router's ``/v1/debug/faults``, 64 hits to keys b2 owns: hedges
+       fired, won and denied, p50/p99 beside the run without the fault
+       (``--slow-floor-ms 1000`` keeps the gray-failure demotion out of it);
+    4. ``/v1/metrics/fleet`` with every backend's families, and one
+       request's ``/v1/debug/trace/{id}`` joining the router's and its
+       backend's spans;
+    5. drain: SIGTERM to b0 while a client keeps posting the 16 images
+       through the router: every answer 200, b0 out of the ring by its own
+       announcement, each of b0's keys ``peer-fill`` once on its new owner
+       then ``hit``, no device batch on the new owners, b0's exit code 0;
+    6. failover: SIGKILL to b1: the answers stay 200, the router ejects b1
+       (``router_backend_state`` 2), and b2 then serves all 16 images.
+    The backends' kernel launches from their boot to their end are read
+    back from each process (``FLEET_BACKEND``)."""
+    import http.client
+    import signal
+
+    from deconv_api_tpu_torch import ops
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "fleet")
+    os.makedirs(work, exist_ok=True)
+    launcher = os.path.join(work, "backend.py")
+    with open(launcher, "w") as f:
+        f.write(FLEET_BACKEND)
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    rport = _free_port()
+    names, procs, logs, dumps = [], {}, [], {}
+    router_cmd = [sys.executable, "-m", "deconv_api_tpu_torch", "fleet-router", "--host", "127.0.0.1",
+                  "--port", str(rport), "--fleet-token", FLEET_TOKEN, "--fault-injection",
+                  "--slow-floor-ms", "1000"]
+    out = {"phase": "fleet", "card": label, "model": FLEET_MODEL, "layer": FLEET_LAYER, "backends": 3,
+           "router": " ".join(router_cmd[3:])}
+
+    def spawn(key, cmd):
+        log = open(os.path.join(work, f"{key}.log"), "w")
+        logs.append(log)
+        procs[key] = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def log_tail(key, n=30):
+        with open(os.path.join(work, f"{key}.log")) as f:
+            return "".join(f.readlines()[-n:])
+
+    def dump(key):
+        path = os.path.join(work, f"{key}.json")
+        mtime = os.path.getmtime(path) if os.path.exists(path) else 0.0
+        procs[key].send_signal(signal.SIGUSR2)
+        deadline = time.perf_counter() + 30
+        while not os.path.exists(path) or os.path.getmtime(path) == mtime:
+            assert time.perf_counter() < deadline and procs[key].poll() is None, log_tail(key)
+            time.sleep(0.01)
+        with open(path) as f:
+            return json.load(f)
+
+    try:
+        t0 = time.perf_counter()
+        spawn("router", router_cmd)
+        for i in range(3):
+            port = _free_port()
+            names.append(f"127.0.0.1:{port}")
+            spawn(f"b{i}", [sys.executable, launcher, os.path.join(work, f"b{i}.json"), "serve", "--model",
+                            FLEET_MODEL, "--device", FLEET_DEVICE, "--host", "127.0.0.1", "--port", str(port), "--peer-fill",
+                            "--fleet-token", FLEET_TOKEN, "--fleet-routers", f"127.0.0.1:{rport}",
+                            "--fleet-advertise", names[-1], "--drain-grace-s", str(FLEET_DRAIN_GRACE_S),
+                            "--no-warmup-dream"])
+        bports = [int(n.rsplit(":", 1)[1]) for n in names]
+        while True:
+            for key, proc in procs.items():
+                assert proc.poll() is None, f"{key} exited {proc.returncode}: {log_tail(key)}"
+            try:
+                ready = _request(rport, "/readyz")[1]
+            except OSError:
+                ready = {}
+            if ready.get("backends", {}).get("healthy") == 3:
+                break
+            assert time.perf_counter() - t0 < 300, ready
+            time.sleep(0.1)
+        out["boot_s"] = time.perf_counter() - t0
+        for i in range(3):
+            procs[f"b{i}"].send_signal(signal.SIGUSR1)  # launches from here on count
+        cfg = _request(rport, "/v1/config")[1]
+        assert {n: (m["state"], m["source"]) for n, m in cfg["members"].items()} == \
+            {n: ("healthy", "announce") for n in names}, cfg["members"]
+
+        uris = image_uris(LOAD_IMAGES)
+        bodies = [urllib.parse.urlencode({"file": u, "layer": FLEET_LAYER}).encode() for u in uris]
+        rconn = http.client.HTTPConnection("127.0.0.1", rport, timeout=120)
+        direct = {n: http.client.HTTPConnection("127.0.0.1", p, timeout=120) for n, p in zip(names, bports)}
+
+        def misses():
+            return [_metric_lines(p).get("deconv_cache_misses_total", 0.0) for p in bports]
+
+        # 1. affinity: one logical cache
+        m0 = misses()
+        first = [_fleet_post(rconn, b) for b in bodies]
+        second = [_fleet_post(rconn, b) for b in bodies]
+        owner = [r[1] for r in first]
+        assert [(r[0], r[2]) for r in first] == [(200, "miss")] * LOAD_IMAGES, [(r[0], r[2]) for r in first]
+        assert [(r[0], r[2]) for r in second] == [(200, "hit")] * LOAD_IMAGES, [(r[0], r[2]) for r in second]
+        assert [r[1] for r in second] == owner and all(a[3] == b[3] for a, b in zip(first, second))
+        own = [_fleet_post(direct[o], b) for o, b in zip(owner, bodies)]
+        assert all(d[0] == 200 and d[2] == "hit" and d[3] == r[3] for d, r in zip(own, first))
+        m1 = misses()
+        assert sum(m1) - sum(m0) == LOAD_IMAGES, (m0, m1)
+        out["affinity"] = {"owners": {n: owner.count(n) for n in names}, "misses": LOAD_IMAGES,
+                           "hits": LOAD_IMAGES, "cache_misses_total_delta": sum(m1) - sum(m0),
+                           "miss_ms": _quantiles([r[4] for r in first]),
+                           "answer_bytes": len(first[0][3])}
+
+        # 2. the router's cost on a hit
+        via, straight = [], []
+        for k in range(FLEET_HITS):
+            i = k % LOAD_IMAGES
+            r = _fleet_post(rconn, bodies[i])
+            d = _fleet_post(direct[owner[i]], bodies[i])
+            assert (r[0], r[1], r[2], d[0], d[2]) == (200, owner[i], "hit", 200, "hit") and r[3] == d[3]
+            via.append(r[4])
+            straight.append(d[4])
+        out["router_cost"] = {"hits": FLEET_HITS, "router_ms": _quantiles(via), "direct_ms": _quantiles(straight),
+                              "p50_added_ms": _quantiles(via)["p50_ms"] - _quantiles(straight)["p50_ms"]}
+
+        # 3. hedging against a slow backend
+        slow = names[2]
+        keys = [i for i in range(LOAD_IMAGES) if owner[i] == slow]
+        assert keys, out["affinity"]
+
+        def hedges():
+            m = _metric_lines(rport)
+            return {k: m.get(f"router_hedges_{k}_total", 0.0) for k in ("fired", "won", "budget_denied")}
+
+        def run_hits():
+            ms, by = [], collections.Counter()
+            for k in range(FLEET_HITS):
+                r = _fleet_post(rconn, bodies[keys[k % len(keys)]])
+                assert r[0] == 200, r[:3]
+                ms.append(r[4])
+                by[r[1]] += 1
+            return _quantiles(ms), dict(by)
+
+        base_q, _ = run_hits()
+        h0 = hedges()
+        tokens = _request(rport, "/v1/config")[1]["tail_tolerance"]["hedge_tokens"]
+        armed = _request(rport, "/v1/debug/faults", "POST",
+                         {"arm": f"fleet.head_delay_ms=p1:{FLEET_HEDGE_DELAY_MS}@{slow}"})
+        assert armed[0] == 200, armed
+        slow_q, served_by = run_hits()
+        h1 = hedges()
+        assert _request(rport, "/v1/debug/faults", "POST", {"disarm": "all"})[0] == 200
+        delta = {k: h1[k] - h0[k] for k in h0}
+        budget = tokens + FLEET_HITS * 0.05  # --hedge-budget-pct 5: burst tokens plus 5% of the requests
+        assert delta["won"] >= 1 and delta["fired"] <= budget, (delta, tokens)
+        states = {n: m["state"] for n, m in _request(rport, "/v1/config")[1]["members"].items()}
+        out["hedging"] = {"slow_backend": slow, "head_delay_ms": FLEET_HEDGE_DELAY_MS, "keys": len(keys),
+                          "requests": FLEET_HITS, "tokens_before": tokens, "budget": budget, **delta,
+                          "served_by": served_by, "ms_without_fault": base_q, "ms_with_fault": slow_q,
+                          "states_after": states}
+
+        # 4. federation and one joined trace
+        fed = _metric_lines(rport, "/v1/metrics/fleet")
+        for n in names:
+            assert f'deconv_requests_total{{backend="{n}"}}' in fed and fed[f'fleet_scrape_ok{{backend="{n}"}}'] == 1
+        r = _fleet_post(rconn, bodies[0], {"x-request-id": "fleet-trace-1"})
+        status, doc, _ = _request(rport, "/v1/debug/trace/fleet-trace-1")
+        sources = {s["source"] for s in doc["timeline"]}
+        assert status == 200 and r[1] in doc["backends"] and {"router", r[1]} <= sources, doc
+        out["federation"] = {"families": len({k.split("{")[0] for k in fed}), "backends_scraped":
+                             fed.get("fleet_backends_scraped"), "trace_spans": len(doc["timeline"]),
+                             "trace_sources": sorted(sources)}
+
+        # 5. drain b0 under traffic
+        gone, stays = names[0], names[1:]
+        before = {n: _metric_lines(p) for n, p in zip(names[1:], bports[1:])}
+        answers, stop = [], threading.Event()
+
+        def client():
+            conn = http.client.HTTPConnection("127.0.0.1", rport, timeout=120)
+            while not stop.is_set():
+                for i, b in enumerate(bodies):
+                    answers.append((time.perf_counter(), i, *_fleet_post(conn, b)[:3]))
+            conn.close()
+
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+        time.sleep(0.3)
+        t_sig = time.perf_counter()
+        procs["b0"].send_signal(signal.SIGTERM)
+        while True:
+            m = _request(rport, "/v1/config")[1]["members"][gone]
+            if m["state"] == "draining":
+                break
+            assert time.perf_counter() - t_sig < 10, m
+            time.sleep(0.005)
+        left_ms = (time.perf_counter() - t_sig) * 1e3
+        assert m["announced_drain"] and not m["in_ring"], m
+        b0_rc = procs["b0"].wait(60)
+        dumps["b0"] = json.load(open(os.path.join(work, "b0.json")))
+        n_done = len(answers)
+        while len(answers) < n_done + LOAD_IMAGES:
+            time.sleep(0.01)
+        stop.set()
+        th.join(60)
+        after = {n: _metric_lines(p) for n, p in zip(names[1:], bports[1:])}
+        assert all(a[2] == 200 for a in answers), collections.Counter(a[2] for a in answers)
+        moved = [i for i in range(LOAD_IMAGES) if owner[i] == gone]
+        seen = {i: [(a[3], a[4]) for a in answers if a[1] == i and a[3] != gone] for i in moved}
+        for i, got in seen.items():
+            assert got and got[0][1] == "peer-fill" and all(c == "hit" for _b, c in got[1:]), (i, got)
+            assert len({b for b, _c in got}) == 1, (i, got)
+
+        def delta_of(family):
+            return {n: after[n].get(family, 0.0) - before[n].get(family, 0.0) for n in stays}
+
+        fills = delta_of("deconv_cache_peer_fills_total")
+        batches = delta_of("deconv_batches_total")
+        assert sum(fills.values()) == len(moved) and sum(batches.values()) == 0 and b0_rc == 0, \
+            (fills, batches, b0_rc)
+        out["drain"] = {"backend": gone, "exit_code": b0_rc, "left_ring_ms": left_ms,
+                        "announced_drain": m["announced_drain"], "answers": len(answers),
+                        "non_200": sum(a[2] != 200 for a in answers), "keys_moved": len(moved),
+                        "peer_fills": fills, "device_batches_on_new_owners": batches,
+                        "cache_misses_total_delta": delta_of("deconv_cache_misses_total"),
+                        "new_owners": {i: seen[i][0][0] for i in moved}}
+
+        # 6. failover: b1 killed
+        killed, last = names[1], names[2]
+        dumps["b1"] = dump("b1")
+        procs["b1"].send_signal(signal.SIGKILL)
+        procs["b1"].wait(30)
+        rconn.close()
+        rconn = http.client.HTTPConnection("127.0.0.1", rport, timeout=120)
+        passes = []
+        for _ in range(2):
+            passes.append([_fleet_post(rconn, b)[:3] for b in bodies])
+        statuses = [a[0] for p in passes for a in p]
+        state = _metric_lines(rport).get(f'router_backend_state{{backend="{killed}"}}')
+        assert set(statuses) == {200} and state == 2, (collections.Counter(statuses), state)
+        assert [a[1] for a in passes[1]] == [last] * LOAD_IMAGES, passes[1]
+        out["failover"] = {"killed": killed, "answers": len(statuses), "non_200": 0, "backend_state": state,
+                           "second_pass_backends": sorted({a[1] for a in passes[1]}),
+                           "second_pass_cache": dict(collections.Counter(a[2] for a in passes[1]))}
+        rconn.close()
+        for c in direct.values():
+            c.close()
+        dumps["b2"] = dump("b2")
+        procs["b2"].send_signal(signal.SIGTERM)
+        out["b2_exit_code"] = procs["b2"].wait(60)
+        procs["router"].send_signal(signal.SIGTERM)
+        out["router_exit_code"] = procs["router"].wait(30)
+        assert out["b2_exit_code"] == 0 and out["router_exit_code"] == 0, out
+    finally:
+        for key, proc in procs.items():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        for log in logs:
+            log.close()
+    names_k = sorted(ops.launch_counts())
+    counts = {k: int(sum(d["launches"].get(k, 0) for d in dumps.values())) for k in names_k}
+    out["launches"] = {key: {k: v for k, v in d["launches"].items() if v} for key, d in dumps.items()}
+    out["replays"] = {key: d["replays"] for key, d in dumps.items()}
+    emit(out)
+    assert counts["pool_argmax"] > 0 and counts["unpool_argmax"] > 0, out["launches"]
+    return {"counts": counts}
+
+
 def _request_raw(port: int, form: dict):
     """``_keep_alive_post`` on a connection of its own."""
     import http.client
@@ -3741,6 +4089,7 @@ def main() -> int:
     quality = timed("quality", phase_quality, torch, env["nvidia_smi"])
     jobs = timed("jobs", phase_jobs, torch, env["nvidia_smi"])
     settings = timed("settings", phase_settings, torch, env["nvidia_smi"])
+    fleet = timed("fleet", phase_fleet, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
@@ -3751,7 +4100,8 @@ def main() -> int:
                "cache POST / (misses, hits at 0, one coalesced row, two recomputes)": cache["counts"],
                "quality POST / (full, bf16, int8, calibrated int8, the QoS turn)": quality["counts"],
                **jobs["counts"],
-               **settings["counts"]}
+               **settings["counts"],
+               "fleet POST / (three serve processes behind the router)": fleet["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

@@ -23,6 +23,20 @@ variable and most have a flag, spelled as the JAX package's CLI spells it
 (``--slo`` for ``slos``, ``--no-singleflight``, ``--tenants`` implying
 ``--qos``), else after the field; a flag given wins over the variable.
 
+A served process drains on SIGTERM or SIGINT: ``/readyz`` answers 503
+and running jobs park, the drain is announced to the ``--fleet-routers``,
+the listener stays up ``--drain-grace-s`` seconds, then the server stops
+and the process exits 0; a second signal during the drain exits 130.  With
+``--fleet-routers``/``--fleet-token`` the server registers with those
+routers once its listener answers (``--fleet-advertise HOST:PORT``, the
+address they should dial, ``--fleet-capacity``); ``--peer-fill`` honours
+the routers' peer cache-fill hints and serves its own cache to its peers.
+
+``python -m deconv_api_tpu_torch fleet-router [--backends H:P,H:P]
+[--fleet-token T] [--port 8100] ...`` runs the cache-affine router of
+``serving/fleet.py`` in front of such servers, with the JAX package's
+``fleet-router`` flags (``--autoscale off`` only); it loads no torch.
+
 ``python -m deconv_api_tpu_torch calibrate --out DIR [--model vgg16]
 [--images DIR] [--n-images 16] [--device cuda|cpu]`` writes the model's
 int8 calibration artifact (``<DIR>/<model>.calib.json``) that a
@@ -35,7 +49,14 @@ import argparse
 import dataclasses
 import json
 import os
+import signal
 import sys
+
+if __name__ == "__main__" and sys.argv[1:2] == ["fleet-router"]:
+    # the router needs no model stack: dispatched before torch loads
+    from deconv_api_tpu_torch.serving.fleet import main as _fleet_main
+
+    sys.exit(_fleet_main(sys.argv[2:]))
 
 import numpy as np
 
@@ -110,6 +131,12 @@ _FIELD_FLAGS = {
     "jobs_queue_depth": "queued-or-running jobs before a submit gets 429",
     "jobs_retention_s": "seconds finished jobs and their results are kept",
     "jobs_max_attempts": "runner crashes a job resumes from before it fails",
+    # the fleet tier's backend half
+    "peer_fill_timeout_s": "seconds a peer cache fill may take before the miss computes",
+    "fleet_routers": "router addresses 'host:port,...' this server registers with, and announces its drain to",
+    "fleet_token": "shared fleet secret presented on registration announcements (x-fleet-token)",
+    "fleet_advertise": "the host:port this server registers as (default <hostname>:<port>)",
+    "fleet_capacity": "capacity this member advertises to the routers' ring (0 = auto: 1)",
 }
 
 
@@ -159,6 +186,9 @@ def _parser() -> argparse.ArgumentParser:
             else:
                 s.add_argument(flag, type=_TYPES[field.type], default=None,
                                help=f"{_FIELD_FLAGS[field.name]} (default {field.default!r})")
+    s.add_argument("--peer-fill", action="store_true",
+                   help="honour the routers' x-peer-fill hint on cache misses and serve GET "
+                   "/v1/internal/cache/{digest} to ring peers (trusted meshes only; default off)")
     s.add_argument("--no-singleflight", action="store_true",
                    help="do not coalesce concurrent identical requests onto one computation")
     s.add_argument("--slo", default=None, metavar="NAME=MS:PCT[:ROUTE],...",
@@ -186,6 +216,9 @@ def _parser() -> argparse.ArgumentParser:
         help="arm a fault-injection site at startup (repeatable; implies "
         "fault injection enabled — see serving/faults.py for sites/specs)",
     )
+    # parsed by serving/fleet.py's own main (main() dispatches to it first)
+    sub.add_parser("fleet-router", add_help=False,
+                   help="the cache-affine consistent-hash router over N serve processes (no torch)")
     c = sub.add_parser("calibrate", help="write a model's int8 calibration artifact for --calibration-dir")
     c.add_argument("--model", default="vgg16", help="registry model name (default vgg16)")
     c.add_argument("--out", required=True, metavar="DIR", help="calibration dir the server reads (--calibration-dir)")
@@ -213,6 +246,8 @@ def server_config(args) -> ServerConfig:
         overrides["faults"] = ",".join(args.fault)
     if args.no_singleflight:
         overrides["singleflight"] = False
+    if args.peer_fill:
+        overrides["fleet_peer_fill"] = True
     if args.qos or args.tenants is not None:
         overrides["qos"] = True
     return ServerConfig.from_env(**overrides)
@@ -305,21 +340,47 @@ def calibrate(args) -> int:
     return 0
 
 
+class _Stop(BaseException):
+    """SIGTERM or SIGINT: leaves ``serve_forever`` for the drain."""
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["fleet-router"]:
+        from deconv_api_tpu_torch.serving.fleet import main as fleet_main
+
+        return fleet_main(argv[1:])
     args = _parser().parse_args(argv)
     if args.cmd == "calibrate":
         return calibrate(args)
     slog.configure()  # the server entry point owns the logging setup (embedders don't)
     server = build_server(argv)
+    service = server.service
+    signals = []
+
+    def on_signal(signum, _frame) -> None:
+        if signals:
+            # a second signal during the drain: the drain is wedged or
+            # unwanted, and this handler swallowed the default exit
+            os._exit(130)
+        signals.append(signum)
+        raise _Stop
+
+    previous = {sig: signal.signal(sig, on_signal) for sig in (signal.SIGTERM, signal.SIGINT)}
     try:
+        # the routers admit this backend at their next probe of /readyz
+        service.on_loop(service.announce_to_routers("register"))
         server.serve_forever()
-    except KeyboardInterrupt:
+    except _Stop:
         pass
     finally:
-        # the drain first, with the listener up: /readyz answers 503 for
-        # drain_grace_s and running jobs park, then the listener closes
-        server.service.close()
+        # the drain, with the listener up: /readyz answers 503 and running
+        # jobs park, the routers hear of it, drain_grace_s passes, the
+        # dispatchers stop; then the listener closes
+        service.close()
         server.server_close()
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
     return 0
 
 

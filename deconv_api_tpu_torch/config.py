@@ -8,9 +8,11 @@ Left out, as they have no counterpart here: ``host`` and ``port`` (the
 CLI's flags), ``donate_inputs`` (XLA buffer donation),
 ``compilation_cache_dir`` (a CUDA graph is captured per process),
 ``platform`` and ``profile_dir`` (a jax backend and trace directory), the
-mesh, lanes and pod fields (one card, one lane), the fleet, AOT and
-autoscale fields (not ported yet), and ``weights_path`` (the Keras h5
-loaders are not ported yet).
+mesh, lanes and pod fields (one card, one lane), the AOT and autoscale
+fields (not ported yet), and ``weights_path`` (the Keras h5 loaders are
+not ported yet).  The fleet fields are here: a backend's peer cache fill
+and its registration with the routers of ``serving/fleet.py``; with no
+pod, ``fleet_capacity`` 0 advertises 1.
 
 One default differs from the JAX package's: ``warmup_dream`` is on, as the
 H100's boot and first-dream times decide (``PERF.md``)."""
@@ -301,6 +303,32 @@ class ServerConfig:
     # key); without one, each example's own ranges ('dynamic').  A corrupt
     # artifact reads as absent.
     calibration_dir: str = ""
+    # --- fleet tier (serving/fleet.py) ---
+    # Peer cache fill: honour the router's ``x-peer-fill: host:port`` hint
+    # on a cache miss by asking the key's previous ring owner for the
+    # finished payload (GET /v1/internal/cache/{digest}) before computing,
+    # so a rebalance (drain, ejection, scale-out) moves bytes rather than
+    # recomputes.  Also registers the internal cache route this backend
+    # serves to its peers.  Off by default: the hint names a host to fetch
+    # from, so it belongs on a trusted mesh behind the router tier.
+    fleet_peer_fill: bool = False
+    # Per-peer-fetch timeout: past it the miss computes, so a slow peer
+    # never costs more than the compute it would have saved.
+    peer_fill_timeout_s: float = 2.0
+    # Shared fleet secret: backends present it (x-fleet-token) when they
+    # register with routers, routers require it on POST
+    # /v1/internal/register.  Empty disables registration on both sides.
+    fleet_token: str = ""
+    # Router addresses ('host:port,host:port') this backend announces
+    # itself to: register once its listener answers, drain on SIGTERM.
+    # Empty = no announcements.
+    fleet_routers: str = ""
+    # The host:port this backend registers as (what routers probe and
+    # forward to).  Empty = '<hostname>:<bound port>'.
+    fleet_advertise: str = ""
+    # Capacity this member advertises on registration: the ring grants it
+    # vnodes in proportion.  0 = auto, which is 1 here (no pod).
+    fleet_capacity: int = 0
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "ServerConfig":

@@ -160,6 +160,21 @@ class TenantOverQuota(DeconvError):
         self.tenant = tenant
 
 
+class BackendUnavailable(DeconvError):
+    """The fleet router (``serving/fleet.py``) reached no backend for this
+    request: the ring is empty, or the key's owner and its failover
+    neighbour both failed at the transport.  502, the gateway speaking
+    about its upstream (a backend's own 503 passes through untouched),
+    with a ``Retry-After`` of the ejection cooldown."""
+
+    status = 502
+    code = "backend_unavailable"
+
+    def __init__(self, message: str, retry_after_s: float | None = None):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
 class FaultInjected(DeconvError):
     """An armed fault-injection site fired (``serving/faults.py``)."""
 

@@ -75,6 +75,16 @@ one ``LanePool`` whose lane is the card, each coalescing requests of one
 (model, program) into batches of its power-of-two bucket, shedding load,
 dropping expired deadlines and failing fast while the breaker is open.
 
+The fleet tier's backend half (``serving/fleet.py`` routes in front): with
+``fleet_routers`` and ``fleet_token`` the server registers with each router
+once its listener answers (``announce_to_routers``, from the entry point)
+and announces its drain at shutdown, naming the ``drain_grace_s`` its
+listener stays up; with ``fleet_peer_fill`` (and the cache on) a miss that
+carries the router's ``x-peer-fill: host:port`` hint reads the finished
+payload from that peer's ``GET /v1/internal/cache/{digest}`` before
+computing (``x-cache: peer-fill``), and the server serves that route to
+its own peers.  A server with no ``fleet_*`` setting has none of it.
+
 Device work is pipelined.  A dispatcher's dispatch step (``_enqueue_*``,
 on its lane's dispatch worker thread) checks the model's weights out,
 assembles the padded batch in a pinned staging buffer, copies it into the
@@ -100,8 +110,11 @@ import functools
 import json
 import logging
 import math
+import re
+import socket
 import threading
 import time
+import urllib.parse
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -117,6 +130,7 @@ from deconv_api_tpu_torch.engine.quant import QUALITY_TIERS
 from deconv_api_tpu_torch.ops.cuda_deconv import fused_engaged, resolve_fused_unpool
 from deconv_api_tpu_torch.serving import codec, durable
 from deconv_api_tpu_torch.serving import faults as faults_mod
+from deconv_api_tpu_torch.serving import fleet as fleet_mod
 from deconv_api_tpu_torch.serving import trace as trace_mod
 from deconv_api_tpu_torch.serving import tsdb as tsdb_mod
 from deconv_api_tpu_torch.serving.alerts import AlertEngine, IncidentStore, parse_alert_rules
@@ -133,6 +147,7 @@ from deconv_api_tpu_torch.serving.weight_manager import WEIGHT_DTYPES, WeightMan
 from deconv_api_tpu_torch.utils import slog
 
 log = logging.getLogger(__name__)
+_slog_app = slog.get_logger("deconv.app")
 
 # The route defaults of a default-configured server (the service reads its
 # own ``cfg``): the reference serves the top 4 of its ranking as a 2x2 grid,
@@ -240,6 +255,8 @@ class DeconvService:
             raise ValueError(f"top_k and stitch_k must be in [1, 64], got {cfg.top_k} and {cfg.stitch_k}")
         if cfg.weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, got {cfg.weight_dtype!r}")
+        if cfg.fleet_capacity < 0:
+            raise ValueError(f"fleet_capacity must be >= 0 (0 = auto), got {cfg.fleet_capacity}")
         # the quality tiers, validated at boot: a mistyped tier fails the
         # process, not the first bulk request
         if cfg.quality_default not in QUALITY_TIERS:
@@ -327,6 +344,10 @@ class DeconvService:
         self.ready = False
         # set when shutdown begins: /readyz turns 503 before the listener goes
         self.draining = False
+        # the drain is announced to the routers once
+        self._drain_announced = False
+        # (host, port) the listener bound, once it has
+        self.bound: tuple[str, int] | None = None
         self.warmup_wall_s: float | None = None
         self.warmup_wall_s_by_model: dict[str, float] = {}
         # one lane, the card, shared by the three dispatchers: they fail
@@ -833,6 +854,7 @@ class DeconvService:
         """Bind the HTTP server on the event loop; returns the bound port."""
         bound = self.on_loop(self.server.start(host, port))
         self._listening = True
+        self.bound = (host, bound)
         return bound
 
     def stop_listening(self, grace_s: float = 5.0) -> None:
@@ -872,6 +894,9 @@ class DeconvService:
         self.begin_drain()
         if self._loop is not None and not self._closed:
             async def stop():
+                # the routers learn of the drain now, not at their next
+                # probe, and keep the listener's grace as a peer-fill window
+                await self.announce_to_routers("drain")
                 if self.cfg.drain_grace_s > 0:
                     await asyncio.sleep(self.cfg.drain_grace_s)
                 if self._tsdb_task is not None:
@@ -913,6 +938,64 @@ class DeconvService:
         with DEVICE_LOCK.exclusive() if self.bundle.device.type == "cuda" else contextlib.nullcontext():
             self.input_ring.clear()
             self.output_ring.clear()
+
+    def _advertise_name(self) -> str:
+        """The host:port this backend registers as: ``fleet_advertise``, else
+        '<hostname>:<bound port>' (a 0.0.0.0 bind is no address a peer can
+        dial)."""
+        if self.cfg.fleet_advertise:
+            return self.cfg.fleet_advertise
+        port = self.bound[1] if self.bound else 0
+        return f"{socket.gethostname()}:{port}"
+
+    def fleet_capacity(self) -> int:
+        """The capacity this member advertises on registration:
+        ``fleet_capacity`` when set, else 1 (the port runs no pod)."""
+        return self.cfg.fleet_capacity if self.cfg.fleet_capacity > 0 else 1
+
+    async def announce_to_routers(self, action: str) -> int:
+        """``POST /v1/internal/register`` (with the shared fleet token) to
+        every router of ``fleet_routers``: ``register`` once the listener
+        answers, with this member's capacity; ``drain`` at shutdown (once),
+        with ``grace_s``, the seconds the listener stays up, in which the
+        router still hints peer fills at this backend.  Best effort: a
+        router that is not reached learns the same from its probes.
+        Returns how many routers acknowledged."""
+        if not self.cfg.fleet_routers:
+            return 0
+        if action == "drain":
+            if self._drain_announced:
+                return 0
+            self._drain_announced = True
+        adv = self._advertise_name()
+        fields = {"backend": adv, "action": action}
+        if action == "register":
+            fields["capacity"] = str(self.fleet_capacity())
+        else:
+            fields["grace_s"] = repr(float(self.cfg.drain_grace_s))
+        body = urllib.parse.urlencode(fields).encode()
+        headers = {"content-type": "application/x-www-form-urlencoded", "x-fleet-token": self.cfg.fleet_token}
+        routers = [r.strip() for r in self.cfg.fleet_routers.split(",") if r.strip()]
+        acks = 0
+        for router in routers:
+            host, _, port = router.rpartition(":")
+            if not host or not port.isdigit():
+                slog.event(_slog_app, "announce_bad_router", level=logging.WARNING, router=router)
+                continue
+            try:
+                status, _h, rbody = await fleet_mod.raw_request(host, int(port), "POST", "/v1/internal/register",
+                                                                headers, body, 5.0)
+            except Exception as e:  # noqa: BLE001 — best effort
+                slog.event(_slog_app, "announce_failed", level=logging.WARNING, router=router, action=action,
+                           error=f"{type(e).__name__}: {e}")
+                continue
+            if status == 200:
+                acks += 1
+            else:
+                slog.event(_slog_app, "announce_rejected", level=logging.ERROR, router=router, action=action,
+                           status=status, body=rbody[:200].decode("utf-8", "replace"))
+        slog.event(_slog_app, "announce_done", backend=adv, action=action, acks=acks, routers=len(routers))
+        return acks
 
     def submit(self, program: Program, x: np.ndarray, model: str | None = None, tenant: str = "",
                tclass: str = "") -> concurrent.futures.Future:
@@ -1566,6 +1649,11 @@ class DeconvService:
             r("GET", "/v1/jobs")(self._jobs_collection)
             self.server.route_prefix("GET", "/v1/jobs/")(self._jobs_entity)
             self.server.route_prefix("DELETE", "/v1/jobs/")(self._jobs_delete)
+        if self.cache is not None and self.cfg.fleet_peer_fill:
+            # the peer cache-fill read surface this backend serves to its
+            # ring peers: only with fleet_peer_fill on (a trusted mesh); a
+            # default server exposes no internal route
+            self.server.route_prefix("GET", "/v1/internal/cache/")(self._internal_cache)
         if self.tsdb is not None:
             r("GET", "/v1/metrics/history")(self._metrics_history)
             r("GET", "/v1/alerts")(self._alerts)
@@ -1743,6 +1831,58 @@ class DeconvService:
         return canonical_digest(prefix, req.headers.get("content-type", ""), req.body, req=req,
                                 exclude=("model", "quality"))
 
+    async def _internal_cache(self, req: Request) -> Response:
+        """``GET /v1/internal/cache/{digest}``: the peer cache-fill read
+        surface.  Serves a positive cached payload verbatim (body and
+        content type, ``x-cache: peer``) to a peer that just inherited this
+        digest's slice of the ring, else 404 ``cache_miss`` (``no-store``:
+        it speaks of this instant).  Reads through ``ResponseCache.peek``:
+        a peer's read counts as no hit or miss here and promotes nothing.
+        Negative entries are not served."""
+        digest = req.path[len("/v1/internal/cache/"):]
+        if not re.fullmatch(r"[0-9a-f]{16,64}", digest):
+            return _error_response(errors.BadRequest("malformed cache digest"), req.id)
+        entry = self.cache.peek(digest) if self.cache is not None else None
+        if entry is None or entry.negative or entry.status != 200:
+            resp = Response.json({"error": "cache_miss", "request_id": req.id}, 404)
+            resp.headers["cache-control"] = "no-store"
+            return resp
+        self.metrics.inc_counter("cache_peer_reads_total")
+        return Response(status=200, body=entry.body, headers={"content-type": entry.content_type, "x-cache": "peer"})
+
+    async def _peer_fill(self, req: Request, key: str, tr) -> Response | None:
+        """Honour the router's ``x-peer-fill: host:port`` hint on a miss:
+        fetch the finished payload for ``key`` from the key's previous ring
+        owner before computing (``x-cache: peer-fill``, a ``peer_fill``
+        span, ``cache_peer_fills_total``).  None on every failure (no hint,
+        a malformed one, an unreachable or slow peer, a peer miss, counted
+        in ``cache_peer_fill_misses_total``): the request then computes, so
+        a fill only ever saves work."""
+        peer = req.headers.get("x-peer-fill", "")
+        if not peer or not self.cfg.fleet_peer_fill or self.cache is None:
+            return None
+        m = re.fullmatch(r"([A-Za-z0-9_.\-]+):(\d{1,5})", peer)
+        if m is None:
+            return None
+        t0 = time.perf_counter()
+        try:
+            status, headers, body = await fleet_mod.raw_request(
+                m.group(1), int(m.group(2)), "GET", f"/v1/internal/cache/{key}", {}, b"",
+                self.cfg.peer_fill_timeout_s,
+            )
+        except Exception:  # noqa: BLE001 — any peer failure: compute instead
+            status, headers, body = 0, {}, b""
+        dt = time.perf_counter() - t0
+        if tr is not None:
+            tr.add_span("peer_fill", t0, dt, peer=peer, hit=status == 200)
+        if status != 200:
+            self.metrics.inc_counter("cache_peer_fill_misses_total")
+            return None
+        self.metrics.inc_counter("cache_peer_fills_total")
+        return Response(status=200, body=body,
+                        headers={"content-type": headers.get("content-type", "application/json"),
+                                 "x-cache": "peer-fill"})
+
     async def _l2_lookup(self, key: str, tr) -> Response | None:
         """The durable L2 read on a memory miss, before compute: a
         verified disk hit answers without the codec pool, a dispatcher or
@@ -1760,8 +1900,7 @@ class DeconvService:
 
     def _cache_wrap(self, route: str, handler, metrics: Metrics):
         """The response cache and the singleflight table in front of a
-        compute route (``deconv_api_tpu/serving/app.py:_cache_wrap``
-        without the peer fill).
+        compute route (``deconv_api_tpu/serving/app.py:_cache_wrap``).
 
         The key (``_request_key``) comes from the raw body before any
         image decode: on the event loop for a body of
@@ -1770,16 +1909,19 @@ class DeconvService:
         A hit answers with the stored payload (``x-cache: hit``, or
         ``hit-negative`` for a cached deterministic 4xx) and reaches no
         dispatcher.  On a miss the first request in flight leads: it
-        reads the L2, else runs the route, and publishes its response to
+        fills from the peer the router's ``x-peer-fill`` hint names
+        (``_peer_fill``), else reads the L2, else runs the route, and
+        publishes its response to
         the identical requests that arrived meanwhile (``x-cache:
         coalesced``, each with its own ``x-request-id``).  A leader's own
         deadline answers its waiters 503 ``unavailable``, not a 504 that
         is not theirs; a cancelled leader fails them the same way; a
         waiter's deadline ends only its own wait.  ``Cache-Control:
-        no-cache`` skips the cache read, the flight table and the L2 (a
-        forced recompute, ``x-cache: bypass``) but refreshes the entry,
+        no-cache`` skips the cache read, the flight table, the peer fill
+        and the L2 (a forced recompute, ``x-cache: bypass``) but refreshes the entry,
         unless ``no-store`` is also present, which skips the write too.
-        With QoS on, a hit, a coalesced waiter and an L2 read refund their
+        With QoS on, a hit, a coalesced waiter, a peer fill and an L2 read
+        refund their
         provisional device debit down to the fixed hit cost.
 
         Cache counters go to the main registry; per-request accounting to
@@ -1825,7 +1967,9 @@ class DeconvService:
                 # finish it, or the key's future stays in the table and
                 # every later identical request waits on it forever
                 try:
-                    filled = await self._l2_lookup(key, tr)
+                    filled = await self._peer_fill(req, key, tr)
+                    if filled is None:
+                        filled = await self._l2_lookup(key, tr)
                     resp = filled if filled is not None else await handler(req)
                 except asyncio.CancelledError:
                     self.flights.finish(key, exc=errors.Unavailable("coalesced request's leader was cancelled"))
@@ -1849,7 +1993,10 @@ class DeconvService:
                 else:
                     self.flights.finish(key, resp)
             else:
-                resp = None if bypass else await self._l2_lookup(key, tr)
+                # a bypass is a forced recompute: no peer's cache, no L2
+                resp = None if bypass else await self._peer_fill(req, key, tr)
+                if resp is None and not bypass:
+                    resp = await self._l2_lookup(key, tr)
                 if resp is not None:
                     self._charge_hit(req)
                     metrics.observe_request(time.perf_counter() - t0)
@@ -2145,6 +2292,8 @@ class DeconvService:
         cfg = dataclasses.asdict(self.cfg)
         # paths: reported as configured or not
         cfg["calibration_dir"], cfg["jobs_dir"] = bool(cfg["calibration_dir"]), bool(cfg["jobs_dir"])
+        if cfg["fleet_token"]:
+            cfg["fleet_token"] = "<set>"  # the shared secret stays unleaked
         cfg["model_active"] = self.weights.default
         cfg["weights"] = self.weights.snapshot()
         # the tiers and, per model whose int8 path was consulted, the

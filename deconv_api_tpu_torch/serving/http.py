@@ -105,6 +105,10 @@ class Request:
     _qos_grant: object = field(default=None, repr=False, compare=False)
     # memoized form() result: one parse per request.  None = not parsed yet.
     _form: dict[str, str] | None = field(default=None, repr=False, compare=False)
+    # memoized forward-header base of the fleet router: the client headers
+    # less the hop-by-hop ones, the same for every retry and hedge attempt
+    # of one request.  None = not computed yet.
+    _fwd_base: list | None = field(default=None, repr=False, compare=False)
 
     def form(self) -> dict[str, str]:
         """Parse the body as a form: urlencoded or multipart/form-data.
@@ -240,8 +244,12 @@ class HttpServer:
 
         return register
 
-    async def start(self, host: str, port: int) -> int:
-        self._server = await asyncio.start_server(self._handle_conn, host, port)
+    async def start(self, host: str, port: int, *, reuse_port: bool = False) -> int:
+        # reuse_port: SO_REUSEPORT lets several router processes share one
+        # accept queue (the fleet router's --workers); passed only when
+        # asked, so the default path stays portable
+        kwargs = {"reuse_port": True} if reuse_port else {}
+        self._server = await asyncio.start_server(self._handle_conn, host, port, **kwargs)
         return self._server.sockets[0].getsockname()[1]
 
     async def stop(self, grace_s: float = 5.0) -> None:
