@@ -69,7 +69,7 @@ Phases, each printing JSON lines:
 11. load (BASELINE.json config 5): 256 concurrent keep-alive clients in 4
    spawned processes post ``POST /`` (16 distinct 256x240 PNGs) to a VGG16
    server at every default, block5_conv1, 1024 requests a run at
-   ``pipeline_depth`` 1, 2, 2, 1; each run prints images/s, latency
+   ``pipeline_depth`` 1 and 2; each run prints images/s, latency
    quantiles, the 503/504 counts, the batch-size histogram, the device's
    busy share (a profiled slice) and the host's CPU count, and every 200
    answer is held against its own image's grid served alone at every
@@ -114,7 +114,23 @@ Phases, each printing JSON lines:
    answer 200, the drained keys filled from the draining backend's cache
    with no device batch, exit 0); a SIGKILL failover (every answer 200,
    the backend ejected). The backends' launches are read back from each
-   process (``phase_fleet``).
+   process (``phase_fleet``);
+17. weights: (a) the Keras-written golden fixture as the port's npz
+   (``tests/fixtures/torch/vgg16_block1.npz``): VGG16 truncated at
+   block1_pool at 64x64 within 1e-4 of Keras's activations, the init not,
+   K1's switches at block1_pool bit-exact against its plain version; (b)
+   ``serve --serve-models vgg16,resnet50 --weights DIR`` on npz files of
+   seed-1 weights beside the same server without them: each model's
+   ``POST /`` byte-equal to the server's in-process captured grid and
+   unlike the init's, the host archives equal to the files, both models
+   paged out and in with the same bytes, the int8 grid unlike the init's
+   int8 grid, the cache-key prefixes apart in ``weights_path`` alone; (c)
+   the CLI's ``visualize``, ``visualize --sweep`` and ``dream`` as
+   subprocesses equal to the same commands in this process, and
+   ``doctor`` all ok with K1 and K2 launched by its selftest; (d) a
+   ``--profile-dir`` server armed by ``POST /v1/profile batches=2``
+   writes two ``torch.profiler`` traces naming K1's and K2's kernels in
+   the graph replays (``phase_weights``).
 Phases 4-11 and 13-15 measure device work: their servers run with
 ``cache_bytes=0`` and no singleflight (``CACHE_OFF``), and each prints
 ``server_cache``.
@@ -2222,8 +2238,8 @@ LOAD_LAYER = "block5_conv1"
 LOAD_CLIENTS = 256  # concurrent keep-alive clients (BASELINE.json config 5)
 LOAD_PROCS = 4  # client processes, LOAD_CLIENTS / LOAD_PROCS threads each
 LOAD_IMAGES = 16  # distinct 256x240 PNGs
-LOAD_RUNS = (1, 2, 2, 1)  # pipeline_depth of each run, in turns
-LOAD_REQUESTS = 1024  # per run: 2048 at each depth over its two turns
+LOAD_RUNS = (1, 2)  # pipeline_depth of each run, in turns
+LOAD_REQUESTS = 1024  # per run
 OWN_PSNR_DB = 52.0  # an answer against its own image's reference
 OTHER_PSNR_DB = 30.0  # ... and against every other image's, at most
 SHED_BURST, SHED_TIMEOUT_S = 512, 15.0  # the shed drill's burst and request timeout
@@ -4035,6 +4051,368 @@ def phase_fleet(torch, label: str) -> dict:
     return {"counts": counts}
 
 
+# --- phase 17 ------------------------------------------------------------------
+
+WEIGHTS_DIR = os.path.join(ROOT, "build", "weights_smoke")
+# the served models and their layers: the first, a sequential model, is the
+# default, and the CLI's, the int8 tier's and the profile's
+WEIGHTS_LAYERS = {"vgg16": "block5_conv1", "resnet50": "conv5_block3_out"}
+WEIGHTS_DEVICE = "cuda"
+WEIGHTS_SEED = 1  # the files' weights: another He-normal draw than the servers' seed-0 init
+GOLDEN_MAX_REL_ERR = 1e-4  # tests/test_weights_golden.py's bar against Keras's activations
+UNLIKE_PSNR_DB = 40.0  # two grids of other weights lie below this
+PROFILE_BATCHES = 2
+ONE_BUCKET_FLAGS = ["--no-warmup-all-buckets", "--no-warmup-dream", *CACHE_OFF_FLAGS]
+
+
+def _rel_err(ref, got) -> float:
+    import numpy as np
+
+    ref, got = np.asarray(ref, np.float64), np.asarray(got, np.float64)
+    return float(np.abs(ref - got).max()) / max(float(np.abs(ref).max()), 1e-6)
+
+
+def weights_golden(torch, counted) -> dict:
+    """(a) The Keras-written fixture as the port's npz
+    (``tests/fixtures/torch/vgg16_block1.npz``): VGG16 truncated at
+    block1_pool at 64x64 on the card within GOLDEN_MAX_REL_ERR of Keras's
+    activations and the seed-0 init not; K1 at block1_pool bit-exact
+    against its plain version, its pooled map within the bar too."""
+    import dataclasses
+
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.models import VGG16_SPEC, init_params
+    from deconv_api_tpu_torch.models.apply import spec_forward
+    from deconv_api_tpu_torch.models.weights import load_model_weights
+    from deconv_api_tpu_torch.ops import pool
+
+    spec = dataclasses.replace(VGG16_SPEC.truncated("block1_pool"), input_shape=(64, 64, 3))
+    dev = torch.device(WEIGHTS_DEVICE)
+    init = init_params(spec, torch.Generator(device=dev).manual_seed(0), dev)
+    t0 = time.perf_counter()
+    params = load_model_weights("vgg16", spec, os.path.join(ROOT, "tests", "fixtures", "torch", "vgg16_block1.npz"),
+                                init)
+    load_s = time.perf_counter() - t0
+    exp = np.load(os.path.join(ROOT, "tests", "fixtures", "golden", "vgg16_block1_expected.npz"))
+    x = torch.from_numpy(exp["x"]).to(dev)
+    with torch.no_grad():
+        _, acts = spec_forward(spec)(params, x)
+        _, init_acts = spec_forward(spec)(init, x)
+        conv = acts["block1_conv2"].contiguous()
+        (pooled, idx), _ = counted("weights golden block1_pool (K1)", lambda: ops.maxpool_with_argmax(conv))
+        want_pooled, want_idx = pool.maxpool_argmax_plain(conv)
+    out = {"load_s": load_s, "device": str(params["block1_conv1"]["w"].device),
+           "rel_err": {k: _rel_err(exp[k], acts[k].cpu()) for k in ("block1_conv1", "block1_pool")},
+           "k1_rel_err_block1_pool": _rel_err(exp["block1_pool"], pooled.cpu()),
+           "k1_bit_exact": bool(torch.equal(bits(torch, pooled), bits(torch, want_pooled))
+                                and torch.equal(idx, want_idx)),
+           "init_rel_err_block1_conv1": _rel_err(exp["block1_conv1"], init_acts["block1_conv1"].cpu())}
+    out["ok"] = (max(*out["rel_err"].values(), out["k1_rel_err_block1_pool"]) < GOLDEN_MAX_REL_ERR
+                 and out["k1_bit_exact"] and out["init_rel_err_block1_conv1"] > 1e-2
+                 and out["device"].startswith(WEIGHTS_DEVICE))
+    return out
+
+
+def weights_served(torch, counted, uri: str) -> dict:
+    """(b) ``serve --serve-models vgg16,resnet50 --weights DIR`` on
+    ``vgg16.npz`` and ``resnet50.npz`` (He-normal from WEIGHTS_SEED, not the
+    servers' seed-0 init) beside the same server without ``--weights``,
+    under cuDNN's deterministic algorithms (a ResNet50 grid's bytes
+    otherwise vary between runs).  Each model's ``POST /`` at its deepest
+    layer is byte-equal to the server's in-process captured grid of the
+    same image and unlike the init server's; its host archive equals the
+    file; both models are paged out (VGG16 unpinned, the budget lowered)
+    and served again with the same bytes; VGG16's ``quality=int8`` grid is
+    unlike the init server's int8 grid (and its PSNR against its own full
+    grid is reported); the two servers' cache-key prefixes differ in
+    ``weights_path`` alone."""
+    import numpy as np
+
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.engine.crosscheck import psnr_db
+    from deconv_api_tpu_torch.models.weights import flat_arrays, save_npz
+    from deconv_api_tpu_torch.serving import codec
+    from deconv_api_tpu_torch.serving.models import build_bundle
+
+    files, out = {}, {"write_s": {}}
+    for name in WEIGHTS_LAYERS:
+        t0 = time.perf_counter()
+        files[name] = os.path.join(WEIGHTS_DIR, f"{name}.npz")
+        save_npz(build_bundle(name, WEIGHTS_DEVICE, seed=WEIGHTS_SEED).params, files[name])
+        out["write_s"][name] = time.perf_counter() - t0
+    out["files_mb"] = {n: os.path.getsize(f) / 1e6 for n, f in files.items()}
+    default = next(iter(WEIGHTS_LAYERS))
+    argv = ["serve", "--port", "0", "--device", WEIGHTS_DEVICE, "--model", default, "--serve-models",
+            ",".join(WEIGHTS_LAYERS), "--hbm-budget-bytes", str(4 << 30), *ONE_BUCKET_FLAGS]
+    servers = []
+    try:
+        t0 = time.perf_counter()
+        servers.append(build_server([*argv, "--weights", WEIGHTS_DIR]))
+        out["boot_s_with_weights"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        servers.append(build_server(argv))
+        out["boot_s_init"] = time.perf_counter() - t0
+        for server in servers:
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+        (svc, port), (init_svc, init_port) = ((s.service, s.server_address[1]) for s in servers)
+
+        def post(p, name, **extra):
+            status, body, _ = _request(p, "/", "POST", {"file": uri, "layer": WEIGHTS_LAYERS[name], "model": name,
+                                                        **extra})
+            if status != 200:
+                raise AssertionError(f"weights POST / {name} {extra}: {status} {body}")
+            return body
+
+        def requests():
+            first = {name: post(port, name) for name in WEIGHTS_LAYERS}
+            weights, pinned, budget = svc.weights, svc.weights.pinned, svc.weights.budget_bytes
+            weights.pinned, weights.budget_bytes = (), 1
+            paged_out = weights.enforce_budget()
+            weights.pinned, weights.budget_bytes = pinned, budget
+            t0 = time.perf_counter()
+            again = {name: post(port, name) for name in WEIGHTS_LAYERS}
+            return first, paged_out, time.perf_counter() - t0, again, post(port, default, quality="int8")
+
+        (first, paged_out, again_s, again, int8), counts = counted(
+            "weights POST / (vgg16 and resnet50 from files, paged out and in, int8)", requests)
+        out.update(paged_out=paged_out, served_again_s=again_s, page_in_s=dict(svc.weights.page_in_s),
+                   snapshot={k: svc.weights.snapshot()[k] for k in ("page_ins", "page_outs", "overcommits")},
+                   launches={k: counts[k] for k in ("pool_argmax", "unpool_argmax", "conv_q8", "quantize_q8",
+                                                    "quantize_w_q8", "replays", "captures")})
+        out["models"] = {}
+        for name, layer in WEIGHTS_LAYERS.items():
+            bundle = svc.weights.bundle(name)
+            grid = svc.visualize_batch(layer, svc.decode_preprocess(uri, bundle)[None], model=name)["grid"][0]
+            init_bundle = init_svc.weights.bundle(name)
+            init_grid = init_svc.visualize_batch(layer, init_svc.decode_preprocess(uri, init_bundle)[None],
+                                                 model=name)["grid"][0]
+            with np.load(files[name]) as f:
+                want = {k: f[k] for k in f.files}
+            host = flat_arrays(bundle.params)
+            out["models"][name] = {
+                "served_equals_inprocess": first[name] == codec.encode_data_url(grid),
+                "after_page_in_equals_first": again[name] == first[name],
+                "host_archive_equals_file": sorted(want) == sorted(host)
+                and all(np.array_equal(want[k], host[k]) for k in want),
+                "psnr_vs_init_db": psnr_db(grid, init_grid),
+            }
+        init_int8 = post(init_port, default, quality="int8")
+        out["int8"] = {"psnr_vs_init_int8_db": _psnr(_decode_jpeg_url(int8), _decode_jpeg_url(init_int8)),
+                       "psnr_vs_own_full_db": _psnr(_decode_jpeg_url(int8), _decode_jpeg_url(first[default]))}
+        prefixes = [s._model_prefix(default).split("|") for s in (svc, init_svc)]
+        out["prefix_fields_that_differ"] = [[a, b] for a, b in zip(*prefixes) if a != b]
+    finally:
+        for server in servers:
+            _stop(server)
+    out["ok"] = (all(all(v for k, v in m.items() if k != "psnr_vs_init_db") and m["psnr_vs_init_db"] < UNLIKE_PSNR_DB
+                     for m in out["models"].values())
+                 and out["int8"]["psnr_vs_init_int8_db"] < UNLIKE_PSNR_DB
+                 and out["prefix_fields_that_differ"] == [[WEIGHTS_DIR, ""]]
+                 and sorted(out["paged_out"]) == sorted(WEIGHTS_LAYERS)
+                 and all(counts[k] > 0 for k in ("pool_argmax", "unpool_argmax", "conv_q8")))
+    return out
+
+
+def _png_pixels(path: str):
+    import numpy as np
+    from PIL import Image
+
+    with Image.open(path) as img:
+        return np.asarray(img)
+
+
+def weights_cli(torch, counted, by_path: dict) -> dict:
+    """(c) ``visualize`` and ``visualize --sweep`` at block5_conv1 and
+    ``dream --steps 2 --octaves 2``, each with ``--weights vgg16.npz``, as
+    subprocesses (on the card, all started together with ``doctor``), and
+    the same three commands in this process on the same file: equal
+    pixels.  ``doctor`` prints every check ok, and its selftest (a child
+    process of its own) launches K1 and K2."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from deconv_api_tpu_torch import ops
+    from deconv_api_tpu_torch.__main__ import main
+
+    rng = np.random.default_rng(2)
+    base = rng.integers(0, 256, (12, 11, 3)).astype(np.float64)
+    img = np.clip(np.kron(base, np.ones((24, 24, 1))) + rng.normal(0, 12, (288, 264, 3)), 0, 255).astype(np.uint8)
+    image = os.path.join(WEIGHTS_DIR, "in.png")
+    with open(image, "wb") as f:
+        f.write(png_bytes(img))
+    model, layer = next(iter(WEIGHTS_LAYERS.items()))
+    common = ["--weights", os.path.join(WEIGHTS_DIR, f"{model}.npz"), "--model", model, "--platform", WEIGHTS_DEVICE]
+    commands = {
+        "visualize": ["visualize", "--image", image, "--layer", layer, *common],
+        "sweep": ["visualize", "--image", image, "--layer", layer, "--sweep", *common],
+        "dream": ["dream", "--image", image, "--steps", "2", "--octaves", "2", *common],
+    }
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p)}
+    procs, t0 = {}, time.perf_counter()
+    for name, args in [*commands.items(), ("doctor", ["doctor", "--platform", WEIGHTS_DEVICE])]:
+        argv = args if name == "doctor" else [*args, "--output", os.path.join(WEIGHTS_DIR, f"sub_{name}.png")]
+        procs[name] = subprocess.Popen([sys.executable, "-m", "deconv_api_tpu_torch", *argv], cwd=ROOT, env=env,
+                                       stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    results, wall = {}, {}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        wall[name] = time.perf_counter() - t0
+        lines = [json.loads(l) for l in stdout.splitlines() if l.startswith("{")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"weights CLI {name}: rc {proc.returncode}\n{stdout[-800:]}\n{stderr[-1500:]}")
+        results[name] = lines
+    out = {"subprocess_wall_s": wall, "doctor": results["doctor"]}
+
+    def in_process():
+        lines = {}
+        for name, args in commands.items():
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = main([*args, "--output", os.path.join(WEIGHTS_DIR, f"in_{name}.png")])
+            if rc != 0:
+                raise AssertionError(f"weights CLI {name} in this process: rc {rc}")
+            lines[name] = json.loads(buf.getvalue().strip().splitlines()[-1])
+        return lines
+
+    t0 = time.perf_counter()
+    inproc, _ = counted("weights CLI visualize, sweep and dream (in this process)", in_process)
+    out["in_process_wall_s"] = time.perf_counter() - t0
+    sub = {name: results[name][-1] for name in commands}
+    pairs = {"visualize": [(sub["visualize"]["output"], inproc["visualize"]["output"])],
+             "sweep": [(sub["sweep"]["outputs"][k], inproc["sweep"]["outputs"][k]) for k in inproc["sweep"]["outputs"]],
+             "dream": [(sub["dream"]["output"], inproc["dream"]["output"])]}
+    out["equal_pixels"], out["max_level_diff"] = {}, {}
+    for name, files in pairs.items():
+        diffs = [int(np.abs(_png_pixels(a).astype(np.int16) - _png_pixels(b)).max()) for a, b in files]
+        out["equal_pixels"][name] = max(diffs) == 0
+        out["max_level_diff"][name] = max(diffs)
+    out["lines_equal"] = {
+        "visualize": sub["visualize"]["filters"] == inproc["visualize"]["filters"],
+        "sweep": list(sub["sweep"]["outputs"]) == list(inproc["sweep"]["outputs"]),
+        "dream": sub["dream"]["loss"] == inproc["dream"]["loss"]}
+    out["sweep_layers"] = len(inproc["sweep"]["outputs"])
+    selftest = next(l for l in results["doctor"] if l["check"] == "selftest")
+    by_path["weights doctor selftest (its child process)"] = {k: selftest.get("launches", {}).get(k, 0)
+                                                              for k in ops.launch_counts()}
+    out["ok"] = (all(out["equal_pixels"].values()) and all(out["lines_equal"].values())
+                 and all(l["ok"] for l in results["doctor"])
+                 and [l["check"] for l in results["doctor"]] == ["backend", "rtt", "build", "selftest", "overall"]
+                 and selftest["launches"].get("pool_argmax", 0) > 0 and selftest["launches"].get("unpool_argmax", 0) > 0)
+    return out
+
+
+def weights_profile(torch, counted) -> dict:
+    """(d) A VGG16 server with ``--profile-dir`` (its startup budget set to
+    0 by ``DECONV_PROFILE_BATCHES``): ``POST /v1/profile batches=2``, then
+    two ``POST /`` one after the other.  Two Chrome traces appear, and in
+    each the kernel events name K1's and K2's kernels, inside the graph
+    replay."""
+    import glob
+
+    from deconv_api_tpu_torch.__main__ import build_server
+
+    model, layer = next(iter(WEIGHTS_LAYERS.items()))
+    prof = os.path.join(WEIGHTS_DIR, "profile")
+    prev = os.environ.get("DECONV_PROFILE_BATCHES")
+    os.environ["DECONV_PROFILE_BATCHES"] = "0"
+    try:
+        server = build_server(["serve", "--port", "0", "--device", WEIGHTS_DEVICE, "--model", model, "--profile-dir",
+                               prof, *ONE_BUCKET_FLAGS])
+    finally:
+        if prev is None:
+            os.environ.pop("DECONV_PROFILE_BATCHES")
+        else:
+            os.environ["DECONV_PROFILE_BATCHES"] = prev
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+    uris = image_uris(2)
+    try:
+        armed = _request(port, "/v1/profile", "POST", {"batches": str(PROFILE_BATCHES)})[:2]
+
+        def traced():
+            t0 = time.perf_counter()
+            statuses = [_request(port, "/", "POST", {"file": u, "layer": layer})[0] for u in uris]
+            return statuses, time.perf_counter() - t0
+
+        (statuses, traced_s), counts = counted("weights profile POST / (two traced batches)", traced)
+    finally:
+        _stop(server)
+    out = {"armed": armed, "statuses": statuses, "traced_requests_s": traced_s,
+           "launches": {k: counts[k] for k in ("pool_argmax", "unpool_argmax", "replays", "captures")}, "traces": []}
+    for path in sorted(glob.glob(os.path.join(prof, "trace-*.pt.trace.json"))):
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        # a kernel of a replay: its launch correlates with a cudaGraphLaunch
+        launches = {e.get("args", {}).get("correlation") for e in events
+                    if e.get("cat") == "cuda_runtime" and "GraphLaunch" in e.get("name", "")}
+        in_graph = [e for e in kernels if e.get("args", {}).get("correlation") in launches]
+        out["traces"].append({
+            "mb": os.path.getsize(path) / 1e6, "kernel_events": len(kernels), "kernel_events_in_a_graph": len(in_graph),
+            "k1": sum("pool_argmax_kernel" in e.get("name", "") for e in kernels),
+            "k2": sum("unpool_kernel" in e.get("name", "") for e in kernels),
+            "k1_in_a_graph": sum("pool_argmax_kernel" in e.get("name", "") for e in in_graph),
+            "k2_in_a_graph": sum("unpool_kernel" in e.get("name", "") for e in in_graph)})
+    out["ok"] = (armed == (200, {"armed": PROFILE_BATCHES, "profile_dir": prof}) and statuses == [200] * 2
+                 and len(out["traces"]) == PROFILE_BATCHES
+                 and all(t["k1"] and t["k2"] and t["k1_in_a_graph"] and t["k2_in_a_graph"] for t in out["traces"]))
+    return out
+
+
+def phase_weights(torch, label: str) -> dict:
+    """Pretrained weights on the card: (a) the golden fixture, (b) a
+    two-model server on weight files, paged out and in, at the int8 tier
+    too, (c) the CLI's ``visualize``, ``dream`` and ``doctor``, (d) a
+    ``torch.profiler`` trace armed by ``POST /v1/profile``.  Each part's
+    launches are counted in a window of its own."""
+    import shutil
+
+    from deconv_api_tpu_torch import ops
+
+    shutil.rmtree(WEIGHTS_DIR, ignore_errors=True)
+    os.makedirs(WEIGHTS_DIR)
+    by_path = {}
+
+    def counted(name, fn):
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {**ops.launch_counts(), **ops.graph_counts}
+        by_path[name] = {k: got[k] for k in ops.launch_counts()}
+        return result, got
+
+    out = {"phase": "weights", "card": label}
+    wall = {}
+    uri = image_uris(1)[0]
+    prev_det = torch.backends.cudnn.deterministic
+    for part, run in (("golden", lambda: weights_golden(torch, counted)),
+                      ("served", lambda: weights_served(torch, counted, uri)),
+                      ("cli", lambda: weights_cli(torch, counted, by_path)),
+                      ("profile", lambda: weights_profile(torch, counted))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic = part == "served"
+        t0 = time.perf_counter()
+        try:
+            out[part] = run()
+        finally:
+            torch.backends.cudnn.deterministic = prev_det
+        wall[part] = time.perf_counter() - t0
+    out["wall_s"] = wall
+    emit(out)
+    failed = [part for part in wall if not out[part]["ok"]]
+    if failed:
+        raise AssertionError(f"weights: {failed} failed (see the phase's line)")
+    return {"counts": by_path}
+
+
 def _request_raw(port: int, form: dict):
     """``_keep_alive_post`` on a connection of its own."""
     import http.client
@@ -4090,6 +4468,7 @@ def main() -> int:
     jobs = timed("jobs", phase_jobs, torch, env["nvidia_smi"])
     settings = timed("settings", phase_settings, torch, env["nvidia_smi"])
     fleet = timed("fleet", phase_fleet, torch, env["nvidia_smi"])
+    weights = timed("weights", phase_weights, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
@@ -4101,7 +4480,8 @@ def main() -> int:
                "quality POST / (full, bf16, int8, calibrated int8, the QoS turn)": quality["counts"],
                **jobs["counts"],
                **settings["counts"],
-               "fleet POST / (three serve processes behind the router)": fleet["counts"]}
+               "fleet POST / (three serve processes behind the router)": fleet["counts"],
+               **weights["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

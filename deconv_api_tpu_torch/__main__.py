@@ -37,15 +37,34 @@ the routers' peer cache-fill hints and serves its own cache to its peers.
 ``serving/fleet.py`` in front of such servers, with the JAX package's
 ``fleet-router`` flags (``--autoscale off`` only); it loads no torch.
 
+``--weights PATH`` serves pretrained weights (``weights_path``): a Keras
+``.h5`` (on a host with h5py) or ``.npz`` file for ``--model``, or a
+directory of ``<model>.h5`` / ``<model>.npz`` files, one per served model.
+``--profile-dir DIR`` traces the first ``DECONV_PROFILE_BATCHES`` (4)
+device batches after warmup with ``torch.profiler``, and ``POST
+/v1/profile`` (``batches=N``) arms N more.
+
 ``python -m deconv_api_tpu_torch calibrate --out DIR [--model vgg16]
-[--images DIR] [--n-images 16] [--device cuda|cpu]`` writes the model's
-int8 calibration artifact (``<DIR>/<model>.calib.json``) that a
-``--calibration-dir DIR`` server loads (the JAX package's
-``tools/calibrate.py``)."""
+[--images DIR] [--n-images 16] [--weights PATH] [--device cuda|cpu]``
+writes the model's int8 calibration artifact (``<DIR>/<model>.calib.json``)
+that a ``--calibration-dir DIR`` server loads (the JAX package's
+``tools/calibrate.py``), from the weights the server runs.
+
+The JAX package's offline commands, with its flags and output lines:
+``visualize --image PATH --layer L [--output deconv.png] [--mode all|max]
+[--top-k 8] [--sweep]`` saves the 2x2 grid of the layer's projections (with
+``--sweep`` one per layer from L down) and prints one JSON line; ``dream
+--image PATH [--layers A,B] [--output dream.png] [--steps 10] [--octaves
+10] [--lr 0.01]`` saves the dreamed image; both take ``--model``,
+``--weights`` and ``--platform cuda|cpu`` (default the card).  ``models``
+prints one JSON line per registry model.  ``doctor [--checks
+backend,rtt,build,selftest] [--platform cpu]`` runs the diagnostics of
+``utils/doctor.py``, each in a child process."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -63,8 +82,9 @@ import numpy as np
 from deconv_api_tpu_torch.config import ServerConfig
 from deconv_api_tpu_torch.engine import quant
 from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
-from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService
-from deconv_api_tpu_torch.serving.models import REGISTRY, build_bundle
+from deconv_api_tpu_torch.models.weights import load_model_weights, tree_map
+from deconv_api_tpu_torch.serving.app import DeconvHTTPServer, DeconvService, Program
+from deconv_api_tpu_torch.serving.models import REGISTRY, build_bundle, registry_info
 from deconv_api_tpu_torch.utils import slog
 
 
@@ -137,11 +157,24 @@ _FIELD_FLAGS = {
     "fleet_token": "shared fleet secret presented on registration announcements (x-fleet-token)",
     "fleet_advertise": "the host:port this server registers as (default <hostname>:<port>)",
     "fleet_capacity": "capacity this member advertises to the routers' ring (0 = auto: 1)",
+    "profile_dir": "torch.profiler trace directory: the first DECONV_PROFILE_BATCHES batches after warmup, "
+                   "and POST /v1/profile (empty disables)",
 }
 
 
+def _add_common(p: argparse.ArgumentParser, model_default=None) -> None:
+    """``--model``, ``--weights`` and ``--platform`` of the offline
+    commands (the JAX CLI's ``_add_common``)."""
+    p.add_argument("--model", default=model_default, help="registry model name (default vgg16)")
+    p.add_argument("--weights", default=None, metavar="PATH",
+                   help="Keras .h5 (needs h5py) or .npz weights, or a directory of <model>.h5/.npz")
+    p.add_argument("--platform", "--device", dest="device", default="cuda", choices=("cuda", "cpu"),
+                   help="where it runs (default the card)")
+
+
 def _parser() -> argparse.ArgumentParser:
-    """The two subcommands: ``serve`` and ``calibrate``.  Every flag of
+    """The subcommands: ``serve``, ``calibrate``, ``visualize``, ``dream``,
+    ``models`` and ``doctor``.  Every flag of
     ``serve`` that names a ``ServerConfig`` field defaults to None: a flag
     given wins over the field's ``DECONV_<FIELD>`` variable, which wins
     over the default (``ServerConfig.from_env``)."""
@@ -170,6 +203,9 @@ def _parser() -> argparse.ArgumentParser:
         "--hbm-budget-bytes", type=int, default=None,
         help="device byte budget for resident model weights (LRU page-out above it; 0 = unlimited)",
     )
+    s.add_argument("--weights", dest="weights_path", default=None, metavar="PATH",
+                   help="pretrained weights: a Keras .h5 (needs h5py) or .npz file for --model, or a "
+                   "directory of <model>.h5/.npz files (default: He-normal init)")
     s.add_argument(
         "--weight-dtype", default=None, metavar="f32|bf16|int8",
         help="stored weight precision on the device (quantized tiers trade "
@@ -226,12 +262,36 @@ def _parser() -> argparse.ArgumentParser:
                    help="directory of jpeg/png calibration captures (default: seeded synthetic noise)")
     c.add_argument("--n-images", type=int, default=16,
                    help="synthetic image count when --images is unset (default 16)")
+    c.add_argument("--weights", default="", metavar="PATH",
+                   help="optional .h5/.npz weights (ranges should describe the weights the server runs)")
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    v = sub.add_parser("visualize", help="deconv visualization of one image")
+    v.add_argument("--image", required=True)
+    v.add_argument("--layer", required=True)
+    v.add_argument("--output", default="deconv.png")
+    v.add_argument("--mode", default="all", choices=("all", "max"))
+    v.add_argument("--top-k", type=int, default=8, dest="top_k")
+    v.add_argument("--sweep", action="store_true", help="project every layer from --layer down (one output per layer)")
+    _add_common(v)
+    d = sub.add_parser("dream", help="multi-octave DeepDream on one image")
+    d.add_argument("--image", required=True)
+    d.add_argument("--layers", default="", help="comma-separated activations")
+    d.add_argument("--output", default="dream.png")
+    d.add_argument("--steps", type=int, default=10)
+    d.add_argument("--octaves", type=int, default=10)
+    d.add_argument("--lr", type=float, default=0.01)
+    _add_common(d)
+    sub.add_parser("models", help="list registered models")
+    doc = sub.add_parser("doctor", help="environment diagnostics (backend, RTT, kernel build, selftest)")
+    doc.add_argument("--checks", default="", help="comma list (default all): backend,rtt,build,selftest")
+    doc.add_argument("--platform", default="", choices=("", "cuda", "cpu"),
+                     help="run the probes on this device (default the card)")
     return ap
 
 
 # serve's other flags that name their field
 _FIELD_ARGS = ("model", "max_batch", "lowc_kpack", "serve_models", "pinned_models", "hbm_budget_bytes",
+               "weights_path",
                "weight_dtype", "tsdb", "alerts", "tenants", "qos_default_class", "quality_default",
                "quality_by_class", "calibration_dir", *_FIELD_FLAGS)
 
@@ -322,6 +382,8 @@ def calibrate(args) -> int:
         print(f"model {args.model!r} is a DAG backbone: quality=int8 runs as bf16 there and needs no "
               "calibration", file=sys.stderr)
         return 2
+    if args.weights:
+        bundle.params = load_model_weights(args.model, bundle.spec, args.weights, bundle.params)
     size = bundle.image_size
     if args.images:
         images = _calibration_images(args.images, size, bundle.preprocess)
@@ -340,6 +402,120 @@ def calibrate(args) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _offline_service(args):
+    """The service an offline command runs on: the default configuration
+    and ``DECONV_*`` variables, with ``--model`` and ``--weights``, on
+    ``--platform``, closed at the end.  It runs cuDNN's deterministic
+    algorithms, so that a command gives the same image on every run (a
+    float32 dream's input gradient otherwise differs between runs in its
+    last bits, and its PNG by a level here and there)."""
+    import torch
+
+    overrides = {}
+    if args.model:
+        overrides["model"] = args.model
+    if args.weights:
+        overrides["weights_path"] = args.weights
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        svc = DeconvService(cfg=ServerConfig.from_env(**overrides), device=args.device)
+        try:
+            yield svc
+        finally:
+            svc.close()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _read_image(path: str, size: int) -> np.ndarray:
+    """PIL's RGB decode resized to ``size`` x ``size``, as BGR (the
+    serving decode's channel order) float32."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB").resize((size, size))
+    return np.asarray(img)[:, :, ::-1].astype(np.float32)
+
+
+def visualize(args) -> int:
+    """``visualize``: the 2x2 grid of ``--layer``'s top projections of one
+    image, saved as ``--output`` (with ``--sweep`` one grid per layer that
+    fired, from the layer down, as ``<stem>_<layer><ext>``); one JSON
+    line."""
+    from PIL import Image
+
+    with _offline_service(args) as svc:
+        try:
+            svc.bundle.check_layer(args.layer)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 2
+        x = svc.bundle.preprocess(_read_image(args.image, svc.cfg.image_size))
+        result = svc.run_program(Program(args.layer, args.mode, args.top_k, "grid", args.sweep), x[None])
+    if args.sweep:
+        stem, ext = os.path.splitext(args.output)
+        outputs = {}
+        # in name order, as the JAX CLI lists them (its result tree comes
+        # back with sorted keys)
+        for name, entry in sorted(result.items()):
+            if int(entry["valid"][0].sum()) == 0:
+                continue
+            path = f"{stem}_{name}{ext or '.png'}"
+            Image.fromarray(entry["grid"][0][:, :, ::-1]).save(path)
+            outputs[name] = path
+        if not outputs:
+            print("no filters fired for any layer", file=sys.stderr)
+            return 1
+        print(json.dumps({"outputs": outputs, "layer": args.layer}))
+        return 0
+    entry = result[args.layer]
+    n_valid = int(entry["valid"][0].sum())
+    if n_valid == 0:
+        print("no filters fired for this layer/image", file=sys.stderr)
+        return 1
+    Image.fromarray(entry["grid"][0][:, :, ::-1]).save(args.output)
+    # the 2x2 grid shows at most 4 tiles: exactly those are reported
+    print(json.dumps({"output": args.output, "layer": args.layer,
+                      "filters": [int(i) for i in entry["indices"][0][: min(n_valid, 4)]]}))
+    return 0
+
+
+def dream(args) -> int:
+    """``dream``: one image dreamed through ``--layers`` (default the
+    model's dream layers) by the engine, saved as ``--output``; one JSON
+    line with the final loss."""
+    from PIL import Image
+
+    from deconv_api_tpu_torch.engine.deepdream import deepdream
+
+    with _offline_service(args) as svc:
+        bundle = svc.bundle
+        layers = tuple(s for s in args.layers.split(",") if s) if args.layers else bundle.dream_layers
+        x = bundle.preprocess(_read_image(args.image, svc.cfg.image_size))
+        # the f32 tree on the bundle's device (managed, it lives on the host)
+        params = tree_map(lambda t: t.to(bundle.device), bundle.params)
+        out, loss = deepdream(bundle.dream_forward(layers), params, x, layers=layers,
+                              steps_per_octave=args.steps, num_octaves=args.octaves, lr=args.lr,
+                              min_size=bundle.min_dream_size, device=bundle.device)
+        img = bundle.unpreprocess(out.cpu().numpy())
+    Image.fromarray(img[:, :, ::-1]).save(args.output)
+    print(json.dumps({"output": args.output, "layers": list(layers), "loss": float(loss)}))
+    return 0
+
+
+def doctor(args) -> int:
+    """``doctor``: the diagnostics of ``utils/doctor.py``."""
+    from deconv_api_tpu_torch.utils.doctor import CHECKS, run_doctor
+
+    names = [c for c in args.checks.split(",") if c] if args.checks else None
+    unknown = set(names or ()) - set(CHECKS)
+    if unknown:
+        print(f"unknown checks: {sorted(unknown)}; have {sorted(CHECKS)}", file=sys.stderr)
+        return 2
+    return run_doctor(names, device=args.platform or None)
+
+
 class _Stop(BaseException):
     """SIGTERM or SIGINT: leaves ``serve_forever`` for the drain."""
 
@@ -351,8 +527,13 @@ def main(argv=None) -> int:
 
         return fleet_main(argv[1:])
     args = _parser().parse_args(argv)
-    if args.cmd == "calibrate":
-        return calibrate(args)
+    if args.cmd == "models":
+        for info in registry_info():
+            print(json.dumps(info))
+        return 0
+    commands = {"calibrate": calibrate, "visualize": visualize, "dream": dream, "doctor": doctor}
+    if args.cmd in commands:
+        return commands[args.cmd](args)
     slog.configure()  # the server entry point owns the logging setup (embedders don't)
     server = build_server(argv)
     service = server.service

@@ -7,12 +7,15 @@ the JAX package's messages.
 Left out, as they have no counterpart here: ``host`` and ``port`` (the
 CLI's flags), ``donate_inputs`` (XLA buffer donation),
 ``compilation_cache_dir`` (a CUDA graph is captured per process),
-``platform`` and ``profile_dir`` (a jax backend and trace directory), the
-mesh, lanes and pod fields (one card, one lane), the AOT and autoscale
-fields (not ported yet), and ``weights_path`` (the Keras h5 loaders are
-not ported yet).  The fleet fields are here: a backend's peer cache fill
-and its registration with the routers of ``serving/fleet.py``; with no
-pod, ``fleet_capacity`` 0 advertises 1.
+``platform`` (a jax backend; the port's entry points take a device), the
+mesh, lanes and pod fields (one card, one lane), and the AOT and
+autoscale fields (not ported yet).  The fleet fields are here: a backend's
+peer cache fill and its registration with the routers of
+``serving/fleet.py``; with no pod, ``fleet_capacity`` 0 advertises 1.
+``weights_path`` loads Keras ``.h5`` and ``.npz`` weights
+(``models/weights.py``; an orbax checkpoint directory is not read yet), and
+``profile_dir`` is where ``torch.profiler`` traces go
+(``utils/tracing.py``).
 
 One default differs from the JAX package's: ``warmup_dream`` is on, as the
 H100's boot and first-dream times decide (``PERF.md``)."""
@@ -329,6 +332,13 @@ class ServerConfig:
     # Capacity this member advertises on registration: the ring grants it
     # vnodes in proportion.  0 = auto, which is 1 here (no pod).
     fleet_capacity: int = 0
+    # Pretrained weights: a Keras .h5 (needs h5py) or .npz file, which
+    # belongs to the default model, or a directory of <model>.h5 /
+    # <model>.npz files, one per served model ('' = He-normal init).
+    weights_path: str = ""
+    # torch.profiler trace output: the first DECONV_PROFILE_BATCHES device
+    # batches after warmup, and each POST /v1/profile re-arm ('' = disabled)
+    profile_dir: str = ""
 
     @classmethod
     def from_env(cls, **overrides: Any) -> "ServerConfig":

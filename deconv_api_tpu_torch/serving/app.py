@@ -52,7 +52,15 @@ and ``DECONV_*`` variables): ``visualize_mode``, ``stitch_k`` and
 ``top_k`` are the routes' defaults, ``bug_compat``, ``backward_dtype``,
 ``dtype`` and ``fused_unpool`` pick the programs, ``strict_compat`` turns
 fewer than ``stitch_k`` fired filters into 422 ``no_active_filters``, and
-``image_size`` overrides every model's input size.
+``image_size`` overrides every model's input size.  ``weights_path``
+loads pretrained weights (``_load_weights``: a file for the default
+model, a directory of ``<model>.h5``/``.npz`` for every served model)
+before any archive, stored tier or program is made from them.
+
+``POST /v1/profile`` (``batches``, 1..64, default 4) traces the next
+device batches with ``torch.profiler`` into ``profile_dir`` (400 while it
+is unset); a server with ``profile_dir`` traces its first
+``DECONV_PROFILE_BATCHES`` (default 4) batches after warmup.
 
 Control routes: ``GET /healthz`` (liveness), ``GET /readyz`` (readiness,
 with each check named, and the residency block when several models are
@@ -110,6 +118,7 @@ import functools
 import json
 import logging
 import math
+import os
 import re
 import socket
 import threading
@@ -127,6 +136,7 @@ from deconv_api_tpu_torch.engine.deconv import resolve_kpack_chan
 from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_programs, run_dream_rung
 from deconv_api_tpu_torch.engine import quant as quant_mod
 from deconv_api_tpu_torch.engine.quant import QUALITY_TIERS
+from deconv_api_tpu_torch.models.weights import load_model_weights
 from deconv_api_tpu_torch.ops.cuda_deconv import fused_engaged, resolve_fused_unpool
 from deconv_api_tpu_torch.serving import codec, durable
 from deconv_api_tpu_torch.serving import faults as faults_mod
@@ -145,6 +155,7 @@ from deconv_api_tpu_torch.serving.qos import QosPolicy
 from deconv_api_tpu_torch.serving.trace import FlightRecorder, RequestTrace
 from deconv_api_tpu_torch.serving.weight_manager import WEIGHT_DTYPES, WeightManager
 from deconv_api_tpu_torch.utils import slog
+from deconv_api_tpu_torch.utils.tracing import prime_profiler, profile_trace
 
 log = logging.getLogger(__name__)
 _slog_app = slog.get_logger("deconv.app")
@@ -320,6 +331,8 @@ class DeconvService:
                 self.faults.arm_string(cfg.faults)
             faults_mod.install(self.faults)
         self.bundle = bundle if bundle is not None else self._registry[cfg.model]()
+        # the default model's weights load before the manager archives them
+        self._load_weights(cfg.model, self.bundle)
         # the operator's image size applies to every model; 0 means each
         # model's own, and reads back as the default model's
         self._image_size_override = max(0, cfg.image_size)
@@ -328,7 +341,7 @@ class DeconvService:
         self.weights = WeightManager(
             {name: self._registry[name] for name in served}, cfg.model, default_bundle=self.bundle,
             pinned=tuple(pinned), budget_bytes=cfg.hbm_budget_bytes, weight_dtype=cfg.weight_dtype,
-            metrics=self.metrics,
+            metrics=self.metrics, weights_loader=self._load_weights,
         )
         if cfg.calibration_dir:
             # the artifacts are read here (written by engine/quant.py's
@@ -398,6 +411,14 @@ class DeconvService:
             if cfg.incidents_dir:
                 self.incidents = IncidentStore(cfg.incidents_dir, retention_s=cfg.incidents_retention_s,
                                                metrics=self.metrics)
+        # torch.profiler traces (utils/tracing.py): with profile_dir set,
+        # the first DECONV_PROFILE_BATCHES device batches after warmup, and
+        # as many as each POST /v1/profile arms; one trace at a time across
+        # the three dispatchers (the lock is taken without blocking)
+        self._profile_remaining = int(os.environ.get("DECONV_PROFILE_BATCHES", "4")) if cfg.profile_dir else 0
+        self._profile_lock = threading.Lock()
+        if cfg.profile_dir:
+            prime_profiler()
         # a fetch gives up on a batch that outlives the longest timeout
         self._fetch_wait_s = max(cfg.request_timeout_s, cfg.dream_timeout_s, cfg.sweep_timeout_s)
         self.dispatcher = self._dispatcher(self._dispatch_deconv, cfg.max_batch, cfg.batch_window_ms,
@@ -428,12 +449,80 @@ class DeconvService:
 
     def _dispatcher(self, dispatch, max_batch: int, window_ms: float, timeout_s: float,
                     metrics: Metrics) -> BatchingDispatcher:
+        dispatch = self._profiled(dispatch)
         return BatchingDispatcher(
             lambda key, images: dispatch(key, images)(), max_batch=max_batch, window_ms=window_ms,
             request_timeout_s=timeout_s, metrics=metrics, shed_factor=self.cfg.shed_factor,
             dispatch_runner=dispatch, pipeline_depth=self.cfg.pipeline_depth, lane_pool=self.lane_pool,
             qos=self.qos,
         )
+
+    def _profiled(self, dispatch):
+        """The dispatch runner ``dispatch`` as the JAX package runs it while
+        a profile budget is armed: the batch runs to its end inside the
+        trace scope (``_profile_scope``) and its thunk returns the result,
+        so the trace covers the replay and the copies, not the enqueue
+        alone."""
+
+        def run(key, images):
+            if self._profile_remaining <= 0:
+                return dispatch(key, images)
+            with self._profile_scope():
+                thunk = dispatch(key, images)
+                result = thunk()
+
+            def done():
+                return result
+
+            done.page_in_s = getattr(thunk, "page_in_s", None)
+            done.page_model = getattr(thunk, "page_model", None)
+            return done
+
+        return run
+
+    @contextlib.contextmanager
+    def _profile_scope(self):
+        """Trace this dispatch while the budget lasts (no-op without
+        ``profile_dir``).  Warmup dispatches are excluded, and a dispatch
+        that finds another dispatcher tracing runs untraced."""
+        if self._profile_remaining <= 0 or not self.ready or not self._profile_lock.acquire(blocking=False):
+            yield
+            return
+        try:
+            if self._profile_remaining <= 0:
+                yield
+                return
+            self._profile_remaining -= 1
+            with profile_trace(self.cfg.profile_dir):
+                yield
+        finally:
+            self._profile_lock.release()
+
+    def _load_weights(self, name: str, bundle: ModelBundle) -> None:
+        """``weights_path`` into one model's bundle (the JAX package's
+        ``_load_weights``).  A FILE belongs to the default model only.  A
+        DIRECTORY loads ``<dir>/<model>.h5`` (or ``.npz``) for each served
+        model; a served model other than the default with no file there
+        serves its init and says so once; the default with no file reads
+        the directory itself, an orbax checkpoint, which the port refuses
+        at boot (``models/weights.py``)."""
+        wp = self.cfg.weights_path
+        if not wp:
+            return
+        path = wp
+        if os.path.isdir(wp):
+            for cand in (os.path.join(wp, f"{name}.h5"), os.path.join(wp, f"{name}.npz")):
+                if os.path.exists(cand):
+                    path = cand
+                    break
+            else:
+                if name != self.cfg.model:
+                    slog.event(_slog_app, "weights_missing", level=logging.WARNING, model=name, dir=True,
+                               note="serving init weights; add <model>.h5 or <model>.npz to the weights dir")
+                    return
+        elif name != self.cfg.model:
+            return  # a file is one model's weights: the default's
+        bundle.params = load_model_weights(name, bundle.spec, path, bundle.params)
 
     def _parse_model_list(self, raw: str, default: str, what: str) -> list[str]:
         """serve_models / pinned_models grammar: '' = just the default
@@ -1640,6 +1729,7 @@ class DeconvService:
         r("GET", "/v1/config")(self._config)
         r("GET", "/v1/models")(self._models)
         r("GET", "/v1/debug/requests")(self._debug_requests)
+        r("POST", "/v1/profile")(self._profile)
         if self.faults is not None:
             # routed only with fault injection on: a default server 404s it
             r("POST", "/v1/debug/faults")(self._debug_faults)
@@ -1799,9 +1889,10 @@ class DeconvService:
         setting that decides its response bytes, in the JAX package's
         order (model, image size, visualize mode, stitch k, top k,
         bug_compat, strict_compat, dtype, backward dtype, lowc_kpack,
-        fused_unpool, weight dtype, the weights file: none, and the JAX
-        package's bf16 low-channel forward knob, which the port does not
-        have: "0"), then the device type: the card's bytes and the CPU's
+        fused_unpool, weight dtype, ``weights_path``, so a restart on other
+        weights misses in the L2, and the JAX package's bf16 low-channel
+        forward knob, which the port does not have: "0"), then the device
+        type: the card's bytes and the CPU's
         differ in their last bits, and one ``l2_dir`` may outlive a device.
         Builds the model's bundle at its first use (called off the event
         loop)."""
@@ -1810,8 +1901,8 @@ class DeconvService:
             bundle, c = self.weights.bundle(model), self.cfg
             p = "|".join(str(x) for x in (
                 model, self._model_image_size(bundle), c.visualize_mode, c.stitch_k, c.top_k, c.bug_compat,
-                c.strict_compat, c.dtype, c.backward_dtype, c.lowc_kpack, c.fused_unpool, c.weight_dtype, "", "0",
-                bundle.device.type,
+                c.strict_compat, c.dtype, c.backward_dtype, c.lowc_kpack, c.fused_unpool, c.weight_dtype,
+                c.weights_path, "0", bundle.device.type,
             ))
             self._prefix_cache[model] = p
         return p
@@ -2261,6 +2352,25 @@ class DeconvService:
                               "corrupt_total": self.incidents.corrupt_total,
                               "swept_total": self.incidents.swept_total})
 
+    async def _profile(self, req: Request) -> Response:
+        """``POST /v1/profile`` ``batches=N``: re-arm the profile budget so
+        the next N device batches are traced into ``profile_dir``."""
+        if not self.cfg.profile_dir:
+            return _error_response(errors.BadRequest("profiling disabled: set DECONV_PROFILE_DIR"), req.id)
+        try:
+            form = _parse_form(req) if req.body else {}
+            batches = int(form.get("batches", 4))
+        except errors.DeconvError as e:
+            return _error_response(e, req.id)
+        except ValueError:
+            return _error_response(errors.BadRequest("batches must be an int"), req.id)
+        if not 1 <= batches <= 64:
+            return _error_response(errors.BadRequest("batches must be in [1, 64]"), req.id)
+        # under the lock: a dispatch's decrement must not stomp the re-arm
+        with self._profile_lock:
+            self._profile_remaining = batches
+        return Response.json({"armed": batches, "profile_dir": self.cfg.profile_dir})
+
     async def _debug_faults(self, req: Request) -> Response:
         """``POST /v1/debug/faults`` (routed only with fault injection
         on): ``arm`` = "site=spec,..." (the ``--fault`` grammar),
@@ -2291,7 +2401,8 @@ class DeconvService:
         pools)."""
         cfg = dataclasses.asdict(self.cfg)
         # paths: reported as configured or not
-        cfg["calibration_dir"], cfg["jobs_dir"] = bool(cfg["calibration_dir"]), bool(cfg["jobs_dir"])
+        for key in ("weights_path", "profile_dir", "jobs_dir", "calibration_dir"):
+            cfg[key] = bool(cfg[key])
         if cfg["fleet_token"]:
             cfg["fleet_token"] = "<set>"  # the shared secret stays unleaked
         cfg["model_active"] = self.weights.default

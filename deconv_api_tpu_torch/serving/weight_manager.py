@@ -153,7 +153,10 @@ class WeightManager:
     boot model, always served and always pinned.  A managed bundle carries
     ``managed``, ``weight_dtype`` and ``stored`` (its resident device
     tree, None while paged out) and ``page_out()``; its ``device`` is
-    where it pages in."""
+    where it pages in.  ``weights_loader(name, bundle)`` is the service's
+    checkpoint hook: it runs once at each bundle's build, before the host
+    archive and the stored tiers are made from its params.  The default
+    bundle comes in built and already loaded."""
 
     def __init__(
         self,
@@ -165,6 +168,7 @@ class WeightManager:
         budget_bytes: int = 0,
         weight_dtype: str = "f32",
         metrics=None,
+        weights_loader: Callable[[str, Any], None] | None = None,
     ):
         if weight_dtype not in WEIGHT_DTYPES:
             raise ValueError(f"weight_dtype must be one of {WEIGHT_DTYPES}, got {weight_dtype!r}")
@@ -183,6 +187,7 @@ class WeightManager:
         self.weight_dtype = weight_dtype
         self.managed = len(self.served) > 1 or weight_dtype != "f32" or self.budget_bytes > 0
         self._metrics = metrics
+        self._weights_loader = weights_loader
         self._lock = threading.Lock()
         self._build_lock = threading.Lock()
         self._bundles: dict[str, Any] = {}
@@ -253,6 +258,10 @@ class WeightManager:
             t0 = time.perf_counter()
             with _exclusive():
                 b = self.builders[name]()
+                if self._weights_loader is not None:
+                    # before _prepare: the archive, the stored tiers and
+                    # every later page-in hold the loaded weights
+                    self._weights_loader(name, b)
                 self._prepare(name, b)
             with self._lock:
                 self._bundles[name] = b

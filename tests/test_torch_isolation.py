@@ -1,7 +1,9 @@
 """The port stands alone: importing it (and everything chip_smoke.py imports)
-loads neither jax nor the JAX package, no module of it imports them, its
-kernel modules import on a machine without nvcc or triton, and without a
-card every entry point raises unless it is given ``device="cpu"``."""
+loads neither jax nor the JAX package, nor h5py (read only to load an h5
+file), no module of it imports them, its kernel modules import on a
+machine without nvcc or triton, and without a card every entry point
+raises unless it is given ``device="cpu"`` (the doctor's ``backend``
+check fails)."""
 
 import ast
 import os
@@ -48,10 +50,12 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "from deconv_api_tpu_torch.utils import slog\n"
         "from deconv_api_tpu_torch.serving import batcher, codec_pool, faults, http, trace\n"
         "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb, qos, jobs\n"
+        "from deconv_api_tpu_torch.models import dag_weights\n"
+        "from deconv_api_tpu_torch.utils import doctor, tracing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deconv_api_tpu' or m.startswith('deconv_api_tpu.'))\n"
         "assert not bad, bad\n"
-        "assert 'triton' not in sys.modules\n"
+        "assert 'triton' not in sys.modules and 'h5py' not in sys.modules\n"
         "try:\n"
         "    _build.nvcc()\n"
         "except RuntimeError as e:\n"
@@ -63,7 +67,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
 
 PIPELINE_MODULES = ("utils/slog.py", "serving/faults.py", "serving/trace.py", "serving/codec_pool.py",
                     "serving/http.py", "serving/batcher.py", "serving/durable.py", "serving/cache.py",
-                    "serving/tsdb.py", "serving/alerts.py", "serving/qos.py", "engine/quant.py", "ops/cuda_q8.py")
+                    "serving/tsdb.py", "serving/alerts.py", "serving/qos.py", "engine/quant.py", "ops/cuda_q8.py",
+                    "models/dag_weights.py", "utils/doctor.py", "utils/tracing.py")
 
 
 def test_the_request_pipeline_modules_are_the_ports_own():
@@ -87,6 +92,15 @@ def test_no_module_imports_jax_or_the_jax_package(path):
         else:
             continue
         assert not any(banned(n) for n in names), f"{path.name}:{node.lineno} imports {names}"
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_h5py_is_imported_only_inside_a_function(path):
+    tree = ast.parse(path.read_text())
+    for node in tree.body:  # the module's own statements, not function bodies
+        for sub in ast.walk(node) if not isinstance(node, (ast.FunctionDef, ast.ClassDef)) else ():
+            if isinstance(sub, ast.Import):
+                assert "h5py" not in [a.name for a in sub.names], f"{path.name}:{sub.lineno}"
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
@@ -116,6 +130,9 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         lambda: DeconvService(cfg=ServerConfig(model="vgg_tiny", serve_models="all", weight_dtype="int8")),
         lambda: DeconvService(cfg=ServerConfig(model="vgg_tiny", qos=True, quality_default="int8")),
         lambda: get_visualizer(VGG_TINY_SPEC, "fc1", quant="dynamic"),
+        lambda: main(["visualize", "--image", "in.png", "--layer", "block3_conv1", "--model", "vgg_tiny"]),
+        lambda: main(["dream", "--image", "in.png", "--model", "vgg_tiny"]),
+        lambda: main(["calibrate", "--model", "vgg_tiny", "--out", "calib"]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -124,3 +141,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert DeconvService(cfg=ServerConfig(model="vgg_tiny"), device="cpu").bundle.device.type == "cpu"
     get_visualizer(VGG_TINY_SPEC, "fc1", device="cpu")
     autodeconv_visualizer(resnet50_forward, "conv1_relu", device="cpu")
+
+
+def test_the_doctor_without_a_card_fails_its_backend_check(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from deconv_api_tpu_torch.utils.doctor import run_doctor
+
+    assert run_doctor(["backend"]) == 1
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert '"ok": false' in lines[0] and "CUDA is not available" in lines[0]
+    assert lines[-1] == '{"check": "overall", "ok": false}'
