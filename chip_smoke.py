@@ -17,7 +17,8 @@ Phases, each printing JSON lines:
    beside the plain version's, a library call's and the bound; for K1 and
    K2 also the time of one call with the L2 evicted before it, and each
    site's time, launch plan and share of its bound (for K3 its rate, the
-   port's unfused pair's time and the fp32 kernel's time); K5, the int8
+   port's unfused pair's time and the fp32 kernel's time, bound, and its
+   library: K2 and ``F.conv2d`` in fp32 with TF32 off); K5, the int8
    layer step, bit for bit at every conv of the int8 forward and at fc1:
    its input quantizer, its K-major weight quantizer, its contraction as
    the raw int32 accumulator and as the fused step (bias fold, relu,
@@ -130,7 +131,18 @@ Phases, each printing JSON lines:
    ``doctor`` all ok with K1 and K2 launched by its selftest; (d) a
    ``--profile-dir`` server armed by ``POST /v1/profile batches=2``
    writes two ``torch.profiler`` traces naming K1's and K2's kernels in
-   the graph replays (``phase_weights``).
+   the graph replays (``phase_weights``);
+18. warm_boot: three VGG16 ``serve`` processes, each from a fresh copy of
+   the package (no ``build/``), on one ``--aot-dir`` store: cold (4
+   misses, the four nvcc builds stored), warm (4 hits, no nvcc process),
+   and with one entry damaged (1 corrupt, 1 miss, 1 rebuild); their boot
+   splits and one ``POST /`` each, byte-equal (``phase_warm_boot``);
+19. autoscale: ``fleet-router --autoscale enforce`` (min 1, max 2) before
+   one such backend on that store: a slowed job queue launches a second,
+   which boots warm (``autoscaler_boot_to_warm_seconds``); a running job
+   on it holds its reap after the drain announcement until the job is
+   done; every answer through the router 200, the fleet back to 1
+   (``phase_autoscale``).
 Phases 4-11 and 13-15 measure device work: their servers run with
 ``cache_bytes=0`` and no singleflight (``CACHE_OFF``), and each prints
 ``server_cache``.
@@ -168,6 +180,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 B, K = 8, 4  # batch and top-k of the main path (POST / serves the top 4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores
+FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
 INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores
 # (H, W, Cin, Cout) of each 3x3 SAME conv of the VGG16 forward up to
@@ -457,11 +470,14 @@ def phase_kernels(torch) -> dict:
     # K3: every pool -> ReLU -> conv step of the backward, bf16; fp32 checked
     # and timed too (fp32 runs the CUDA-core kernel, bf16 the tensor cores)
     err, ms, plain, lib, unfused, flops, nbytes, fp32_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0, 0, 0.0
+    fp32_lib, fp32_bytes, dense = 0.0, 0, 0
     checks, per_site = [], []
     for ho, wo, cout, cin in FUSED_SITES:
         idx = torch.randint(0, 4, (B, ho, wo, cout), generator=gen, device=dev, dtype=torch.int8)
         y32 = torch.randn((B * K, ho, wo, cout), generator=gen, device=dev)
         w32 = torch.randn((3, 3, cin, cout), generator=gen, device=dev) * (2.0 / (9 * cout)) ** 0.5
+        # the work these inputs need (bf16 rounding keeps every sign)
+        site_flops = k3_flops(torch, y32, idx, cin)
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)):
             y, w = y32.to(dtype), w32.to(dtype)
             got = cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True).float()
@@ -474,6 +490,15 @@ def phase_kernels(torch) -> dict:
             if dtype == torch.bfloat16:
                 err = max(err, e)
         site_fp32_ms = time_ms(lambda: cuda_deconv.fused_unpool_conv(y32, idx, w32, (2, 2), True), reps=5)
+        # fp32's library: K2 and F.conv2d in fp32, TF32 off (the fp32 path's
+        # numbers, not the tensor cores' at a lower precision)
+        tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            fp32_lib += time_ms(lambda: conv.conv2d_input_backward(
+                cuda_pool.unpool_argmax(y32, idx, (2, 2), None, True), w32), reps=5)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
         y, w = y32.to(torch.bfloat16), w32.to(torch.bfloat16)
         site_ms = time_ms(lambda: cuda_deconv.fused_unpool_conv(y, idx, w, (2, 2), True))
         # the library: ReLU, F.max_unpool2d and F.conv2d in NCHW; the port's
@@ -487,11 +512,13 @@ def phase_kernels(torch) -> dict:
         m = B * K * ho * 2 * wo * 2
         plan = cuda_deconv.tile_plan(B * K, 2 * ho, 2 * wo, 1, cin, cout, 3, 3)
         per_site.append(k3_site([B * K, ho, wo, cout, cin], plan, site_ms, site_lib, site_unfused,
-                                2 * m * cin * 9 * cout, y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2,
-                                site_fp32_ms))
+                                site_flops, y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2,
+                                site_fp32_ms, dense_flops=2 * m * cin * 9 * cout))
         ms, lib, unfused, fp32_ms = ms + site_ms, lib + site_lib, unfused + site_unfused, fp32_ms + site_fp32_ms
         flops += per_site[-1]["flops"]
+        dense += per_site[-1]["dense_flops"]
         nbytes += per_site[-1]["bytes"]
+        fp32_bytes += y32.numel() * 4 + idx.numel() + w32.numel() * 4 + m * cin * 4
     emit({"phase": "kernels", "fused_unpool_conv_checks": checks, "fused_unpool_conv_sites": per_site})
     bound_s = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S)
     rows["fused_unpool_conv"] = {
@@ -502,7 +529,12 @@ def phase_kernels(torch) -> dict:
         "bound_by": "operations" if flops / BF16_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes",
         "library_ms": lib, "library": "F.relu + F.max_unpool2d + F.conv2d (NCHW)",
         "unfused_ms": unfused,
-        "tflops": flops / ms / 1e9, "bound_share": bound_s * 1e3 / ms, "fp32_ms": fp32_ms,
+        "flops": flops, "dense_flops": dense, "tflops": flops / ms / 1e9, "dense_tflops": dense / ms / 1e9,
+        "bound_share": bound_s * 1e3 / ms, "fp32_ms": fp32_ms,
+        "fp32_bound_ms": max(flops / FP32_FLOPS, fp32_bytes / HBM_BYTES_PER_S) * 1e3,
+        "fp32_bound_by": "operations" if flops / FP32_FLOPS >= fp32_bytes / HBM_BYTES_PER_S else "bytes",
+        "fp32_bound_share": max(flops / FP32_FLOPS, fp32_bytes / HBM_BYTES_PER_S) * 1e3 / fp32_ms,
+        "fp32_library_ms": fp32_lib, "fp32_library": "K2 + F.conv2d fp32 (TF32 off)",
     }
     rows.update(grouped_kernels(torch, gen))
     rows.update(q8_kernels(torch, gen))
@@ -578,14 +610,16 @@ def grouped_kernels(torch, gen) -> dict:
                                                        groups=KG), reps=10),
                 "unfused_ms": time_ms(lambda: conv.conv2d_input_backward_grouped(
                     cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, KG), w, KG), reps=10),
-                "flops": 2 * m * cin * 9 * cout,
+                "flops": k3_flops(torch, y, idx, cin, KG),
+                "dense_flops": 2 * m * cin * 9 * cout,
                 "bytes": y.numel() * 2 + idx.numel() + w.numel() * 2 + m * cin * 2,
                 "max_abs_err": err,
             },
         }
         k3 = sites[site]["fused_unpool_conv_grouped"]
         k3.update(k3_site(site, cuda_deconv.tile_plan(B, 2 * ho, 2 * wo, KG, cin, cout, 3, 3),
-                          k3["ms"], k3["library_ms"], k3["unfused_ms"], k3["flops"], k3["bytes"]))
+                          k3["ms"], k3["library_ms"], k3["unfused_ms"], k3["flops"], k3["bytes"],
+                          dense_flops=k3["dense_flops"]))
         del ind, yn
     emit({"phase": "kernels", "grouped_sites": sites, "fused_unpool_conv_grouped_checks": checks})
     main = sites["pool1_auto"]
@@ -603,7 +637,8 @@ def grouped_kernels(torch, gen) -> dict:
         "library_ms": k3["library_ms"],
         "library": "F.relu + F.max_unpool2d + F.conv2d(groups=8) (NCHW)",
         "unfused_ms": k3["unfused_ms"],
-        "tflops": k3["tflops"], "bound_share": k3["bound_share"],
+        "flops": k3["flops"], "dense_flops": k3["dense_flops"], "tflops": k3["tflops"],
+        "dense_tflops": k3["dense_tflops"], "bound_share": k3["bound_share"],
     }
     return rows
 
@@ -796,14 +831,31 @@ def q8_kernels(torch, gen) -> dict:
     }
 
 
-def k3_site(site, plan, ms, lib_ms, unfused_ms, flops, nbytes, fp32_ms=None) -> dict:
-    """One K3 site's bf16 time beside its achieved rate, its share of the
-    bound, the tensor-core kernel's launch plan, the library's time and
-    the port's unfused pair's."""
+def k3_flops(torch, y, idx, cin: int, groups: int = 1) -> int:
+    """Twice the multiply-adds that K3's function needs on these inputs,
+    the count its bound takes: each positive value of ``y`` (the ReLU
+    zeroes the rest), unpooled to its switch's slot (one slot of each 2x2
+    window), reaches the outputs of the 3x3 around that slot that lie
+    inside the map, each for ``cin`` channels.  The dense count over the
+    unpooled map, ``2 * rows * 4 * ho * wo * cout * 9 * cin``, is about 8x
+    this on random inputs."""
+    n, ho, wo, _ = y.shape
+    s = idx.repeat_interleave(n // idx.shape[0], dim=0).repeat(1, 1, 1, groups).long()
+    r = 2 * torch.arange(ho, device=y.device)[None, :, None, None] + s // 2
+    c = 2 * torch.arange(wo, device=y.device)[None, None, :, None] + s % 2
+    taps = (3 - (r == 0).long() - (r == 2 * ho - 1).long()) * (3 - (c == 0).long() - (c == 2 * wo - 1).long())
+    return 2 * cin * int((taps * (y > 0)).sum())
+
+
+def k3_site(site, plan, ms, lib_ms, unfused_ms, flops, nbytes, fp32_ms=None, dense_flops=None) -> dict:
+    """One K3 site's bf16 time beside its achieved rate on the work it
+    needs (``flops``, from ``k3_flops``) and on the dense tiles it runs
+    (``dense_flops``), its share of the bound, the tensor-core kernel's
+    launch plan, the library's time and the port's unfused pair's."""
     bound_ms = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
     out = {"site": site, "plan": plan.__dict__, "ms": ms, "library_ms": lib_ms, "unfused_ms": unfused_ms,
-           "flops": flops, "bytes": nbytes, "tflops": flops / ms / 1e9, "bound_ms": bound_ms,
-           "bound_share": bound_ms / ms}
+           "flops": flops, "dense_flops": dense_flops, "bytes": nbytes, "tflops": flops / ms / 1e9,
+           "dense_tflops": dense_flops / ms / 1e9, "bound_ms": bound_ms, "bound_share": bound_ms / ms}
     if fp32_ms is not None:
         out["fp32_ms"] = fp32_ms
     return out
@@ -4413,6 +4465,453 @@ def phase_weights(torch, label: str) -> dict:
     return {"counts": by_path}
 
 
+# --- phases 18 and 19 ------------------------------------------------------------
+
+WARM_DIR = os.path.join(ROOT, "build", "warm_boot")
+WARM_STORE = os.path.join(WARM_DIR, "aot")  # the store both phases boot against
+WARM_MODEL, WARM_DEVICE, WARM_LAYER = "vgg16", "cuda", "block5_conv1"
+WARM_CORRUPT = "unpool_argmax"  # the entry the third boot finds damaged
+AUTOSCALE_TOKEN = "chip-smoke-autoscale"
+AUTOSCALE_JOBS = 8  # deconv jobs on b0, slowed: the hot queue
+AUTOSCALE_UP_QUEUE = 4  # --autoscale-up-queue
+AUTOSCALE_JOB_DELAY_MS = 1500  # device.dispatch_delay_ms on b0 while its jobs queue
+AUTOSCALE_HOLD_OCTAVES = 3  # b1's dream job, its octaves slowed to end ...
+AUTOSCALE_HOLD_S = 6.0  # ... this long past the earliest scale-down
+AUTOSCALE_COOLDOWN_DOWN_S = 30  # no scale-down before the launch is this old
+# A serve process (its first argument: where it writes its report; its
+# output goes to <report>.log): times its boot (the import, the service's
+# init with the model and its weights, the kernel libraries' resolution,
+# the warmup, /ready), notes every nvcc process it starts, zeroes the
+# launch counts once it is ready and writes them with its report at its
+# end and on SIGUSR2.  cuDNN runs its deterministic algorithms, so two
+# boots' answers compare byte for byte.
+WARM_BACKEND = r"""
+import json, os, signal, subprocess, sys, time
+t0 = time.perf_counter()
+out = sys.argv[1]
+with open(out + ".pid", "w") as f:
+    f.write(str(os.getpid()))
+log = os.open(out + ".log", os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+os.dup2(log, 1)
+os.dup2(log, 2)
+nvcc = []
+popen_init = subprocess.Popen.__init__
+def noting_init(self, args, *a, **k):
+    argv = [args] if isinstance(args, (str, bytes)) else list(args)
+    if argv and os.path.basename(str(argv[0])) == "nvcc":
+        nvcc.append(" ".join(map(str, argv[1:])))
+    popen_init(self, args, *a, **k)
+subprocess.Popen.__init__ = noting_init
+import torch
+torch.backends.cudnn.deterministic = True
+from deconv_api_tpu_torch import __main__ as cli, ops
+from deconv_api_tpu_torch.ops import _build
+from deconv_api_tpu_torch.serving import aot, app
+report = {"import_s": time.perf_counter() - t0, "package": os.path.dirname(os.path.abspath(cli.__file__))}
+def timed(cls, name, key):
+    fn = getattr(cls, name)
+    def wrapper(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            report[key] = report.get(key, 0.0) + time.perf_counter() - t
+    setattr(cls, name, wrapper)
+timed(app.DeconvService, "__init__", "init_s")
+timed(aot.KernelResolver, "resolve", "resolve_s")
+timed(app.DeconvService, "warmup", "warmup_s")
+build_server, services = cli.build_server, []
+def ready(argv=None):
+    server = build_server(argv)
+    report["ready_s"] = time.perf_counter() - t0
+    services.append(server.service)
+    ops.reset_launch_counts()
+    return server
+cli.build_server = ready
+def dump(*_):
+    s = services[0] if services else None
+    doc = {**report, "nvcc": list(nvcc), "built": sorted(_build.build_logs), "launches": ops.launch_counts(),
+           "replays": ops.graph_counts["replays"], "warmup_wall_s": s.warmup_wall_s if s else None}
+    if s is not None and s.aot is not None:
+        doc.update(outcomes=s.aot.outcomes, build_seconds=s.aot.build_seconds,
+                   keys={n: s.aot.key(n) for n in _build.KERNELS} if s.aot.outcomes else {},
+                   libraries={n: lib._name for n, lib in s.aot.loaded.items()})
+    with open(out + ".tmp", "w") as f:
+        json.dump(doc, f)
+    os.replace(out + ".tmp", out)
+signal.signal(signal.SIGUSR2, dump)
+rc = cli.main(sys.argv[2:])
+dump()
+sys.exit(rc)
+"""
+
+
+def _fresh_copy(dest: str) -> str:
+    """A copy of the package alone under ``dest``: what a new host's
+    checkout holds, with no ``build/`` and no bytecode."""
+    import shutil
+
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "deconv_api_tpu_torch"), os.path.join(dest, "deconv_api_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__", "*.pyc"))
+    return dest
+
+
+def _backend_script(work: str) -> str:
+    path = os.path.join(work, "backend.py")
+    with open(path, "w") as f:
+        f.write(WARM_BACKEND)
+    return path
+
+
+def _log_tail(report: str, n: int = 30) -> str:
+    try:
+        with open(report + ".log") as f:
+            return "".join(f.readlines()[-n:])
+    except OSError:
+        return "(no log)"
+
+
+def _await_ready(port: int, proc, report: str, timeout_s: float = 300.0) -> None:
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        if proc is not None and proc.poll() is not None:
+            raise AssertionError(f"backend exited {proc.returncode} before /ready: {_log_tail(report)}")
+        try:
+            status, body, _ = _request(port, "/readyz")
+            if status == 200 and body.get("ready"):
+                return
+        except OSError:
+            pass
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"backend not ready in {timeout_s} s: {_log_tail(report)}")
+        time.sleep(0.05)
+
+
+def _kill_reported(work: str) -> None:
+    """SIGKILL every backend of ``work`` whose pid file names a live process."""
+    import glob
+    import signal
+
+    for path in glob.glob(os.path.join(work, "*.pid")):
+        try:
+            with open(path) as f:
+                os.kill(int(f.read()), signal.SIGKILL)
+        except (OSError, ValueError):
+            pass
+
+
+def phase_warm_boot(torch, label: str) -> dict:
+    """The warm boot (``serving/aot.py``): three VGG16 ``serve`` processes
+    at every default with ``--aot-dir`` on one store, each from a fresh
+    copy of the package (no ``build/``), one after the other:
+    1. cold: the store empty, so 4 misses, each library built by nvcc (the
+       four together) and stored;
+    2. warm: 4 hits, 0 misses, and no nvcc process at all (its ``Popen``
+       calls noted); its ``POST /`` byte-equal to the cold boot's;
+    3. one entry's body damaged (``WARM_CORRUPT``): 1 corrupt, 1 miss and
+       1 nvcc build of that kernel, 3 hits, the same answer.
+    Each prints its boot split: the import, the service's init (the model
+    built and its weights made on the card), the libraries' resolution,
+    the warmup's captures, and /ready from the process's start and from
+    the spawn.  Every process shares the one card."""
+    import shutil
+    import signal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(WARM_DIR, ignore_errors=True)
+    os.makedirs(WARM_DIR)
+    script = _backend_script(WARM_DIR)
+    form = {"file": image_uris(1)[0], "layer": WARM_LAYER}
+    out = {"phase": "warm_boot", "card": label, "model": WARM_MODEL, "layer": WARM_LAYER, "store": WARM_STORE}
+    boots = {}
+
+    def boot(key: str) -> dict:
+        copy = _fresh_copy(os.path.join(WARM_DIR, key))
+        report = os.path.join(WARM_DIR, f"{key}.json")
+        port = _free_port()
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, script, report, "serve", "--model", WARM_MODEL, "--device",
+                                 WARM_DEVICE, "--host", "127.0.0.1", "--port", str(port), "--aot-dir", WARM_STORE],
+                                cwd=copy,
+                                env={**os.environ, "PYTHONPATH": copy},
+                                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        try:
+            _await_ready(port, proc, report)
+            spawn_to_ready = time.perf_counter() - t0
+            aot_block = _request(port, "/v1/config")[1]["aot"]
+            status, answer, post_s = _raw(port, "/", "POST", form)
+            assert status == 200, (key, status, answer[:200])
+        finally:
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(120)
+        with open(report) as f:
+            doc = json.load(f)
+        real = os.path.realpath(copy)
+        assert rc == 0 and os.path.realpath(doc["package"]).startswith(real), (rc, doc["package"], _log_tail(report))
+        assert all(os.path.realpath(p).startswith(os.path.join(real, "build")) for p in doc["libraries"].values()), \
+            doc["libraries"]
+        doc.update(rc=rc, spawn_to_ready_s=spawn_to_ready, aot=aot_block, answer=answer, post_s=post_s)
+        boots[key] = doc
+        return doc
+
+    try:
+        cold = boot("cold")
+        assert cold["outcomes"] == {k: "miss" for k in cold["keys"]}, cold["outcomes"]
+        assert (cold["aot"]["misses"], cold["aot"]["stores"], cold["aot"]["hits"]) == (4, 4, 0), cold["aot"]
+        assert sorted(cold["built"]) == sorted(cold["keys"]), cold["built"]
+        warm = boot("warm")
+        assert warm["outcomes"] == {k: "hit" for k in warm["keys"]}, warm["outcomes"]
+        assert (warm["aot"]["hits"], warm["aot"]["misses"], warm["aot"]["corrupt"]) == (4, 0, 0), warm["aot"]
+        assert warm["nvcc"] == [] and warm["built"] == [] and warm["keys"] == cold["keys"], (warm["nvcc"], warm["built"])
+        assert warm["answer"] == cold["answer"], "the warm boot's answer differs from the cold boot's"
+        damaged = os.path.join(WARM_STORE, warm["keys"][WARM_CORRUPT] + ".aot")
+        with open(damaged, "r+b") as f:
+            f.seek(-64, os.SEEK_END)
+            tail = f.read(64)
+            f.seek(-64, os.SEEK_END)
+            f.write(bytes(b ^ 0xFF for b in tail))
+        again = boot("corrupt")
+        assert again["outcomes"] == {k: "miss" if k == WARM_CORRUPT else "hit" for k in again["keys"]}, \
+            again["outcomes"]
+        assert (again["aot"]["corrupt"], again["aot"]["misses"], again["aot"]["hits"], again["aot"]["stores"]) == \
+            (1, 1, 3, 1), again["aot"]
+        assert again["built"] == [WARM_CORRUPT] and len(again["nvcc"]) == 1, (again["built"], again["nvcc"])
+        assert again["answer"] == cold["answer"], "the rebuilt kernel's answer differs"
+    finally:
+        _kill_reported(WARM_DIR)
+    for key, doc in boots.items():
+        out[key] = {
+            "outcomes": doc["outcomes"], "aot": doc["aot"], "nvcc_processes": len(doc["nvcc"]),
+            "nvcc_build_s": doc["build_seconds"],
+            "split_s": {"import": doc["import_s"], "init": doc["init_s"], "resolve": doc.get("resolve_s", 0.0),
+                        "warmup_captures": doc["warmup_s"] - doc.get("resolve_s", 0.0), "ready": doc["ready_s"],
+                        "spawn_to_ready": doc["spawn_to_ready_s"]},
+            "warmup_wall_s": doc["warmup_wall_s"], "post_ms": doc["post_s"] * 1e3, "answer_bytes": len(doc["answer"]),
+            "exit_code": doc["rc"],
+        }
+    out["answers_byte_equal"] = True
+    out["warm_saving_s"] = boots["cold"]["ready_s"] - boots["warm"]["ready_s"]
+    emit(out)
+    names = sorted(boots["cold"]["launches"])
+    counts = {k: int(sum(d["launches"].get(k, 0) for d in boots.values())) for k in names}
+    assert counts["pool_argmax"] > 0 and counts["unpool_argmax"] > 0, counts
+    return {"counts": counts}
+
+
+def _journal(path: str) -> list:
+    """The decision journal's data records (its header skipped)."""
+    from deconv_api_tpu_torch.serving.autoscale import DecisionJournal
+
+    return DecisionJournal.replay(path)
+
+
+def _await_record(path: str, kind: str, procs: dict, timeout_s: float, **match) -> dict:
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        for rec in _journal(path):
+            if rec.get("kind") == kind and all(rec.get(k) == v for k, v in match.items()):
+                return rec
+        for key, proc in procs.items():
+            assert proc.poll() is None, f"{key} exited {proc.returncode}"
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"no {kind} {match} in the journal within {timeout_s} s: {_journal(path)}")
+        time.sleep(0.1)
+
+
+def phase_autoscale(torch, label: str) -> dict:
+    """The closed loop (``serving/autoscale.py``) on the card: a
+    ``fleet-router --autoscale enforce --autoscale-min 1 --autoscale-max 2``
+    whose launch command is a VGG16 ``serve`` of a fresh copy of the
+    package on the warm-boot phase's store (``--aot-dir``), with
+    ``--l2-dir``, ``--jobs-dir`` and the fleet token; it starts with one
+    such backend (b0) that the phase launches.
+    1. hot: ``AUTOSCALE_JOBS`` deconv jobs on b0, slowed by
+       ``device.dispatch_delay_ms``, hold its job queue over
+       ``--autoscale-up-queue``: the controller launches b1, which boots
+       warm and registers; ``autoscaler_boot_to_warm_seconds`` stops at its
+       first warm counter on the federation plane (its 4 store hits);
+    2. cold, held: once b1 serves, a dream job runs on b1 (its octaves
+       slowed to end ``AUTOSCALE_HOLD_S`` past the earliest scale-down), so
+       its queue is 1 and the fleet's mean 0.5: cold.  Past
+       ``--autoscale-cooldown-down-s`` the controller announces b1's
+       drain, and its jobs gate holds the reap while the job runs: the
+       drain announced, then the job done, then the reap (SIGTERM: b1's
+       own drain, ``--drain-grace-s 2``);
+    3. through it all a client posts the 8 images through the router: every
+       answer 200, and the fleet is back to 1.
+    The router, both backends and the client share one card and the
+    machine's 8 cores."""
+    import shlex
+    import shutil
+    import signal
+    import http.client
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "autoscale")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    script = _backend_script(work)
+    host = _fresh_copy(os.path.join(work, "host"))
+    env = {**os.environ, "PYTHONPATH": host}
+    rport = _free_port()
+    journal = os.path.join(work, "journal.jsonl")
+
+    def serve_argv(port) -> list:
+        return [sys.executable, script, os.path.join(work, f"b{port}.json"), "serve", "--model", WARM_MODEL,
+                "--device", WARM_DEVICE, "--host", "127.0.0.1", "--port", str(port), "--aot-dir", WARM_STORE,
+                "--l2-dir", os.path.join(work, "l2", f"b{port}"), "--jobs-dir", os.path.join(work, "jobs", f"b{port}"),
+                "--fleet-token", AUTOSCALE_TOKEN, "--fleet-routers", f"127.0.0.1:{rport}",
+                "--fleet-advertise", f"127.0.0.1:{port}", "--drain-grace-s", str(FLEET_DRAIN_GRACE_S),
+                "--fault-injection"]
+
+    router_cmd = [sys.executable, "-m", "deconv_api_tpu_torch", "fleet-router", "--host", "127.0.0.1",
+                  "--port", str(rport), "--fleet-token", AUTOSCALE_TOKEN, "--probe-interval-s", "0.5",
+                  "--autoscale", "enforce", "--autoscale-min", "1", "--autoscale-max", "2",
+                  "--autoscale-interval-s", "1", "--autoscale-up-queue", str(AUTOSCALE_UP_QUEUE),
+                  "--autoscale-cooldown-up-s", "5", "--autoscale-cooldown-down-s", str(AUTOSCALE_COOLDOWN_DOWN_S),
+                  "--autoscale-journal", journal, "--autoscale-launch-cmd", shlex.join(serve_argv("{port}"))]
+    out = {"phase": "autoscale", "card": label, "router": " ".join(router_cmd[3:-2]), "launch_cmd": "serve "
+           + " ".join(serve_argv("{port}")[4:]), "hot_signal": f"job queue depth (--autoscale-up-queue "
+           f"{AUTOSCALE_UP_QUEUE})", "shared": "router, 2 backends and the client on one card and 8 cores"}
+    procs, reports = {}, {}
+    uris = image_uris(8)
+    statuses, stop = [], threading.Event()
+
+    def client():
+        conn = http.client.HTTPConnection("127.0.0.1", rport, timeout=300)
+        i = 0
+        while not stop.is_set():
+            body = urllib.parse.urlencode({"file": uris[i % len(uris)], "layer": WARM_LAYER}).encode()
+            try:
+                statuses.append(_fleet_post(conn, body)[0])
+            except (OSError, http.client.HTTPException):
+                if stop.is_set():
+                    break
+                statuses.append(0)  # no answer: counted against the drill
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", rport, timeout=300)
+            i += 1
+        conn.close()
+
+    def ready_block():
+        return _request(rport, "/readyz")[1]
+
+    def members():
+        return _request(rport, "/v1/config")[1]["members"]
+
+    try:
+        t0 = time.perf_counter()
+        log = open(os.path.join(work, "router.log"), "w")
+        procs["router"] = subprocess.Popen(router_cmd, cwd=host, env=env, stdout=log, stderr=subprocess.STDOUT)
+        p0 = _free_port()
+        b0 = f"127.0.0.1:{p0}"
+        reports[b0] = os.path.join(work, f"b{p0}.json")
+        procs["b0"] = subprocess.Popen(serve_argv(p0), cwd=host, env=env, stdout=subprocess.DEVNULL,
+                                       stderr=subprocess.DEVNULL)
+        _await_ready(p0, procs["b0"], reports[b0])
+        while members().get(b0, {}).get("state") != "healthy":
+            assert time.perf_counter() - t0 < 300 and procs["router"].poll() is None, members()
+            time.sleep(0.1)
+        out["b0_boot_s"] = time.perf_counter() - t0
+        th = threading.Thread(target=client, daemon=True)
+        th.start()
+
+        # 1. hot: b0's job queue
+        _arm(p0, arm=f"device.dispatch_delay_ms=p1:{AUTOSCALE_JOB_DELAY_MS}")
+        t_hot = time.monotonic()
+        jobs0 = []
+        for i in range(AUTOSCALE_JOBS):
+            status, doc, _ = _request(p0, "/v1/jobs", "POST", {"type": "deconv", "layer": WARM_LAYER,
+                                                               "file": uris[i % len(uris)], "top_k": str(i + 1)})
+            assert status == 202, (status, doc)
+            jobs0.append(doc["id"])
+        launched = _await_record(journal, "launched", procs, 60)
+        b1 = launched["backend"]
+        reports[b1] = os.path.join(work, f"b{b1.rsplit(':', 1)[1]}.json")
+        _arm(p0, disarm="all")
+        warm = _await_record(journal, "warm", procs, 240, backend=b1)
+        p1 = int(b1.rsplit(":", 1)[1])
+        assert all(_await_job(p0, j)["state"] == "done" for j in jobs0)
+
+        # 2. cold, the reap held by b1's running job
+        end = launched["clock"] + AUTOSCALE_COOLDOWN_DOWN_S + AUTOSCALE_HOLD_S
+        hold_ms = max(500, int((end - time.monotonic()) * 1e3 / AUTOSCALE_HOLD_OCTAVES))
+        _arm(p1, arm=f"device.dispatch_delay_ms=p1:{hold_ms}")
+        status, doc, _ = _request(p1, "/v1/jobs", "POST", {"type": "dream", "file": uris[0], "steps": "2",
+                                                           "octaves": str(AUTOSCALE_HOLD_OCTAVES)})
+        assert status == 202, (status, doc)
+        hold_job = doc["id"]
+        t_job = time.monotonic()
+        announced = _await_record(journal, "drain_announced", procs, 120, backend=b1)
+        running_at_announce = _job_doc(p1, hold_job)["state"]
+        gated = _request(p1, "/v1/jobs")[1]["counts"]
+        done = _await_job(p1, hold_job)
+        t_done = time.monotonic()
+        reaped = _await_record(journal, "reaped", procs, 120, backend=b1)
+        assert done["state"] == "done" and running_at_announce == "running", (done["state"], running_at_announce)
+        assert announced["clock"] < t_done < reaped["clock"], (announced["clock"], t_done, reaped["clock"])
+        deadline = time.perf_counter() + 60
+        while not os.path.exists(reports[b1]):
+            assert time.perf_counter() < deadline, _log_tail(reports[b1])
+            time.sleep(0.1)
+        time.sleep(1.0)  # traffic on the survivor alone
+        stop.set()
+        th.join(300)
+        metrics = _metric_lines(rport)
+        ready = ready_block()
+        fleet_size = metrics.get("autoscaler_fleet_size")
+        assert fleet_size == 1 and set(statuses) == {200}, (fleet_size, collections.Counter(statuses))
+        assert metrics.get("autoscaler_reaped_total") == 1, metrics
+        records = _journal(journal)
+        out.update({
+            "hot": {"jobs": AUTOSCALE_JOBS, "delay_ms": AUTOSCALE_JOB_DELAY_MS,
+                    "launch_after_s": launched["clock"] - t_hot},
+            "b1": b1, "boot_to_warm_s": warm["boot_to_warm_s"],
+            "autoscaler_boot_to_warm_seconds": {
+                "sum": metrics.get(f'autoscaler_boot_to_warm_seconds_sum{{backend="{b1}"}}'),
+                "count": metrics.get(f'autoscaler_boot_to_warm_seconds_count{{backend="{b1}"}}')},
+            "held_reap": {"job": hold_job, "octaves": AUTOSCALE_HOLD_OCTAVES, "delay_ms": hold_ms,
+                          "job_state_at_announce": running_at_announce, "jobs_counts_at_announce": gated,
+                          "announced_after_job_s": announced["clock"] - t_job,
+                          "held_s": reaped["clock"] - announced["clock"], "job_done_to_reap_s": reaped["clock"] - t_done},
+            "answers": len(statuses), "non_200": sum(s != 200 for s in statuses), "fleet_size_after": fleet_size,
+            "decisions": {k: v for k, v in metrics.items() if k.startswith("autoscaler_decisions_total")},
+            "ready_autoscale": ready.get("autoscale"),
+            "journal": records,
+        })
+        procs["b0"].send_signal(signal.SIGTERM)
+        out["b0_exit_code"] = procs["b0"].wait(120)
+        procs["router"].send_signal(signal.SIGTERM)
+        out["router_exit_code"] = procs["router"].wait(60)
+        assert out["b0_exit_code"] == 0 and out["router_exit_code"] == 0, out
+    finally:
+        stop.set()
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+        _kill_reported(work)
+    docs = {}
+    for name, path in reports.items():
+        with open(path) as f:
+            docs[name] = json.load(f)
+    b1_doc = docs[b1]
+    out["b1_boot"] = {"outcomes": b1_doc["outcomes"], "nvcc_processes": len(b1_doc["nvcc"]),
+                      "split_s": {"import": b1_doc["import_s"], "init": b1_doc["init_s"],
+                                  "resolve": b1_doc.get("resolve_s", 0.0), "ready": b1_doc["ready_s"]}}
+    out["launches"] = {name: {k: v for k, v in d["launches"].items() if v} for name, d in docs.items()}
+    out["wall_s"] = time.perf_counter() - t0
+    emit(out)
+    assert b1_doc["outcomes"] == {k: "hit" for k in b1_doc["keys"]} and b1_doc["nvcc"] == [], out["b1_boot"]
+    names = sorted(docs[b0]["launches"])
+    counts = {k: int(sum(d["launches"].get(k, 0) for d in docs.values())) for k in names}
+    assert counts["pool_argmax"] > 0 and counts["unpool_argmax"] > 0, out["launches"]
+    return {"counts": counts}
+
+
 def _request_raw(port: int, form: dict):
     """``_keep_alive_post`` on a connection of its own."""
     import http.client
@@ -4469,6 +4968,8 @@ def main() -> int:
     settings = timed("settings", phase_settings, torch, env["nvidia_smi"])
     fleet = timed("fleet", phase_fleet, torch, env["nvidia_smi"])
     weights = timed("weights", phase_weights, torch, env["nvidia_smi"])
+    warm_boot = timed("warm_boot", phase_warm_boot, torch, env["nvidia_smi"])
+    autoscaled = timed("autoscale", phase_autoscale, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
@@ -4481,7 +4982,10 @@ def main() -> int:
                **jobs["counts"],
                **settings["counts"],
                "fleet POST / (three serve processes behind the router)": fleet["counts"],
-               **weights["counts"]}
+               **weights["counts"],
+               "warm_boot POST / (cold, warm and rebuilt boots on one kernel store)": warm_boot["counts"],
+               "autoscale POST / and deconv jobs (the launched backend and b0 behind the router)":
+                   autoscaled["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

@@ -32,10 +32,17 @@ routers once its listener answers (``--fleet-advertise HOST:PORT``, the
 address they should dial, ``--fleet-capacity``); ``--peer-fill`` honours
 the routers' peer cache-fill hints and serves its own cache to its peers.
 
+``--aot-dir DIR`` (``--aot-bytes N``) is the warm boot of
+``serving/aot.py``: the boot takes the four kernel libraries from the
+store in DIR, building and storing each one it lacks, before ``/ready``.
+
 ``python -m deconv_api_tpu_torch fleet-router [--backends H:P,H:P]
-[--fleet-token T] [--port 8100] ...`` runs the cache-affine router of
-``serving/fleet.py`` in front of such servers, with the JAX package's
-``fleet-router`` flags (``--autoscale off`` only); it loads no torch.
+[--fleet-token T] [--port 8100] [--autoscale off|advisory|enforce] ...``
+runs the cache-affine router of ``serving/fleet.py`` in front of such
+servers, with the JAX package's ``fleet-router`` flags; ``autoscaler
+--router HOST:PORT [--mode advisory|enforce] ...`` runs the controller of
+``serving/autoscale.py`` beside a router, as a process of its own.
+Neither loads torch.
 
 ``--weights PATH`` serves pretrained weights (``weights_path``): a Keras
 ``.h5`` (on a host with h5py) or ``.npz`` file for ``--model``, or a
@@ -71,11 +78,15 @@ import os
 import signal
 import sys
 
-if __name__ == "__main__" and sys.argv[1:2] == ["fleet-router"]:
-    # the router needs no model stack: dispatched before torch loads
-    from deconv_api_tpu_torch.serving.fleet import main as _fleet_main
+if __name__ == "__main__" and sys.argv[1:2] in (["fleet-router"], ["autoscaler"]):
+    # the router and the autoscaler need no model stack: dispatched
+    # before torch loads
+    if sys.argv[1] == "fleet-router":
+        from deconv_api_tpu_torch.serving.fleet import main as _sidecar_main
+    else:
+        from deconv_api_tpu_torch.serving.autoscale import main as _sidecar_main
 
-    sys.exit(_fleet_main(sys.argv[2:]))
+    sys.exit(_sidecar_main(sys.argv[2:]))
 
 import numpy as np
 
@@ -159,6 +170,10 @@ _FIELD_FLAGS = {
     "fleet_capacity": "capacity this member advertises to the routers' ring (0 = auto: 1)",
     "profile_dir": "torch.profiler trace directory: the first DECONV_PROFILE_BATCHES batches after warmup, "
                    "and POST /v1/profile (empty disables)",
+    # the warm boot
+    "aot_dir": "store of the built kernel libraries: the boot loads them from it, building and storing "
+               "each one it lacks (empty: built into the checkout at first use)",
+    "aot_bytes": "the store's byte budget; the oldest entries are swept above it (0 = unbounded)",
 }
 
 
@@ -252,9 +267,12 @@ def _parser() -> argparse.ArgumentParser:
         help="arm a fault-injection site at startup (repeatable; implies "
         "fault injection enabled — see serving/faults.py for sites/specs)",
     )
-    # parsed by serving/fleet.py's own main (main() dispatches to it first)
+    # parsed by serving/fleet.py's and serving/autoscale.py's own mains
+    # (main() dispatches to them first)
     sub.add_parser("fleet-router", add_help=False,
                    help="the cache-affine consistent-hash router over N serve processes (no torch)")
+    sub.add_parser("autoscaler", add_help=False,
+                   help="the autoscale controller beside a router, over its federation plane (no torch)")
     c = sub.add_parser("calibrate", help="write a model's int8 calibration artifact for --calibration-dir")
     c.add_argument("--model", default="vgg16", help="registry model name (default vgg16)")
     c.add_argument("--out", required=True, metavar="DIR", help="calibration dir the server reads (--calibration-dir)")
@@ -526,6 +544,10 @@ def main(argv=None) -> int:
         from deconv_api_tpu_torch.serving.fleet import main as fleet_main
 
         return fleet_main(argv[1:])
+    if argv[:1] == ["autoscaler"]:
+        from deconv_api_tpu_torch.serving.autoscale import main as autoscale_main
+
+        return autoscale_main(argv[1:])
     args = _parser().parse_args(argv)
     if args.cmd == "models":
         for info in registry_info():

@@ -8,8 +8,9 @@ Left out, as they have no counterpart here: ``host`` and ``port`` (the
 CLI's flags), ``donate_inputs`` (XLA buffer donation),
 ``compilation_cache_dir`` (a CUDA graph is captured per process),
 ``platform`` (a jax backend; the port's entry points take a device), the
-mesh, lanes and pod fields (one card, one lane), and the AOT and
-autoscale fields (not ported yet).  The fleet fields are here: a backend's
+mesh, lanes and pod fields (one card, one lane).  ``aot_dir`` stores
+the built kernel libraries (``serving/aot.py``), the port's compiled
+artifacts.  The fleet fields are here: a backend's
 peer cache fill and its registration with the routers of
 ``serving/fleet.py``; with no pod, ``fleet_capacity`` 0 advertises 1.
 ``weights_path`` loads Keras ``.h5`` and ``.npz`` weights
@@ -306,6 +307,19 @@ class ServerConfig:
     # key); without one, each example's own ranges ('dynamic').  A corrupt
     # artifact reads as absent.
     calibration_dir: str = ""
+    # --- the warm boot (serving/aot.py) ---
+    # Directory of built kernel libraries, keyed by the kernel's source,
+    # nvcc's flags and version, the card's compute capability and torch's
+    # versions.  With it set, the boot resolves every kernel library
+    # before /ready: a stored one is loaded, a missing one is built with
+    # nvcc and stored, so a backend booting against a filled store (a
+    # shared disk, or one copied from a peer) runs no nvcc.  Empty =
+    # disabled: kernels build into the checkout's build/ at first use.
+    # Entries are digest-verified; a corrupt one reads as a miss.
+    aot_dir: str = ""
+    # Store byte budget; the oldest entries (by last use) are swept above
+    # it.  0 = unbounded.
+    aot_bytes: int = 0
     # --- fleet tier (serving/fleet.py) ---
     # Peer cache fill: honour the router's ``x-peer-fill: host:port`` hint
     # on a cache miss by asking the key's previous ring owner for the

@@ -9,6 +9,11 @@ all together.
 
 Nothing here runs at import: this module, like the wrappers, imports on a
 machine with no ``nvcc``; only a kernel's first launch needs one.
+
+``resolver`` is the one seam of the warm boot: a service booted with
+``aot_dir`` sets it to a ``serving/aot.py:KernelResolver``, and ``load``
+then takes each library from it (a stored copy, else its nvcc build,
+stored) instead of building it here.  Unset, nothing changes.
 """
 
 from __future__ import annotations
@@ -32,6 +37,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# where load() takes a library from when set: an object whose
+# library(name) returns it loaded (serving/aot.py:KernelResolver)
+resolver = None
 # nvcc's output (ptxas register and spill lines) from this process's builds
 build_logs: dict[str, str] = {}
 
@@ -55,15 +63,17 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(names=KERNELS) -> dict[str, float]:
-    """Compile every named kernel whose library is missing, one ``nvcc``
-    per source, all started together.  Returns seconds per kernel built;
-    raises with the compiler's output if any build fails."""
+def build(names=KERNELS, force: bool = False) -> dict[str, float]:
+    """Compile every named kernel whose library is missing (every one with
+    ``force``: the file there may be another toolchain's), one ``nvcc``
+    per source, all started together; each lands by rename, so a reader
+    sees an old library or a new one, whole.  Returns seconds per kernel
+    built; raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     for name in names:
         target = library_path(name)
-        if target.exists():
+        if target.exists() and not force:
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -92,8 +102,11 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            if resolver is not None:
+                lib = resolver.library(name)
+            else:
+                build([name])
+                lib = ctypes.CDLL(str(library_path(name)))
             for entry, argtypes in signatures.items():
                 fn = getattr(lib, entry)
                 fn.argtypes = argtypes

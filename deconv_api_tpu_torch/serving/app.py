@@ -62,6 +62,11 @@ device batches with ``torch.profiler`` into ``profile_dir`` (400 while it
 is unset); a server with ``profile_dir`` traces its first
 ``DECONV_PROFILE_BATCHES`` (default 4) batches after warmup.
 
+With ``aot_dir`` (``serving/aot.py``) the kernel libraries come from a
+digest-verified store: on the card ``warmup`` resolves all four before
+``/ready`` (a stored copy loaded, else its nvcc build stored), and
+``/v1/config`` and ``/readyz`` carry an ``aot`` block.
+
 Control routes: ``GET /healthz`` (liveness), ``GET /readyz`` (readiness,
 with each check named, and the residency block when several models are
 served; 503 while draining), ``GET /metrics`` and ``GET /v1/metrics`` (the
@@ -137,6 +142,7 @@ from deconv_api_tpu_torch.engine.deepdream import octave_shapes, run_dream_progr
 from deconv_api_tpu_torch.engine import quant as quant_mod
 from deconv_api_tpu_torch.engine.quant import QUALITY_TIERS
 from deconv_api_tpu_torch.models.weights import load_model_weights
+from deconv_api_tpu_torch.ops import _build
 from deconv_api_tpu_torch.ops.cuda_deconv import fused_engaged, resolve_fused_unpool
 from deconv_api_tpu_torch.serving import codec, durable
 from deconv_api_tpu_torch.serving import faults as faults_mod
@@ -144,6 +150,7 @@ from deconv_api_tpu_torch.serving import fleet as fleet_mod
 from deconv_api_tpu_torch.serving import trace as trace_mod
 from deconv_api_tpu_torch.serving import tsdb as tsdb_mod
 from deconv_api_tpu_torch.serving.alerts import AlertEngine, IncidentStore, parse_alert_rules
+from deconv_api_tpu_torch.serving.aot import ArtifactStore, KernelResolver
 from deconv_api_tpu_torch.serving.batcher import BatchingDispatcher, CircuitBreaker, LanePool, buckets, pad_bucket
 from deconv_api_tpu_torch.serving.cache import L2Store, ResponseCache, Singleflight, canonical_digest
 from deconv_api_tpu_torch.serving.codec_pool import HostBufferRing, WorkerPool
@@ -398,6 +405,16 @@ class DeconvService:
         self.l2 = L2Store(cfg.l2_dir, cfg.l2_bytes, metrics=self.metrics) if cfg.l2_dir else None
         self.flights = Singleflight() if cfg.singleflight else None
         self._prefix_cache: dict[str, str] = {}
+        # The warm boot (serving/aot.py): with aot_dir set, every kernel
+        # library comes from a digest-verified store (its nvcc build,
+        # stored, on a miss); on the card the boot resolves them all
+        # before /ready, so no request waits on nvcc.  Empty: the libraries
+        # build into the checkout at their first launch, as without it.
+        self.aot = None
+        if cfg.aot_dir:
+            self.aot = KernelResolver(ArtifactStore(cfg.aot_dir, cfg.aot_bytes, metrics=self.metrics),
+                                      metrics=self.metrics)
+            _build.resolver = self.aot
         # Metric history and alerting (serving/tsdb.py, serving/alerts.py):
         # a self-scrape task samples the main registry into two ring tiers
         # and the alert engine evaluates its rules on the same tick.  'off'
@@ -878,12 +895,15 @@ class DeconvService:
     def warmup(self) -> None:
         """Make the programs a first request would wait for, for every
         pinned model (the default first), then mark the service ready (the
-        reference's warmup).  On the card: ``warm`` every entry of each
-        model's ``warmup_programs``.  On the CPU, where nothing is captured
+        reference's warmup).  On the card: with ``aot_dir``, resolve every
+        kernel library first, then ``warm`` every entry of each model's
+        ``warmup_programs``.  On the CPU, where nothing is captured
         and boots stay fast: one batch-1 grid a model.  ``warmup_wall_s``
         is the time it took, ``warmup_wall_s_by_model`` each model's part
         (with its page-in)."""
         t0 = time.perf_counter()
+        if self.aot is not None and self.bundle.device.type == "cuda":
+            self.aot.resolve(_build.KERNELS)
         gen = np.random.default_rng(0)
         for name in self.weights.pinned:
             t_model = time.perf_counter()
@@ -927,6 +947,8 @@ class DeconvService:
                                          metrics=self.metrics)
         if self.l2 is not None and self.l2.closed:
             self.l2 = L2Store(self.cfg.l2_dir, self.cfg.l2_bytes, metrics=self.metrics)
+        if self.aot is not None:
+            _build.resolver = self.aot
         self._closed = False
 
         async def start():
@@ -1011,6 +1033,8 @@ class DeconvService:
             self.l2.close()
         if self.faults is not None:
             faults_mod.uninstall(self.faults)
+        if self.aot is not None and _build.resolver is self.aot:
+            _build.resolver = None
         self._maybe_end_loop()
 
     def _maybe_end_loop(self) -> None:
@@ -2203,6 +2227,12 @@ class DeconvService:
         calib = dict(self._calib_cache)
         body["quality"] = {"default": self.cfg.quality_default, "by_class": dict(self._class_quality),
                            "calibrated": sorted(m for m, (_q, tag) in calib.items() if tag != "dynamic")}
+        if self.aot is not None:
+            # the store on the probe: an autoscaler's warm-boot gate reads
+            # whether this boot hit it without /v1/config
+            body["aot"] = {"entries": self.aot.store.entry_count,
+                           "hits": self.metrics.counter("aot_cache_hits_total"),
+                           "misses": self.metrics.counter("aot_cache_misses_total")}
         if self.jobs is not None:
             # the park and queue picture an operator's drain reads
             c = self.jobs.counts()
@@ -2224,6 +2254,8 @@ class DeconvService:
             surfaces["jobs.spill"] = self.jobs.spill.surface.snapshot()
         if self.l2 is not None:
             surfaces["cache.l2"] = self.l2.surface.snapshot()
+        if self.aot is not None:
+            surfaces["aot.store"] = self.aot.store.surface.snapshot()
         if self.incidents is not None:
             surfaces["alerts.incidents"] = self.incidents.surface.snapshot()
         if surfaces:
@@ -2267,7 +2299,11 @@ class DeconvService:
             bundle["slow"] = self.recorder.query(slow=True, limit=16)
             bundle["errors"] = self.recorder.query(error=True, limit=16)
         cfg = dataclasses.asdict(self.cfg)
-        cfg["incidents_dir"] = bool(cfg["incidents_dir"])
+        # the JAX package's masked paths, as configured or not; its
+        # compilation_cache_dir has no field here (a CUDA graph is
+        # captured per process, so there is no compile cache to point at)
+        for key in ("weights_path", "profile_dir", "jobs_dir", "calibration_dir", "aot_dir", "incidents_dir"):
+            cfg[key] = bool(cfg[key])
         bundle["config"] = cfg
         if self.alert_engine is not None:
             bundle["alerts"] = self.alert_engine.snapshot()
@@ -2401,7 +2437,7 @@ class DeconvService:
         pools)."""
         cfg = dataclasses.asdict(self.cfg)
         # paths: reported as configured or not
-        for key in ("weights_path", "profile_dir", "jobs_dir", "calibration_dir"):
+        for key in ("weights_path", "profile_dir", "jobs_dir", "calibration_dir", "aot_dir"):
             cfg[key] = bool(cfg[key])
         if cfg["fleet_token"]:
             cfg["fleet_token"] = "<set>"  # the shared secret stays unleaked
@@ -2412,6 +2448,12 @@ class DeconvService:
         calib = dict(self._calib_cache)
         cfg["quality"] = {"default": self.cfg.quality_default, "by_class": dict(self._class_quality),
                           "calibration": {m: tag for m, (_q, tag) in sorted(calib.items())}}
+        # the kernel-library store: did this boot load or build
+        cfg["aot_active"] = self.aot is not None
+        if self.aot is not None:
+            cfg["aot"] = {"entries": self.aot.store.entry_count, "resident_bytes": self.aot.store.resident_bytes,
+                          **{k: self.metrics.counter(f"aot_cache_{k}_total")
+                             for k in ("hits", "misses", "stores", "corrupt")}}
         # the allocator's snapshot, taken while no capture runs
         with DEVICE_LOCK.shared() if torch.cuda.is_available() else contextlib.nullcontext():
             cfg["graph_pool_bytes"] = {

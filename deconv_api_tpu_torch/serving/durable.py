@@ -1,7 +1,9 @@
 """One durable-write layer for every persistence surface (a copy of
 ``deconv_api_tpu/serving/durable.py``; the port's surfaces are the L2
-response cache, ``cache.l2``, and the alert engine's incident bundles,
-``alerts.incidents``).
+response cache, ``cache.l2``, the alert engine's incident bundles,
+``alerts.incidents``, the job tier's ``jobs.journal`` and ``jobs.spill``,
+the fleet's ``fleet.membership``, the kernel-library store,
+``aot.store``, and the autoscaler's decisions, ``autoscale.journal``).
 
 - **One write idiom.**  ``atomic_write`` (tmp + fsync + rename +
   directory fsync) for whole-file artifacts, ``append_bytes`` (write +

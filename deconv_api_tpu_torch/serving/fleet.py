@@ -55,8 +55,10 @@ identical requests land on one backend and N private caches act as one.
   histograms and SLO burn rates, and with ``tsdb=on`` metric history,
   alert rules and incident bundles.
 
-The autoscaler (``autoscale`` other than ``off``) is not ported yet:
-the router refuses it with a ``ValueError`` and ``main`` exits 2.
+- Elasticity: ``autoscale`` advisory or enforce embeds the controller
+  of ``serving/autoscale.py`` (its arrival hook on the proxy path, its
+  blocks on ``/readyz`` and ``/v1/config``, its ``autoscaler_`` families
+  on ``/metrics``); ``off`` constructs nothing.
 
 The router imports no torch: ``python -m deconv_api_tpu_torch
 fleet-router`` boots without the model stack.
@@ -1228,6 +1230,7 @@ class FleetRouter:
         pool_idle_s: float = 30.0,
         stream_relay_min_bytes: int = 262144,
         autoscale: str = "off",
+        autoscale_opts: dict | None = None,
         tsdb: str = "off",
         tsdb_interval_s: float = 1.0,
         alerts: str = "",
@@ -1247,13 +1250,6 @@ class FleetRouter:
         if autoscale not in ("off", "advisory", "enforce"):
             raise ValueError(
                 f"autoscale={autoscale!r}: expected off|advisory|enforce"
-            )
-        if autoscale != "off":
-            # the closed-loop controller (the JAX package's
-            # serving/autoscale.py) has no counterpart here yet
-            raise ValueError(
-                f"autoscale={autoscale!r}: the autoscaler is not ported "
-                "yet; only 'off' is accepted"
             )
         self.vnodes = int(vnodes)
         self.probe_interval_s = float(probe_interval_s)
@@ -1485,6 +1481,29 @@ class FleetRouter:
                     retention_s=float(incidents_retention_s),
                     metrics=self.metrics,
                 )
+        # closed-loop elasticity: off is the escape hatch — no
+        # controller object, no arrival recording, no config/readyz
+        # block, no metric families
+        if autoscale == "off":
+            self.autoscaler = None
+        else:
+            from deconv_api_tpu_torch.serving.autoscale import (
+                AutoscaleController,
+            )
+
+            self.autoscaler = AutoscaleController(
+                mode=autoscale,
+                router=self,
+                fleet_token=fleet_token,
+                faults=self.faults,
+                clock=clock,
+                # with the TSDB on, the forecaster reads per-tenant
+                # arrivals back from the history plane an operator
+                # queries, instead of a private accumulator
+                tsdb=self.tsdb,
+                tsdb_metrics=self.metrics,
+                **(autoscale_opts or {}),
+            )
 
         self.server = HttpServer(
             idle_timeout_s=idle_timeout_s,
@@ -3150,6 +3169,16 @@ class FleetRouter:
             return Response.json(
                 {"error": f"no route for {req.path}"}, 404
             )
+        if self.autoscaler is not None:
+            # one O(1) bucket increment feeds the predictive pre-scaler's
+            # per-tenant arrival history (identity per the qos.py rule:
+            # x-api-key wins over x-tenant; cardinality is bounded inside
+            # ArrivalHistory)
+            self.autoscaler.record_arrival(
+                req.headers.get("x-api-key")
+                or req.headers.get("x-tenant")
+                or "default"
+            )
         tr = self._new_trace(req)
         if req.deadline is not None and (
             req.deadline - time.perf_counter() <= 0.01
@@ -3875,6 +3904,10 @@ class FleetRouter:
                 t.name: {**t.snapshot(), "ok": t.burn_rates()["5m"] <= 1.0}
                 for t in self.slos
             }
+        if self.autoscaler is not None:
+            # the elasticity signal summary — what the controller last
+            # saw and decided, on the probe an operator already reads
+            body["autoscale"] = self.autoscaler.ready_block()
         if self.alert_engine is not None:
             # informational ONLY — a firing alert must never
             # pull router capacity out of the LB (the SLO-burn rule)
@@ -3963,6 +3996,12 @@ class FleetRouter:
                 **(
                     {"faults_state": self.faults.snapshot()}
                     if self.faults is not None
+                    else {}
+                ),
+                # the autoscale knob block — ABSENT when off
+                **(
+                    {"autoscale": self.autoscaler.config_block()}
+                    if self.autoscaler is not None
                     else {}
                 ),
                 # the fleet-memory block — ABSENT when off
@@ -4338,7 +4377,9 @@ class FleetRouter:
 
     def _tsdb_samples(self) -> dict:
         """One self-scrape tick's flattened sample set: the router
-        registry, the live SLO burn gauges, and per-member ring state
+        registry, the live SLO burn gauges, the autoscaler's registry
+        under an ``autoscaler_`` prefix (two registries, one series
+        universe — no family collisions), and per-member ring state
         straight from the probe loop, so an absence or threshold rule
         sees membership without anyone hitting the federation scrape."""
         samples = flatten_snapshot(self.metrics.snapshot())
@@ -4347,6 +4388,10 @@ class FleetRouter:
                 samples[
                     ("slo_burn_rate", f"slo={t.name},window={window}")
                 ] = (KIND_GAUGE, rate)
+        if self.autoscaler is not None:
+            auto = flatten_snapshot(self.autoscaler.metrics.snapshot())
+            for (fam, label), kv in auto.items():
+                samples[(f"autoscaler_{fam}", label)] = kv
         samples[("fleet_members", "")] = (
             KIND_GAUGE, float(len(self.members)),
         )
@@ -4359,8 +4404,8 @@ class FleetRouter:
     def _incident_bundle(self, ctx: dict) -> dict:
         """The router's black box: the triggering rule + its query
         window, the router recorder's slow/error rings, ring membership
-        with per-member state — the fleet-shaped forensics a backend
-        bundle cannot see."""
+        with per-member state, and the autoscale journal tail — the
+        fleet-shaped forensics a backend bundle cannot see."""
         rule = ctx.get("rule") or {}
         bundle = dict(ctx)
         if rule.get("kind") == "threshold":
@@ -4384,6 +4429,16 @@ class FleetRouter:
             }
             for m in self.members.values()
         }
+        if self.autoscaler is not None:
+            bundle["autoscale"] = self.autoscaler.ready_block()
+            if self.autoscaler.journal is not None:
+                from deconv_api_tpu_torch.serving.autoscale import (
+                    DecisionJournal,
+                )
+
+                bundle["autoscale_journal"] = DecisionJournal.replay(
+                    self.autoscaler.journal.path
+                )[-16:]
         if self.alert_engine is not None:
             bundle["alerts"] = self.alert_engine.snapshot()
         return bundle
@@ -4577,6 +4632,11 @@ class FleetRouter:
             # rule lifecycle states as gauges — the fleet's
             # alarm rides the same scrape as everything it watches
             text += self.alert_engine.prometheus("router")
+        if self.autoscaler is not None:
+            # the controller's own registry (autoscaler_* families) rides
+            # the router scrape — decisions land on the same federation
+            # plane they were made from
+            text += self.autoscaler.metrics.prometheus()
         if self.worker is not None:
             # SO_REUSEPORT multi-router: every sample line
             # carries worker="N" so the federation plane's sum over
@@ -4603,6 +4663,8 @@ class FleetRouter:
         # first request instead of waiting out a probe interval
         await self.probe_once()
         self._probe_task = asyncio.create_task(self._probe_loop())
+        if self.autoscaler is not None:
+            self.autoscaler.start()
         if self.tsdb is not None and self._tsdb_task is None:
             self._tsdb_task = asyncio.get_running_loop().create_task(
                 self._tsdb_loop(), name="router-tsdb-scrape"
@@ -4615,6 +4677,8 @@ class FleetRouter:
 
     async def stop(self, grace_s: float = 5.0) -> None:
         self.begin_drain()
+        if self.autoscaler is not None:
+            await self.autoscaler.stop()
         if self._tsdb_task is not None:
             self._tsdb_task.cancel()
             try:
@@ -4854,9 +4918,53 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument(
         "--autoscale", choices=("off", "advisory", "enforce"),
         default="off",
-        help="closed-loop elasticity: only 'off' (the default) runs "
-        "here — the autoscaler is not ported yet, and any other mode "
-        "exits 2",
+        help="closed-loop elasticity: advisory decides and journals "
+        "only; enforce acts via --autoscale-launch-cmd; off (the "
+        "default) constructs no controller",
+    )
+    p.add_argument(
+        "--autoscale-interval-s", type=float, default=5.0,
+        help="controller poll/decide interval (default 5)",
+    )
+    p.add_argument(
+        "--autoscale-min", type=int, default=1,
+        help="floor the controller never scales below (default 1)",
+    )
+    p.add_argument(
+        "--autoscale-max", type=int, default=4,
+        help="ceiling the controller never scales above (default 4)",
+    )
+    p.add_argument(
+        "--autoscale-journal", default="", metavar="PATH",
+        help="fsync'd JSONL decision journal (replayed on restart to "
+        "restore cooldown anchors)",
+    )
+    p.add_argument(
+        "--autoscale-launch-cmd", default="",
+        help="backend launch argv template, {port} substituted "
+        "(enforce mode; empty = advisory launcher)",
+    )
+    p.add_argument(
+        "--autoscale-cooldown-up-s", type=float, default=30.0,
+        help="minimum seconds between scale-ups (default 30)",
+    )
+    p.add_argument(
+        "--autoscale-cooldown-down-s", type=float, default=120.0,
+        help="minimum seconds between scale-downs (default 120)",
+    )
+    p.add_argument(
+        "--autoscale-up-burn", type=float, default=0.9,
+        help="5m SLO burn rate that reads as hot (default 0.9)",
+    )
+    p.add_argument(
+        "--autoscale-up-queue", type=float, default=4.0,
+        help="mean per-backend job pressure that reads as hot "
+        "(default 4)",
+    )
+    p.add_argument(
+        "--autoscale-qos-budget-ms", type=float, default=800.0,
+        help="per-backend device-ms/s capacity budget gating "
+        "scale-down (default 800)",
     )
     p.add_argument(
         "--tsdb", choices=("off", "on"), default="off",
@@ -4925,6 +5033,12 @@ def main(argv: list[str] | None = None) -> int:
             parse_fault_specs(faults_spec)
         except ValueError as e:
             p.error(str(e))
+    if args.autoscale != "off" and args.workers > 1:
+        # N SO_REUSEPORT workers would mean N independent controllers
+        # sizing one fleet — run the controller as a sidecar instead
+        # (the autoscaler subcommand) when the data plane is multi-worker
+        p.error("--autoscale requires --workers 1 (use the autoscaler "
+                "sidecar with a multi-worker router)")
 
     def _build(worker: int | None = None) -> FleetRouter:
         return FleetRouter(
@@ -4967,12 +5081,26 @@ def main(argv: list[str] | None = None) -> int:
             incidents_dir=args.incidents_dir,
             incidents_retention_s=args.incidents_retention_s,
             autoscale=args.autoscale,
+            autoscale_opts={
+                "interval_s": args.autoscale_interval_s,
+                "journal_path": args.autoscale_journal,
+                "launch_cmd": args.autoscale_launch_cmd,
+                "engine_opts": {
+                    "min_backends": args.autoscale_min,
+                    "max_backends": args.autoscale_max,
+                    "cooldown_up_s": args.autoscale_cooldown_up_s,
+                    "cooldown_down_s": args.autoscale_cooldown_down_s,
+                    "up_burn": args.autoscale_up_burn,
+                    "up_queue": args.autoscale_up_queue,
+                    "qos_device_ms_budget": args.autoscale_qos_budget_ms,
+                },
+            },
             worker=worker,
         )
 
     try:
-        # a router the flags cannot build (a mode not ported yet, a bad
-        # setting) is a usage error before anything binds or forks
+        # a router the flags cannot build (a bad setting) is a usage
+        # error before anything binds or forks
         router = _build(worker=0 if args.workers > 1 else None)
     except ValueError as e:
         p.error(str(e))

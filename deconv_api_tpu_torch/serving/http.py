@@ -281,7 +281,7 @@ class HttpServer:
             )
             try:
                 resp = Response.json(
-                    errors.to_payload(errors.Unavailable("too many connections"), rid), 503
+                    {"error": "too many connections", "request_id": rid}, 503
                 )
                 resp.headers["x-request-id"] = rid
                 writer.write(resp.encode(False))
@@ -375,9 +375,10 @@ class HttpServer:
                 status=e.status, reason=str(e), id=rid,
             )
             try:
-                # the taxonomy's payload shape, as every other error
+                # the JAX package's body: the reject's own message, byte
+                # for byte what its server answers
                 resp = Response.json(
-                    errors.to_payload(errors.BadRequest(str(e)), rid), e.status
+                    {"error": str(e), "request_id": rid}, e.status
                 )
                 resp.headers["x-request-id"] = rid
                 writer.write(resp.encode(False))

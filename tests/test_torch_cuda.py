@@ -1153,3 +1153,50 @@ def test_quality_and_qos_on_the_served_routes_on_the_card(dev):
     finally:
         server.server_close()
         service.close()
+
+
+# --- the warm boot: the kernel libraries from the store (serving/aot.py) --------
+
+
+def test_the_four_libraries_load_from_a_filled_store_without_nvcc(dev, tmp_path, monkeypatch):
+    """A store filled from the real build, then a fresh resolver on it that
+    may not build (and writes its libraries elsewhere): four hits, no miss,
+    and a kernel launched from each loaded library equals its plain
+    version (K1, K2 and K5 bit for bit, K3 within 1e-5 fp32 and 2^-6 bf16
+    of the output's largest magnitude)."""
+    from deconv_api_tpu_torch.ops import _build, cuda_q8, q8
+    from deconv_api_tpu_torch.serving.aot import ArtifactStore, KernelResolver
+    from deconv_api_tpu_torch.serving.metrics import Metrics
+
+    filled = KernelResolver(ArtifactStore(str(tmp_path / "aot")))
+    filled.resolve(_build.KERNELS)
+    assert filled.store.entry_count == 4 and set(filled.outcomes.values()) == {"miss"}
+    m = Metrics("deconv")
+    fresh = KernelResolver(ArtifactStore(str(tmp_path / "aot"), metrics=m), metrics=m,
+                           build=lambda names, force=False: pytest.fail(f"nvcc ran for {names}"),
+                           library_path=lambda name: tmp_path / "lib" / f"{name}.so")
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "resolver", fresh)
+    monkeypatch.setattr(cuda_pool, "_entries", {})
+    monkeypatch.setattr(cuda_q8, "_lib", None)
+    fresh.resolve(_build.KERNELS)
+    assert (m.counter("aot_cache_hits_total"), m.counter("aot_cache_misses_total")) == (4, 0)
+    assert {n: lib._name for n, lib in fresh.loaded.items()} == {
+        n: str(tmp_path / "lib" / f"{n}.so") for n in _build.KERNELS}
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((2, 28, 28, 64), generator=g, device=dev)
+    got, want = cuda_pool.pool_argmax(x), pool.maxpool_argmax_plain(x, (2, 2))
+    assert torch.equal(got[1], want[1]) and torch.equal(_bits(got[0]), _bits(want[0]))
+    y, idx = torch.randn((8, 14, 14, 64), generator=g, device=dev), got[1]
+    assert torch.equal(_bits(cuda_pool.unpool_argmax(y, idx, (2, 2), None, True, 1)),
+                       _bits(pool.unpool_argmax_plain(y, idx, (2, 2), None, True, 1)))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2.0**-6)):
+        w = torch.randn((3, 3, 64, 64), generator=g, device=dev).to(dtype)
+        got3 = cuda_deconv.fused_unpool_conv(y.to(dtype), idx, w, (2, 2), True).float()
+        want3 = cuda_deconv.fused_plain(y.to(dtype), idx, w, (2, 2), True).float()
+        assert float((got3 - want3).abs().max()) <= tol * float(want3.abs().max())
+    xs, sx, wq, sw, b = _step_inputs(dev, 8, 28, 28, 256, 512, seed=12)
+    assert torch.equal(_bits(q8.conv2d_q8_step(xs, sx, wq, sw, b, "relu", (1, 1), "SAME")),
+                       _bits(q8.conv2d_q8_step_plain(xs, sx, wq, sw, b, "relu", (1, 1), "SAME")))
+    assert {n: _build._libs[n] for n in _build.KERNELS} == fresh.loaded

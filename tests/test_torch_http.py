@@ -7,6 +7,7 @@ timeouts.  Each case's status lines must be equal."""
 
 import asyncio
 import random
+import re
 
 import pytest
 import torch
@@ -214,3 +215,40 @@ def test_request_carries_the_deadline_and_the_request_id():
     assert b"x-request-id: abc-123" in raw[0]
     assert b"x-request-id: bad id!" not in raw[1] and b"x-request-id: " in raw[1]
     assert seen[0].deadline is not None and seen[1].deadline is None
+
+
+def _mask_id(raw: bytes) -> bytes:
+    """``raw`` with its minted request id (header and body) blanked."""
+    return re.sub(rb"[0-9a-f]{6}-[0-9a-f]{8}", b"<id>", raw)
+
+
+@pytest.mark.parametrize("request_bytes, status", [
+    (b"POST /echo HTTP/1.1\r\nHost: x\r\nContent-Length: zz\r\n\r\n", 400),
+    (b"POST /echo HTTP/1.1\r\nHost: x\r\nContent-Length: 1000\r\n\r\n{", 408),
+    (b"POST /echo HTTP/1.1\r\nHost: x\r\nContent-Length: 99999999999\r\n\r\n", 413),
+    (b"GET /ping HTTP/1.1\r\nHost: x\r\nX-Big: " + b"a" * (70 * 1024) + b"\r\n\r\n", 431),
+    (None, 503),
+], ids=["400", "408", "413", "431", "503"])
+def test_protocol_reject_bodies_are_the_jax_servers(request_bytes, status):
+    """The rejects no route sees answer the JAX server's bytes, apart from
+    the minted id: ``{"error": <the reject's message>, "request_id": id}``
+    (the connection cap's message is "too many connections")."""
+
+    async def scenario(port):
+        held = []
+        if request_bytes is None:
+            held = [await asyncio.open_connection("127.0.0.1", port)]
+            await asyncio.sleep(0.05)
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        if request_bytes is not None:
+            writer.write(request_bytes)
+            await writer.drain()
+        raw = await _read_to_close(reader, writer)
+        for _, w in held:
+            w.close()
+        return raw
+
+    got, want = _both(scenario, max_connections=1, idle_timeout_s=5.0, body_timeout_s=TIMEOUT_S)
+    assert _status(got).split(b" ")[1] == str(status).encode()
+    assert b'"request_id"' in got and b'"error"' in got
+    assert _mask_id(got) == _mask_id(want)

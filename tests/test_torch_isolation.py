@@ -49,7 +49,7 @@ def test_port_imports_without_jax_nvcc_or_triton():
         "from deconv_api_tpu_torch.engine import quant\n"
         "from deconv_api_tpu_torch.utils import slog\n"
         "from deconv_api_tpu_torch.serving import batcher, codec_pool, faults, http, trace\n"
-        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb, qos, jobs\n"
+        "from deconv_api_tpu_torch.serving import alerts, cache, durable, tsdb, qos, jobs, aot, autoscale\n"
         "from deconv_api_tpu_torch.models import dag_weights\n"
         "from deconv_api_tpu_torch.utils import doctor, tracing\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
@@ -68,7 +68,8 @@ def test_port_imports_without_jax_nvcc_or_triton():
 PIPELINE_MODULES = ("utils/slog.py", "serving/faults.py", "serving/trace.py", "serving/codec_pool.py",
                     "serving/http.py", "serving/batcher.py", "serving/durable.py", "serving/cache.py",
                     "serving/tsdb.py", "serving/alerts.py", "serving/qos.py", "engine/quant.py", "ops/cuda_q8.py",
-                    "models/dag_weights.py", "utils/doctor.py", "utils/tracing.py")
+                    "models/dag_weights.py", "utils/doctor.py", "utils/tracing.py", "serving/aot.py",
+                    "serving/autoscale.py")
 
 
 def test_the_request_pipeline_modules_are_the_ports_own():

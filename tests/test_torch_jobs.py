@@ -458,25 +458,46 @@ def test_a_resubmit_dedups_and_the_sse_stream_replays(servers):
     assert "deconv_jobs_checkpoints_total" in httpx.get(port.base_url + "/metrics", timeout=30).text
 
 
-def test_a_crash_resumed_dream_is_byte_identical(servers):
+def test_a_crash_resumed_dream_is_byte_identical(servers, monkeypatch):
     port, _ = servers
     form = {**DREAM_FORM, "file": _uri(5)}
     ref = _submit(port, form, {"x-idempotency-key": "parity-ref"}).json()
     assert _wait(port, ref["id"])["attempts"] == 1
     body_ref = httpx.get(port.base_url + f"/v1/jobs/{ref['id']}/result", timeout=30).content
-    # slow octaves; the crash armed only once an octave is durable
-    _faults(port, arm="device.dispatch_delay_ms=p1:150")
+    # The crash is armed while octave 1's dispatch is held, after octave
+    # 0 is durable: the runner consults the crash site before each octave,
+    # so it fires before octave 2 however slowly this test's polls run (a
+    # delay fault's window alone let a loaded host arm it after the last
+    # octave had started, and the job then finished on its first attempt).
+    release = asyncio.Event()
+    dispatches = []
+    job_dispatch = port.service._job_dispatch
+
+    async def held(job, *args):
+        dispatches.append(job.id)
+        if len(dispatches) == 2:
+            await asyncio.wait_for(release.wait(), 30)
+        return await job_dispatch(job, *args)
+
+    monkeypatch.setattr(port.service, "_job_dispatch", held)
     try:
         job = _submit(port, form, {"x-idempotency-key": "parity-crash"}).json()
-        assert _wait_checkpoints(port, job["id"], 2)["checkpoints"] >= 2
+        assert _wait_checkpoints(port, job["id"], 2)["checkpoints"] == 2
         _faults(port, arm="jobs.runner_crash=n1")
+        port.service.on_loop(_set(release))
         doc = _wait(port, job["id"])
     finally:
         _faults(port, disarm="all")
+        if not release.is_set():
+            port.service.on_loop(_set(release))
     assert (doc["state"], doc["attempts"], doc["resumed"], doc["checkpoints"]) == ("done", 2, True, 4), doc
     events = _events(httpx.get(port.base_url + f"/v1/jobs/{job['id']}/events", timeout=30).text)
     assert [e["data"]["index"] for e in events if e["data"].get("stage") == "octave"] == [0, 1, 2]
     assert httpx.get(port.base_url + f"/v1/jobs/{job['id']}/result", timeout=30).content == body_ref
+
+
+async def _set(event: asyncio.Event) -> None:
+    event.set()
 
 
 def test_a_cancel_mid_dream_runs_no_further_octave(servers):

@@ -147,7 +147,7 @@ def test_routes_and_error_codes(served):
     conn.putheader("content-length", "not-a-number")
     conn.endheaders()
     resp = conn.getresponse()
-    assert (resp.status, json.loads(resp.read())["error"]) == (400, "bad_request")
+    assert (resp.status, json.loads(resp.read())["error"]) == (400, "bad content-length")
     conn.close()
 
 

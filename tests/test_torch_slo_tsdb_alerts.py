@@ -369,3 +369,27 @@ def test_a_default_server_has_none_of_them():
         assert (cfg["cache_active"], cfg["singleflight_active"], cfg["tsdb_active"]) == (True, True, False)
     finally:
         s.close()
+
+
+def test_an_incident_bundle_masks_the_jax_packages_paths():
+    """Both packages' incident ``config`` on the same set paths: the same
+    keys become bools, and the port masks every key the JAX package masks
+    that it has (not ``compilation_cache_dir``: no field here)."""
+    from types import SimpleNamespace
+
+    from deconv_api_tpu.serving.app import DeconvService as JDeconvService
+
+    paths = dict(weights_path="/w", profile_dir="/p", jobs_dir="/j", calibration_dir="/c", aot_dir="/a",
+                 incidents_dir="/i", l2_dir="/l2")
+    tsdb_stub = SimpleNamespace(query=lambda *a, **k: [])
+
+    def config(service_cls, cfg):
+        stub = SimpleNamespace(cfg=cfg, tsdb=tsdb_stub, recorder=None, alert_engine=None)
+        return service_cls._incident_bundle(stub, {"rule": {"kind": "absence"}})["config"]
+
+    port = config(DeconvService, ServerConfig(**paths))
+    jax = config(JDeconvService, JServerConfig(compilation_cache_dir="/cc", **paths))
+    masked = {k for k, v in jax.items() if v is True and JServerConfig.__dataclass_fields__[k].type == "str"}
+    assert masked == set(paths) - {"l2_dir"} | {"compilation_cache_dir"}
+    assert {k for k in masked if k in port} == masked - {"compilation_cache_dir"}
+    assert {k: port[k] for k in paths} == {k: jax[k] for k in paths}
