@@ -142,7 +142,22 @@ Phases, each printing JSON lines:
    which boots warm (``autoscaler_boot_to_warm_seconds``); a running job
    on it holds its reap after the drain announcement until the job is
    done; every answer through the router 200, the fleet back to 1
-   (``phase_autoscale``).
+   (``phase_autoscale``);
+20. train: ``python -m deconv_api_tpu_torch train --model vgg16 --steps 10
+   --batch 8 --save-every 5`` and its ``--steps 12 --resume`` as
+   processes, the resumed checkpoint bit-equal to an uninterrupted 12-step
+   run in this process (cuDNN deterministic; if not, the phase fails
+   naming the ops that ``torch.use_deterministic_algorithms`` names in a
+   step); one VGG16 step at batch 2 in float32 on the card against the
+   CPU's (the loss and every gradient leaf, the card replaying the CPU's
+   ReLU gates and pool argmaxes; ``step_fn`` with remat with and without
+   that replay);
+   three ResNet50 steps with BatchNorm trained; ``serve --weights <ckpt>``
+   byte-equal to its in-process grid and unlike the init server's; VGG16's
+   step times and peak memory with remat and deterministic cuDNN on and
+   off, the held-out evaluation, a TrainState's checkpoint written and
+   restored.  Every training window's hand-written kernel launches must
+   be 0 (``phase_train``).
 Phases 4-11 and 13-15 measure device work: their servers run with
 ``cache_bytes=0`` and no singleflight (``CACHE_OFF``), and each prints
 ``server_cache``.
@@ -164,6 +179,7 @@ import contextlib
 import gc
 import json
 import logging
+import math
 import os
 import statistics
 import struct
@@ -4779,14 +4795,19 @@ def phase_autoscale(torch, label: str) -> dict:
     procs, reports = {}, {}
     uris = image_uris(8)
     statuses, stop = [], threading.Event()
+    refused = []  # (s into the drill, status, x-backend, body) of each non-200 answer
 
     def client():
         conn = http.client.HTTPConnection("127.0.0.1", rport, timeout=300)
-        i = 0
+        i, t_start = 0, time.monotonic()
         while not stop.is_set():
             body = urllib.parse.urlencode({"file": uris[i % len(uris)], "layer": WARM_LAYER}).encode()
             try:
-                statuses.append(_fleet_post(conn, body)[0])
+                status, backend, _, data, _ = _fleet_post(conn, body)
+                statuses.append(status)
+                if status != 200:
+                    refused.append((time.monotonic() - t_start, status, backend,
+                                    data[:300].decode("utf-8", "replace")))
             except (OSError, http.client.HTTPException):
                 if stop.is_set():
                     break
@@ -4850,6 +4871,7 @@ def phase_autoscale(torch, label: str) -> dict:
         gated = _request(p1, "/v1/jobs")[1]["counts"]
         done = _await_job(p1, hold_job)
         t_done = time.monotonic()
+        _arm(p1, disarm="all")  # the delay held the job; the client's requests on b1 run at speed again
         reaped = _await_record(journal, "reaped", procs, 120, backend=b1)
         assert done["state"] == "done" and running_at_announce == "running", (done["state"], running_at_announce)
         assert announced["clock"] < t_done < reaped["clock"], (announced["clock"], t_done, reaped["clock"])
@@ -4863,7 +4885,8 @@ def phase_autoscale(torch, label: str) -> dict:
         metrics = _metric_lines(rport)
         ready = ready_block()
         fleet_size = metrics.get("autoscaler_fleet_size")
-        assert fleet_size == 1 and set(statuses) == {200}, (fleet_size, collections.Counter(statuses))
+        assert fleet_size == 1 and set(statuses) == {200}, (fleet_size, collections.Counter(statuses), refused,
+                                                            _journal(journal)[-6:])
         assert metrics.get("autoscaler_reaped_total") == 1, metrics
         records = _journal(journal)
         out.update({
@@ -4910,6 +4933,504 @@ def phase_autoscale(torch, label: str) -> dict:
     counts = {k: int(sum(d["launches"].get(k, 0) for d in docs.values())) for k in names}
     assert counts["pool_argmax"] > 0 and counts["unpool_argmax"] > 0, out["launches"]
     return {"counts": counts}
+
+
+# --- phase 20 ------------------------------------------------------------------------
+
+TRAIN_DIR = os.path.join(ROOT, "build", "train_smoke")
+TRAIN_MODEL, TRAIN_DAG, TRAIN_LAYER, TRAIN_DEVICE = "vgg16", "resnet50", "block5_conv1", "cuda"
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_RESUMED_STEPS, TRAIN_SAVE_EVERY = 8, 10, 12, 5
+TRAIN_TIMED_STEPS = 10  # per setting, after 2 warm-up steps
+TRAIN_DAG_STEPS = 3
+TRAIN_CHECK_BATCH = 2  # the card-vs-CPU step
+TRAIN_LOSS_REL = 1e-5  # the card's loss against the CPU's, relative
+TRAIN_GRAD_REL = 1e-4  # each gradient leaf, of its largest magnitude
+TRAIN_PARAM_REL = 1e-2  # a param after a step, of its leaf's largest change, away from the gradient bar
+TRAIN_SUMMARY_KEYS = ["batch", "checkpoint", "eval_accuracy", "eval_accuracy_initial", "eval_loss",
+                      "eval_loss_initial", "final_loss", "mesh", "model", "resumed_from", "steps"]
+
+
+def _train_cli(argv: list, env: dict) -> tuple[dict, float, list]:
+    """One ``python -m deconv_api_tpu_torch train`` process: its summary
+    line, its wall seconds and its progress lines."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "deconv_api_tpu_torch", "train", *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        raise AssertionError(f"train {argv}: rc {proc.returncode}\n{proc.stdout[-800:]}\n{proc.stderr[-1500:]}")
+    return json.loads(lines[-1]), wall, [l for l in proc.stderr.splitlines() if l.startswith("step ")]
+
+
+@contextlib.contextmanager
+def _cudnn(torch, deterministic: bool):
+    """cuDNN's deterministic algorithms on or off, autotuning off (the
+    ``train`` command's settings when on)."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def _nondeterministic_ops(torch, step_fn, state, x, y) -> list:
+    """The ops of one step that ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` names (a probe on a state of its own)."""
+    import warnings
+
+    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step_fn(state, x, y)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+    return sorted({str(w.message).split("\n")[0][:200] for w in caught if "determinis" in str(w.message)})
+
+
+def train_resume(torch, counted) -> dict:
+    """(a) ``train --model vgg16 --steps 10 --batch 8 --save-every 5`` and
+    then ``--steps 12 --resume`` as processes; the resumed checkpoint
+    against an uninterrupted 12-step ``train_synthetic`` in this process
+    under the command's cuDNN settings, bit for bit.  If they differ, the
+    phase fails and its line names the leaves and the ops that
+    ``torch.use_deterministic_algorithms`` names in one step."""
+    from deconv_api_tpu_torch.models.weights import flat_leaves
+    from deconv_api_tpu_torch.serving.models import build_bundle
+    from deconv_api_tpu_torch.train import loop, step
+    from deconv_api_tpu_torch.utils import checkpoint
+
+    ckpt = os.path.join(TRAIN_DIR, "ckpt")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(p for p in (ROOT, os.environ.get("PYTHONPATH", "")) if p)}
+    common = ["--model", TRAIN_MODEL, "--device", TRAIN_DEVICE, "--batch", str(TRAIN_BATCH), "--save", ckpt,
+              "--save-every", str(TRAIN_SAVE_EVERY)]
+    first, first_wall, first_progress = _train_cli([*common, "--steps", str(TRAIN_STEPS)], env)
+    resumed, resumed_wall, resumed_progress = _train_cli([*common, "--steps", str(TRAIN_RESUMED_STEPS), "--resume"],
+                                                         env)
+    out = {"cli_wall_s": {"train": first_wall, "resume": resumed_wall}, "summary": first, "resumed_summary": resumed,
+           "progress_lines": [len(first_progress), len(resumed_progress)],
+           "checkpoint_mb": {name: sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e6
+                             for name, d in (("params", ckpt), ("train_state", ckpt + ".state"))}}
+    bundle = build_bundle(TRAIN_MODEL, TRAIN_DEVICE)
+    spec, init = bundle.spec, bundle.params
+    with _cudnn(torch, True):
+        straight, _ = counted(f"train {TRAIN_MODEL} {TRAIN_RESUMED_STEPS} steps (train_synthetic, in this process)",
+                              lambda: loop.train_synthetic(spec, init, steps=TRAIN_RESUMED_STEPS, batch=TRAIN_BATCH,
+                                                           device=TRAIN_DEVICE))
+    restored = checkpoint.restore_params(ckpt, straight["params"])
+    names = list(flat_leaves(restored))
+    differ = {name: float((a - b).abs().max()) for name, a, b in
+              zip(names, step.leaves(restored), step.leaves(straight["params"])) if not torch.equal(a, b)}
+    out.update(straight_final_loss=straight["final_loss"], resume_bit_equal=not differ, leaves_that_differ=differ,
+               leaves=len(names))
+    if differ:  # name the ops that may explain it; the phase fails all the same
+        with _cudnn(torch, True):
+            init_fn, step_fn = step.make_train_step(spec, TRAIN_DEVICE, 1e-4)
+            dev = torch.device(TRAIN_DEVICE)
+            x, y = loop._synthetic_batch(loop._step_generator(0, 0, dev), TRAIN_BATCH, spec.input_shape,
+                                         spec.layers[-1].filters)
+            out["nondeterministic_ops"] = _nondeterministic_ops(torch, step_fn, init_fn(init), x, y)
+    out["ok"] = (sorted(first) == TRAIN_SUMMARY_KEYS == sorted(resumed)
+                 and all(math.isfinite(s[k]) for s in (first, resumed) for k in ("final_loss", "eval_loss"))
+                 and (first["steps"], first["resumed_from"], resumed["steps"], resumed["resumed_from"])
+                 == (TRAIN_STEPS, 0, TRAIN_RESUMED_STEPS, TRAIN_STEPS)
+                 and out["progress_lines"] == [TRAIN_STEPS, TRAIN_RESUMED_STEPS - TRAIN_STEPS]
+                 and out["resume_bit_equal"] and resumed["final_loss"] == straight["final_loss"])
+    return out
+
+
+class _Pinned:
+    """The discrete choices of a VGG forward (each ReLU's gradient, each
+    max-pool's argmax), recorded on one device and replayed on another.
+
+    A unit whose input lies within rounding of 0 passes its gradient on one
+    device and blocks it on the other; a pool window whose two largest
+    inputs lie within rounding of each other sends its cotangent to
+    another cell.  Either moves a weight's gradient by a whole term.
+    Replaying the CPU's choices on the card leaves the kernels' rounding to
+    be held.  ``rules`` goes to ``spec_forward``; ``pools()`` puts
+    ``pool`` in the place of ``models/apply.py``'s ``maxpool``.  Recording,
+    each is the plain op (``ops.activations.relu``: gradient 1 above 0,
+    0.5 at 0, 0 below; ``F.max_pool2d``); replaying, a ReLU is ``x * gate``
+    and a pool gathers its recorded argmax, cycling for remat's second
+    forward, and ``apart`` counts the units and windows whose own choice
+    differs."""
+
+    def __init__(self, torch, recorded: "_Pinned | None" = None):
+        from deconv_api_tpu_torch.models.blocks import INFERENCE_RULES, Rules
+
+        self.torch, self.recorded = torch, recorded
+        self.gates, self.argmax, self.turns = [], [], [0, 0]
+        self.apart = {"relu": {}, "pool": {}}
+        self.rules = Rules(relu=self.relu, relu6=INFERENCE_RULES.relu6)
+
+    def _replay(self, kind: int, mine, theirs: list, x):
+        i = self.turns[kind]
+        self.turns[kind] += 1
+        want = theirs[i % len(theirs)].to(x.device)
+        if i < len(theirs):
+            differ = int((mine != want.to(mine.dtype)).sum())
+            if differ:
+                self.apart["relu" if kind == 0 else "pool"][i] = differ
+        return want
+
+    def relu(self, x):
+        from deconv_api_tpu_torch.ops.activations import relu
+
+        gate = (x.detach() > 0).to(x.dtype) + 0.5 * (x.detach() == 0).to(x.dtype)
+        if self.recorded is None:
+            self.gates.append(gate.cpu())
+            return relu(x)
+        return x * self._replay(0, gate, self.recorded.gates, x).to(x.dtype)
+
+    def pool(self, x, window, stride, padding):
+        import torch.nn.functional as F
+
+        assert padding == "VALID", padding
+        xn = x.permute(0, 3, 1, 2)
+        if self.recorded is None:
+            out, idx = F.max_pool2d(xn, window, stride, return_indices=True)
+            self.argmax.append(idx.cpu())
+            return out.permute(0, 2, 3, 1)
+        idx = self._replay(1, F.max_pool2d(xn.detach(), window, stride, return_indices=True)[1],
+                           self.recorded.argmax, x)
+        return xn.flatten(2).gather(2, idx.flatten(2)).view(idx.shape).permute(0, 2, 3, 1)
+
+    @contextlib.contextmanager
+    def pools(self):
+        from deconv_api_tpu_torch.models import apply
+
+        prev, apply.maxpool = apply.maxpool, self.pool
+        try:
+            yield
+        finally:
+            apply.maxpool = prev
+
+
+def train_card_vs_cpu(torch, counted) -> dict:
+    """(b) One VGG16 step at batch 2, float32 (TF32 off), on the card and on
+    the CPU from the same numpy batch and params.
+
+    The gradients: the card's forward replays the CPU's ReLU gates and
+    pool argmaxes (``_Pinned``); the loss is held within TRAIN_LOSS_REL and
+    every gradient leaf within TRAIN_GRAD_REL of its largest magnitude; the
+    units and windows whose own choice differs are counted.  The step:
+    ``make_train_step``'s ``step_fn`` with remat on, as the CLI runs it,
+    on each device.  On the ModelSpec itself (the card's own choices) the
+    loss is held within TRAIN_LOSS_REL and every param within 2 lr of the
+    CPU's (Adam's first step is about lr sign(g), and a flipped choice can
+    flip a gradient's sign), give or take float32's rounding of the param.
+    With the CPU's choices replayed, every param whose CPU gradient lies
+    above the gradient bar is held within TRAIN_PARAM_REL of its leaf's
+    largest change, the others within 2 lr as above."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deconv_api_tpu_torch.models.apply import spec_forward
+    from deconv_api_tpu_torch.models.weights import tree_map
+    from deconv_api_tpu_torch.serving.models import build_bundle
+    from deconv_api_tpu_torch.train import step
+
+    bundle = build_bundle(TRAIN_MODEL, TRAIN_DEVICE)
+    spec = bundle.spec
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((TRAIN_CHECK_BATCH, *spec.input_shape)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, spec.layers[-1].filters, TRAIN_CHECK_BATCH))
+    host = tree_map(lambda t: t.cpu(), bundle.params)
+    names = [f"{k}/{leaf}" for k, v in host.items() for leaf in v]
+    relu_layers = [l.name for l in spec.layers if l.activation == "relu"]
+    pool_layers = [l.name for l in spec.layers if l.kind == "pool"]
+    lr = 1e-4
+    card_dev, cpu_dev = torch.device(TRAIN_DEVICE), torch.device("cpu")
+
+    def grads(dev, pinned):
+        params = tree_map(lambda t: t.to(dev, torch.float32, copy=True).requires_grad_(True), host)
+        with pinned.pools():
+            logits, _ = spec_forward(spec, logits=True)(params, x.to(dev), rules=pinned.rules)
+        loss = F.cross_entropy(logits, y.to(dev))
+        return loss.item(), [g.cpu() for g in torch.autograd.grad(loss, step.leaves(params))]
+
+    def one_step(dev, model, pinned=None):
+        init_fn, step_fn = step.make_train_step(model, dev, lr, remat=True)
+        with pinned.pools() if pinned else contextlib.nullcontext():
+            state, loss = step_fn(init_fn(host), x.to(dev), y.to(dev))
+        return loss.item(), [p.detach().cpu() for p in step.leaves(state.params)]
+
+    t0 = time.perf_counter()
+    cpu_choices = _Pinned(torch)
+    cpu_loss, cpu_grads = grads(cpu_dev, cpu_choices)
+    cpu_step = one_step(cpu_dev, spec)
+    cpu_s = time.perf_counter() - t0
+
+    def card():
+        pinned, in_step = _Pinned(torch, cpu_choices), _Pinned(torch, cpu_choices)
+        loss, g = grads(card_dev, pinned)
+        model = lambda p, im: spec_forward(spec, logits=True)(p, im, rules=in_step.rules)[0]  # noqa: E731
+        return loss, g, pinned.apart, one_step(card_dev, spec), one_step(card_dev, model, in_step)
+
+    with _cudnn(torch, True):
+        (loss, card_grads, apart, card_step, forced_step), _ = counted(
+            f"train {TRAIN_MODEL} card-vs-CPU step (the card's half)", card)
+    grad_rel = {n: float((g - h).abs().max() / h.abs().max().clamp_min(1e-30))
+                for n, g, h in zip(names, card_grads, cpu_grads)}
+    before = [t.to(torch.float32) for t in step.leaves(host)]
+
+    def in_lr(err, q):  # lr units, float32's rounding of the params (1e-6 of their size) taken out
+        return float((err - 1e-6 * (q.abs() + lr)).max()) / lr
+
+    step_lr = {n: in_lr((p - q).abs(), q) for n, p, q in zip(names, card_step[1], cpu_step[1])}
+    forced = {}
+    for n, p, q, g, p0 in zip(names, forced_step[1], cpu_step[1], cpu_grads, before):
+        err, noise = (p - q).abs(), g.abs() <= TRAIN_GRAD_REL * g.abs().max()
+        change = float((q - p0).abs().max())
+        forced[n] = {"of_change": float(err[~noise].max()) / change if (~noise).any() else 0.0,
+                     "noise_lr": in_lr(err[noise], q[noise]) if noise.any() else 0.0}
+    out = {"batch": TRAIN_CHECK_BATCH, "tf32": torch.backends.cudnn.allow_tf32, "cpu_s": cpu_s,
+           "loss": [loss, cpu_loss], "loss_rel": abs(loss - cpu_loss) / abs(cpu_loss),
+           "grad_rel_worst": sorted(grad_rel.items(), key=lambda kv: -kv[1])[:3],
+           "relu_gates_apart": {relu_layers[i]: k for i, k in apart["relu"].items()},
+           "relu_gates": sum(g.numel() for g in cpu_choices.gates),
+           "pool_windows_apart": {pool_layers[i]: k for i, k in apart["pool"].items()},
+           "pool_windows": sum(i.numel() for i in cpu_choices.argmax),
+           "step": {"loss": [card_step[0], cpu_step[0]], "loss_rel": abs(card_step[0] - cpu_step[0]) / abs(cpu_step[0]),
+                    "params_worst_lr": max(step_lr.items(), key=lambda kv: kv[1])},
+           "step_cpu_choices": {"loss_rel": abs(forced_step[0] - cpu_step[0]) / abs(cpu_step[0]),
+                              "params_worst_of_change": max((v["of_change"], n) for n, v in forced.items()),
+                              "params_worst_noise_lr": max((v["noise_lr"], n) for n, v in forced.items())}}
+    out["ok"] = (out["loss_rel"] <= TRAIN_LOSS_REL and all(v <= TRAIN_GRAD_REL for v in grad_rel.values())
+                 and out["step"]["loss_rel"] <= TRAIN_LOSS_REL and all(v <= 2 for v in step_lr.values())
+                 and out["step_cpu_choices"]["loss_rel"] <= TRAIN_LOSS_REL
+                 and all(v["of_change"] <= TRAIN_PARAM_REL and v["noise_lr"] <= 2 for v in forced.values()))
+    return out
+
+
+def _step_p50(torch, model, params, shape, classes: int, *, remat: bool = True, deterministic: bool = True,
+              profiled: bool = False) -> dict:
+    """p50 ms of TRAIN_TIMED_STEPS steps (host clock, each ended by a
+    synchronize) after 2 warm-up steps, images/s, and the peak of
+    ``max_memory_allocated`` over the timed steps beside what was allocated
+    before them (the TrainState, the batches and the bundle's init params)."""
+    from deconv_api_tpu_torch.train import loop, step
+
+    dev = torch.device(TRAIN_DEVICE)
+    init_fn, step_fn = step.make_train_step(model, dev, 1e-4, remat=remat)
+    state = init_fn(params)
+    batches = [loop._synthetic_batch(loop._step_generator(1, i, dev), TRAIN_BATCH, shape, classes) for i in range(2)]
+    with _cudnn(torch, deterministic):
+        for x, y in batches:
+            state, _ = step_fn(state, x, y)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for i in range(TRAIN_TIMED_STEPS):
+            x, y = batches[i % 2]
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, x, y)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+        profile = device_breakdown(torch, lambda: step_fn(state, *batches[0]), top=8) if profiled else None
+    p50 = statistics.median(times)
+    out = {"p50_ms": p50, "images_per_s": TRAIN_BATCH / p50 * 1e3, "min_ms": min(times), "max_ms": max(times),
+           "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9, "allocated_before_gb": base / 1e9,
+           "finite": all(math.isfinite(l) for l in losses), "state": state}
+    if profile is not None:
+        out["profile"] = profile
+    return out
+
+
+def train_times(torch, counted) -> dict:
+    """(e) VGG16's step at batch 8: remat on and off, cuDNN deterministic
+    on and off, in turns (on/on, off/on, on/off, on/on, the last with one
+    profiled step); the AdamW update alone (CUDA events); the held-out
+    evaluation of 128 images; a TrainState's checkpoint written and
+    restored."""
+    from deconv_api_tpu_torch.serving.models import build_bundle
+    from deconv_api_tpu_torch.train import loop, step
+    from deconv_api_tpu_torch.utils import checkpoint
+
+    bundle = build_bundle(TRAIN_MODEL, TRAIN_DEVICE)
+    spec, init, shape = bundle.spec, bundle.params, bundle.spec.input_shape
+    classes = spec.layers[-1].filters
+    runs = {}
+
+    def turns():
+        for name, kw in (("remat_det", {}), ("no_remat_det", {"remat": False}),
+                         ("remat_nondet", {"deterministic": False}), ("remat_det_again", {"profiled": True})):
+            gc.collect()
+            torch.cuda.empty_cache()
+            runs[name] = _step_p50(torch, spec, init, shape, classes, **kw)
+            if name != "remat_det_again":
+                runs[name].pop("state")
+        return runs
+
+    counted(f"train {TRAIN_MODEL} timed steps (remat and cuDNN settings in turns)", turns)
+    state = runs["remat_det_again"].pop("state")
+    dev = torch.device(TRAIN_DEVICE)
+    images, labels = loop._synthetic_batch(torch.Generator(device=dev).manual_seed(loop._EVAL_SEED), 128, shape,
+                                           classes)
+    eval_fn = step.make_eval_step(spec)
+    eval_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loss, acc = eval_fn(state.params, images, labels)
+        float(loss)
+        eval_s.append(time.perf_counter() - t0)
+    grads = [torch.zeros_like(p) for p in step.leaves(state.params)]
+    adamw_ms = time_ms(lambda: step.adamw(state.params, grads, state.opt_state, 1e-4), reps=5, warmup=1)
+    path = os.path.join(TRAIN_DIR, "timed.state")
+    t0 = time.perf_counter()
+    checkpoint.save_train_state(path, state, model=TRAIN_MODEL)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = checkpoint.restore_train_state(path, state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b) for a, b in zip(step.leaves(back.params), step.leaves(state.params)))
+    out = {"steps": runs, "adamw_ms": adamw_ms, "eval_s": eval_s, "eval_images": 128,
+           "train_state_bytes": sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)),
+           "train_state_write_s": write_s, "train_state_restore_s": restore_s, "restored_equal": same}
+    out["ok"] = same and all(r["finite"] for r in runs.values())
+    return out
+
+
+def train_dag(torch, counted) -> dict:
+    """(c) ResNet50 at 224x224, batch 8: three steps with BatchNorm's
+    leaves trained as weights, finite, those leaves moved."""
+    from deconv_api_tpu_torch.serving.models import build_bundle
+    from deconv_api_tpu_torch.train import loop, step
+
+    bundle = build_bundle(TRAIN_DAG, TRAIN_DEVICE)
+    init_fn, step_fn = step.make_train_step(lambda p, x: bundle.forward_fn(p, x, logits=True)[0], TRAIN_DEVICE, 1e-4)
+    state = init_fn(bundle.params)
+    def first_bn(tree):  # the first conv + BatchNorm node, in the tree's order
+        return tree if "gamma" in tree else next(n for n in map(first_bn, filter(lambda v: isinstance(v, dict),
+                                                                                  tree.values())) if n)
+
+    node = first_bn(state.params)
+    bn = {k: node[k].detach().clone() for k in ("gamma", "beta", "mean", "var")}
+    dev = torch.device(TRAIN_DEVICE)
+    shape = (bundle.image_size, bundle.image_size, 3)
+    classes = bundle.params["predictions"]["w"].shape[1]
+
+    def steps():
+        nonlocal state
+        losses, times = [], []
+        for i in range(TRAIN_DAG_STEPS):
+            x, y = loop._synthetic_batch(loop._step_generator(2, i, dev), TRAIN_BATCH, shape, classes)
+            t0 = time.perf_counter()
+            state, loss = step_fn(state, x, y)
+            losses.append(loss.item())
+            times.append((time.perf_counter() - t0) * 1e3)
+        return losses, times
+
+    with _cudnn(torch, True):
+        (losses, times), _ = counted(f"train {TRAIN_DAG} steps", steps)
+    moved = {k: not torch.equal(v, node[k]) for k, v in bn.items()}
+    out = {"losses": losses, "step_ms": times, "bn_leaves_moved": moved}
+    out["ok"] = all(math.isfinite(l) for l in losses) and all(moved.values())
+    return out
+
+
+def train_serve(torch, counted) -> dict:
+    """(d) ``serve --weights <ckpt>`` beside the same server on its init:
+    one ``POST /`` byte-equal to the server's in-process grid of the same
+    image, unlike the init server's answer; the served params equal to
+    the checkpoint's, bit for bit."""
+    from deconv_api_tpu_torch.__main__ import build_server
+    from deconv_api_tpu_torch.serving import codec
+    from deconv_api_tpu_torch.train import step
+    from deconv_api_tpu_torch.utils import checkpoint
+
+    ckpt = os.path.join(TRAIN_DIR, "ckpt")
+    argv = ["serve", "--port", "0", "--device", TRAIN_DEVICE, "--model", TRAIN_MODEL, *ONE_BUCKET_FLAGS]
+    uri = image_uris(1)[0]
+    servers = []
+    try:
+        t0 = time.perf_counter()
+        servers.append(build_server([*argv, "--weights", ckpt]))
+        boot_s = time.perf_counter() - t0
+        servers.append(build_server(argv))
+        for server in servers:
+            threading.Thread(target=server.serve_forever, daemon=True).start()
+        (svc, port), (_, init_port) = ((s.service, s.server_address[1]) for s in servers)
+
+        def post(p):
+            status, body, _ = _request(p, "/", "POST", {"file": uri, "layer": TRAIN_LAYER})
+            if status != 200:
+                raise AssertionError(f"train serve POST /: {status} {body}")
+            return body
+
+        body, counts = counted("train serve --weights <checkpoint> POST /", lambda: post(port))
+        grid = svc.visualize_batch(TRAIN_LAYER, svc.decode_preprocess(uri, svc.bundle)[None])["grid"][0]
+        init_body = post(init_port)
+        restored = checkpoint.restore_params(ckpt, svc.bundle.params)
+        same = all(torch.equal(a, b) for a, b in zip(step.leaves(restored), step.leaves(svc.bundle.params)))
+    finally:
+        for server in servers:
+            _stop(server)
+    out = {"boot_s_with_checkpoint": boot_s, "served_equals_inprocess": body == codec.encode_data_url(grid),
+           "differs_from_init": body != init_body,
+           "psnr_vs_init_db": _psnr(_decode_jpeg_url(body), _decode_jpeg_url(init_body)),
+           "served_params_equal_checkpoint": same,
+           "launches": {k: counts[k] for k in ("pool_argmax", "unpool_argmax", "replays")}}
+    out["ok"] = (out["served_equals_inprocess"] and out["differs_from_init"] and same
+                 and counts["pool_argmax"] > 0 and counts["unpool_argmax"] > 0)
+    return out
+
+
+def phase_train(torch, label: str) -> dict:
+    """Training on the card (``train/``, ``utils/checkpoint.py``): (a) the
+    CLI's run and resume against an uninterrupted run, (b) one step against
+    the CPU's, (c) ResNet50 with BatchNorm trained, (d) the checkpoint
+    served, (e) the step's times and memory.  No hand-written kernel lies
+    on a training step: each training window's launches must stay 0."""
+    import shutil
+
+    from deconv_api_tpu_torch import ops
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    os.makedirs(TRAIN_DIR)
+    by_path = {}
+
+    def counted(name, fn):
+        ops.reset_launch_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {**ops.launch_counts(), **ops.graph_counts}
+        by_path[name] = {k: got[k] for k in ops.launch_counts()}
+        return result, got
+
+    out = {"phase": "train", "card": label}
+    wall = {}
+    try:
+        for part, run in (("resume", lambda: train_resume(torch, counted)),
+                          ("card_vs_cpu", lambda: train_card_vs_cpu(torch, counted)),
+                          ("dag", lambda: train_dag(torch, counted)),
+                          ("serve", lambda: train_serve(torch, counted)),
+                          ("times", lambda: train_times(torch, counted))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out[part] = run()
+            wall[part] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    training = {path: c for path, c in by_path.items() if not path.startswith("train serve")}
+    out["launches"] = by_path
+    out["training_launches"] = sum(sum(c.values()) for c in training.values())
+    out["wall_s"] = wall
+    emit(out)
+    failed = [part for part in wall if not out[part]["ok"]]
+    if failed or out["training_launches"]:
+        raise AssertionError(f"train: {failed} failed, {out['training_launches']} kernel launches on training "
+                             "steps (see the phase's line)")
+    return {"counts": by_path}
 
 
 def _request_raw(port: int, form: dict):
@@ -4970,6 +5491,7 @@ def main() -> int:
     weights = timed("weights", phase_weights, torch, env["nvidia_smi"])
     warm_boot = timed("warm_boot", phase_warm_boot, torch, env["nvidia_smi"])
     autoscaled = timed("autoscale", phase_autoscale, torch, env["nvidia_smi"])
+    trained = timed("train", phase_train, torch, env["nvidia_smi"])
     emit({"phase": "wall_s", **wall})
     by_path = {"POST /": ctx["counts"], "POST /v1/deconv": v1["counts"],
                "resnet50 POST / and /v1/deconv": dag["counts"], "vgg19 POST /": dag["vgg19_counts"],
@@ -4985,7 +5507,8 @@ def main() -> int:
                **weights["counts"],
                "warm_boot POST / (cold, warm and rebuilt boots on one kernel store)": warm_boot["counts"],
                "autoscale POST / and deconv jobs (the launched backend and b0 behind the router)":
-                   autoscaled["counts"]}
+                   autoscaled["counts"],
+               **trained["counts"]}
     kernels = [
         {"name": name, "route": "cuda", **row,
          "launches": sum(c[name] for c in by_path.values()),

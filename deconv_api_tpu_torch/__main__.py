@@ -45,8 +45,9 @@ servers, with the JAX package's ``fleet-router`` flags; ``autoscaler
 Neither loads torch.
 
 ``--weights PATH`` serves pretrained weights (``weights_path``): a Keras
-``.h5`` (on a host with h5py) or ``.npz`` file for ``--model``, or a
-directory of ``<model>.h5`` / ``<model>.npz`` files, one per served model.
+``.h5`` (on a host with h5py) or ``.npz`` file for ``--model``, a
+directory of ``<model>.h5`` / ``<model>.npz`` files, one per served model,
+or a checkpoint directory that ``train`` wrote, for ``--model``.
 ``--profile-dir DIR`` traces the first ``DECONV_PROFILE_BATCHES`` (4)
 device batches after warmup with ``torch.profiler``, and ``POST
 /v1/profile`` (``batches=N``) arms N more.
@@ -63,7 +64,12 @@ The JAX package's offline commands, with its flags and output lines:
 ``--sweep`` one per layer from L down) and prints one JSON line; ``dream
 --image PATH [--layers A,B] [--output dream.png] [--steps 10] [--octaves
 10] [--lr 0.01]`` saves the dreamed image; both take ``--model``,
-``--weights`` and ``--platform cuda|cpu`` (default the card).  ``models``
+``--weights`` and ``--platform cuda|cpu`` (default the card).  ``train
+[--steps 10] [--batch 8] [--lr 1e-4] [--mesh ""] [--save DIR] [--seed 0]
+[--save-every 0] [--resume]`` fine-tunes the model on learnable synthetic
+data (``train/loop.py``; one device: a ``--mesh`` of several is refused
+until the parallel slice), saves a checkpoint to ``--save`` that
+``serve --weights DIR`` loads, and prints the JAX CLI's summary line.  ``models``
 prints one JSON line per registry model.  ``doctor [--checks
 backend,rtt,build,selftest] [--platform cpu]`` runs the diagnostics of
 ``utils/doctor.py``, each in a child process."""
@@ -189,7 +195,7 @@ def _add_common(p: argparse.ArgumentParser, model_default=None) -> None:
 
 def _parser() -> argparse.ArgumentParser:
     """The subcommands: ``serve``, ``calibrate``, ``visualize``, ``dream``,
-    ``models`` and ``doctor``.  Every flag of
+    ``train``, ``models`` and ``doctor``.  Every flag of
     ``serve`` that names a ``ServerConfig`` field defaults to None: a flag
     given wins over the field's ``DECONV_<FIELD>`` variable, which wins
     over the default (``ServerConfig.from_env``)."""
@@ -299,6 +305,17 @@ def _parser() -> argparse.ArgumentParser:
     d.add_argument("--octaves", type=int, default=10)
     d.add_argument("--lr", type=float, default=0.01)
     _add_common(d)
+    t = sub.add_parser("train", help="synthetic fine-tune on the card, save a checkpoint that serve --weights loads")
+    t.add_argument("--steps", type=int, default=10)
+    t.add_argument("--batch", type=int, default=8)
+    t.add_argument("--lr", type=float, default=1e-4)
+    t.add_argument("--mesh", default="", help="dp[,tp] mesh shape: one device only (1 or 1,1) until the parallel slice")
+    t.add_argument("--save", default="", help="checkpoint output dir")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--save-every", type=int, default=0,
+                   help="checkpoint the full TrainState to <save>.state every N steps")
+    t.add_argument("--resume", action="store_true", help="restore <save>.state and continue from its recorded step")
+    _add_common(t)
     sub.add_parser("models", help="list registered models")
     doc = sub.add_parser("doctor", help="environment diagnostics (backend, RTT, kernel build, selftest)")
     doc.add_argument("--checks", default="", help="comma list (default all): backend,rtt,build,selftest")
@@ -522,6 +539,44 @@ def dream(args) -> int:
     return 0
 
 
+def train(args) -> int:
+    """``train``: ``train/loop.py:train_synthetic`` on ``--model`` (its
+    registry init, or ``--weights``), on the service's own float32 copy of
+    the params, under cuDNN's deterministic algorithms (so that a resumed
+    run repeats an uninterrupted one bit for bit); the JAX CLI's summary
+    line, without the params, and a progress line a step on stderr."""
+    import torch
+
+    from deconv_api_tpu_torch.train.loop import train_synthetic
+
+    mesh_shape = tuple(int(x) for x in args.mesh.split(",") if x)
+    common = dict(
+        steps=args.steps, batch=args.batch, lr=args.lr, mesh_shape=mesh_shape, save_dir=args.save,
+        seed=args.seed, save_every=args.save_every, resume=args.resume, device=args.device,
+        progress=lambda i, loss: print(f"step {i}: loss {loss:.4f}", file=sys.stderr, flush=True),
+    )
+    prev_benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        with _offline_service(args) as svc:
+            bundle = svc.bundle
+            if bundle.spec is not None:
+                result = train_synthetic(bundle.spec, bundle.params, **common)
+            else:
+                # a DAG family: the class count from a forward on the meta
+                # device (shapes only), the input size from the bundle
+                size = bundle.image_size
+                meta = tree_map(lambda t: t.to("meta"), bundle.params)
+                out, _ = bundle.forward_fn(meta, torch.empty((1, size, size, 3), device="meta"), logits=True)
+                result = train_synthetic(None, bundle.params, forward_fn=bundle.forward_fn, model_name=bundle.name,
+                                         num_classes=int(out.shape[-1]), input_shape=(size, size, 3), **common)
+    finally:
+        torch.backends.cudnn.benchmark = prev_benchmark
+    result.pop("params")  # not printable
+    print(json.dumps(result))
+    return 0
+
+
 def doctor(args) -> int:
     """``doctor``: the diagnostics of ``utils/doctor.py``."""
     from deconv_api_tpu_torch.utils.doctor import CHECKS, run_doctor
@@ -553,7 +608,7 @@ def main(argv=None) -> int:
         for info in registry_info():
             print(json.dumps(info))
         return 0
-    commands = {"calibrate": calibrate, "visualize": visualize, "dream": dream, "doctor": doctor}
+    commands = {"calibrate": calibrate, "visualize": visualize, "dream": dream, "train": train, "doctor": doctor}
     if args.cmd in commands:
         return commands[args.cmd](args)
     slog.configure()  # the server entry point owns the logging setup (embedders don't)

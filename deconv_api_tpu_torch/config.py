@@ -13,8 +13,9 @@ the built kernel libraries (``serving/aot.py``), the port's compiled
 artifacts.  The fleet fields are here: a backend's
 peer cache fill and its registration with the routers of
 ``serving/fleet.py``; with no pod, ``fleet_capacity`` 0 advertises 1.
-``weights_path`` loads Keras ``.h5`` and ``.npz`` weights
-(``models/weights.py``; an orbax checkpoint directory is not read yet), and
+``weights_path`` loads Keras ``.h5`` and ``.npz`` weights and the port's
+checkpoint directories (``models/weights.py``, ``utils/checkpoint.py``;
+the JAX package's orbax directories are refused with a conversion recipe), and
 ``profile_dir`` is where ``torch.profiler`` traces go
 (``utils/tracing.py``).
 

@@ -140,12 +140,15 @@ def depthwise_conv_bn(
     return rules.relu6(bn_affine(p, y, eps))
 
 
-def classifier(params: dict, y: torch.Tensor, acts: dict, pooled_name: str):
+def classifier(params: dict, y: torch.Tensor, acts: dict, pooled_name: str, *, logits: bool = False):
     """Global average pool, the dense head and softmax, recording both
-    named outputs: the tail every DAG family shares."""
+    named outputs: the tail every DAG family shares.  With ``logits`` the
+    softmax is skipped and ``acts["predictions"]`` holds the logits (the
+    training loss's input)."""
     y = global_avg_pool(y)
     acts[pooled_name] = y
     y = ops.dense(y, params["predictions"]["w"].to(y.dtype), params["predictions"]["b"].to(y.dtype))
-    y = torch.softmax(y, dim=-1)
+    if not logits:
+        y = torch.softmax(y, dim=-1)
     acts["predictions"] = y
     return y, acts

@@ -102,7 +102,7 @@ def inception_v3_init(gen: torch.Generator, num_classes: int = 1000, device="cpu
 
 
 def inception_v3_forward(
-    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES
+    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES, logits: bool = False
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     p = params
     acts: dict[str, torch.Tensor] = {}
@@ -160,7 +160,7 @@ def inception_v3_forward(
         pool = cb(q["pool"], B.avgpool(y))
         y = acts[name] = cat(b1, b3, b3d, pool)
 
-    return B.classifier(params, y, acts, "avg_pool")
+    return B.classifier(params, y, acts, "avg_pool", logits=logits)
 
 
 DECONV_LAYERS = tuple(f"mixed{i}" for i in range(11))

@@ -46,7 +46,7 @@ def mobilenet_v1_init(gen: torch.Generator, num_classes: int = 1000, device="cpu
 
 
 def mobilenet_v1_forward(
-    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES
+    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES, logits: bool = False
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     acts: dict[str, torch.Tensor] = {}
     y = B.conv_bn(params["conv1"], x, rules, strides=(2, 2), padding=_STRIDE2_PAD, relu=False, eps=_BN_EPS)
@@ -59,7 +59,7 @@ def mobilenet_v1_forward(
         acts[f"conv_dw_{i}_relu"] = y
         y = B.conv_bn(params[f"conv_pw_{i}"], y, rules, relu=False, eps=_BN_EPS)
         y = acts[f"conv_pw_{i}_relu"] = rules.relu6(y)
-    return B.classifier(params, y, acts, "global_average_pooling2d")
+    return B.classifier(params, y, acts, "global_average_pooling2d", logits=logits)
 
 
 DECONV_LAYERS = tuple([f"conv_pw_{i}_relu" for i, _c, _s in _BLOCKS] + ["conv1_relu"])

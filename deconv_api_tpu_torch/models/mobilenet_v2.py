@@ -75,7 +75,7 @@ def _inverted_residual(p: dict, x, rules: B.Rules, stride: int, acts: dict, name
 
 
 def mobilenet_v2_forward(
-    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES
+    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES, logits: bool = False
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     acts: dict[str, torch.Tensor] = {}
     y = B.conv_bn(params["Conv1"], x, rules, strides=(2, 2), padding=_STRIDE2_PAD, relu=False, eps=_BN_EPS)
@@ -85,7 +85,7 @@ def mobilenet_v2_forward(
         y = _inverted_residual(params[f"block_{i}"], y, rules, stride, acts, f"block_{i}")
     y = B.conv_bn(params["Conv_1"], y, rules, relu=False, eps=_BN_EPS)
     y = acts["out_relu"] = rules.relu6(y)
-    return B.classifier(params, y, acts, "global_average_pooling2d")
+    return B.classifier(params, y, acts, "global_average_pooling2d", logits=logits)
 
 
 DECONV_LAYERS = tuple(

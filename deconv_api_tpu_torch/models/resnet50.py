@@ -59,7 +59,7 @@ def _bottleneck(p: dict, x: torch.Tensor, rules: B.Rules, stride: int) -> torch.
 
 
 def resnet50_forward(
-    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES
+    params: dict, x: torch.Tensor, *, rules: B.Rules = B.INFERENCE_RULES, logits: bool = False
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """(output, named activations) for NHWC ``x``.  conv1 and pool1 pad
     explicitly, as Keras' ZeroPadding2D does, not by XLA's SAME rule."""
@@ -72,7 +72,7 @@ def resnet50_forward(
         for i in range(1, n_blocks + 1):
             y = _bottleneck(params[f"{name}_block{i}"], y, rules, stride if i == 1 else 1)
             acts[f"{name}_block{i}_out"] = y
-    return B.classifier(params, y, acts, "avg_pool")
+    return B.classifier(params, y, acts, "avg_pool", logits=logits)
 
 
 # the projectable activations as the reference lists them: the block

@@ -16,8 +16,11 @@ A loaded leaf keeps its init leaf's dtype and device.
 ``h5py`` is imported only to read an ``.h5`` file.  Where it is missing
 (the card's machine), convert the file once where it is: ``save_npz(
 load_model_weights(model, spec, "x.h5", init), "x.npz")``, and load the
-``.npz``.  A directory that holds no ``<model>.h5`` or ``.npz`` is an
-orbax checkpoint in the JAX package; the port does not read those yet."""
+``.npz``.  A directory with the port's ``checkpoint.json`` is a checkpoint
+of its own format (``utils/checkpoint.py``, written by ``train``); it loads
+into the model its manifest names.  A directory with neither is the JAX
+package's orbax checkpoint, which the port does not read (the card's
+machine has no orbax): convert it where both packages are installed."""
 
 from __future__ import annotations
 
@@ -52,15 +55,21 @@ def load_npz(path: str) -> dict:
     return params_from_jax(out)
 
 
-def flat_arrays(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
-    """The port's nested dict as ``{"a/b/leaf": array}`` on the host."""
-    flat: dict[str, np.ndarray] = {}
+def flat_leaves(tree: dict, prefix: str = "") -> dict[str, torch.Tensor]:
+    """The port's nested dict as ``{"a/b/leaf": tensor}``, in the tree's
+    order."""
+    flat: dict[str, torch.Tensor] = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            flat.update(flat_arrays(v, f"{prefix}{k}/"))
+            flat.update(flat_leaves(v, f"{prefix}{k}/"))
         else:
-            flat[f"{prefix}{k}"] = v.detach().cpu().numpy()
+            flat[f"{prefix}{k}"] = v
     return flat
+
+
+def flat_arrays(tree: dict, prefix: str = "") -> dict[str, np.ndarray]:
+    """The port's nested dict as ``{"a/b/leaf": array}`` on the host."""
+    return {k: v.detach().cpu().numpy() for k, v in flat_leaves(tree, prefix).items()}
 
 
 def save_npz(params: dict, path: str) -> None:
@@ -88,12 +97,30 @@ def h5py_module(path: str):
     return h5py
 
 
-def _checkpoint_dir(path: str) -> ValueError:
+def _orbax_dir(path: str) -> ValueError:
     return ValueError(
-        f"weights path {path!r} is a directory with no <model>.h5 or <model>.npz in it: an orbax "
-        "checkpoint, which the port does not read yet (checkpoints come with its training slice); "
-        "give a .h5 or .npz file, or a directory of <model>.h5 / <model>.npz files"
+        f"weights path {path!r} is a directory with no checkpoint.json and no <model>.h5 or <model>.npz "
+        "in it: the JAX package's orbax checkpoint format, which the port does not read (the card's "
+        "machine has no orbax). Convert it where both packages are installed: the JAX package's "
+        "deconv_api_tpu.utils.checkpoint.restore_params, then the port's "
+        "deconv_api_tpu_torch.utils.checkpoint.save_params (on models.weights.params_from_jax of the "
+        "result); or give a .h5 or .npz file, or a directory of <model>.h5 / <model>.npz files"
     )
+
+
+def load_checkpoint_dir(model_name: str, path: str, init_params: dict) -> dict:
+    """The params of the port's checkpoint directory ``path`` in
+    ``init_params``' tree, dtypes and devices.  Its manifest must name
+    ``model_name`` (or no model); a directory without a manifest is
+    refused with the conversion recipe."""
+    from deconv_api_tpu_torch.utils import checkpoint
+
+    if not checkpoint.is_checkpoint(path):
+        raise _orbax_dir(path)
+    saved = checkpoint.read_manifest(path).get("model", "")
+    if saved and saved != model_name:
+        raise ValueError(f"checkpoint {path!r} holds model {saved!r}, not {model_name!r}")
+    return checkpoint.restore_params(path, init_params)
 
 
 def load_weights(spec, path: str, init_params: dict) -> dict:
@@ -105,7 +132,7 @@ def load_weights(spec, path: str, init_params: dict) -> dict:
     if not os.path.exists(path):
         raise FileNotFoundError(f"weights file {path!r} does not exist")
     if os.path.isdir(path):
-        raise _checkpoint_dir(path)
+        return load_checkpoint_dir(spec.name, path, init_params)
     if path.endswith((".h5", ".hdf5")):
         loaded = _read_keras_h5(path)
     elif path.endswith(".npz"):
@@ -197,7 +224,7 @@ def load_model_weights(model_name: str, spec, path: str, init_params: dict) -> d
     if not os.path.exists(path):
         raise FileNotFoundError(f"weights file {path!r} does not exist")
     if os.path.isdir(path):
-        raise _checkpoint_dir(path)
+        return load_checkpoint_dir(model_name, path, init_params)
     if path.endswith(".npz"):
         return load_npz_into(path, init_params)
     if path.endswith((".h5", ".hdf5")):

@@ -54,8 +54,9 @@ and ``DECONV_*`` variables): ``visualize_mode``, ``stitch_k`` and
 fewer than ``stitch_k`` fired filters into 422 ``no_active_filters``, and
 ``image_size`` overrides every model's input size.  ``weights_path``
 loads pretrained weights (``_load_weights``: a file for the default
-model, a directory of ``<model>.h5``/``.npz`` for every served model)
-before any archive, stored tier or program is made from them.
+model, a directory of ``<model>.h5``/``.npz`` for every served model, or
+a ``train`` checkpoint directory for the default model) before any
+archive, stored tier or program is made from them.
 
 ``POST /v1/profile`` (``batches``, 1..64, default 4) traces the next
 device batches with ``torch.profiler`` into ``profile_dir`` (400 while it
@@ -521,8 +522,10 @@ class DeconvService:
         DIRECTORY loads ``<dir>/<model>.h5`` (or ``.npz``) for each served
         model; a served model other than the default with no file there
         serves its init and says so once; the default with no file reads
-        the directory itself, an orbax checkpoint, which the port refuses
-        at boot (``models/weights.py``)."""
+        the directory itself as a checkpoint: the port's (``train``'s
+        output, ``utils/checkpoint.py``) loads when its manifest names the
+        default model, and any other is a boot error, the JAX package's
+        orbax format included (``models/weights.py``)."""
         wp = self.cfg.weights_path
         if not wp:
             return

@@ -1200,3 +1200,85 @@ def test_the_four_libraries_load_from_a_filled_store_without_nvcc(dev, tmp_path,
     assert torch.equal(_bits(q8.conv2d_q8_step(xs, sx, wq, sw, b, "relu", (1, 1), "SAME")),
                        _bits(q8.conv2d_q8_step_plain(xs, sx, wq, sw, b, "relu", (1, 1), "SAME")))
     assert {n: _build._libs[n] for n in _build.KERNELS} == fresh.loaded
+
+
+# ------------------------------------------------------------ training
+
+
+def _train_case(name: str):
+    """(model, CPU params, input size, classes): vgg_tiny at 32x32, or
+    MobileNet v1 at 64x64 with a 10-way head (its BatchNorm leaves train)."""
+    from deconv_api_tpu_torch.models import mobilenet_v1
+
+    gen = torch.Generator().manual_seed(0)
+    if name == "vgg_tiny":
+        return VGG_TINY_SPEC, init_params(VGG_TINY_SPEC, gen), 32, 100
+    fwd = mobilenet_v1.mobilenet_v1_forward
+    return (lambda p, x: fwd(p, x, logits=True)[0]), mobilenet_v1.mobilenet_v1_init(gen, num_classes=10), 64, 10
+
+
+@pytest.mark.parametrize("name", ["vgg_tiny", "mobilenet_v1"])
+def test_one_train_step_on_the_card_matches_the_cpu(dev, name):
+    """The same numpy batch and params through one step on the card and
+    on the CPU: the loss within 1e-5 relative, each gradient leaf within
+    1e-4 of its largest magnitude, the params after the step within 2 lr
+    (Adam's first step is about lr sign(g)); no hand-written kernel runs."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from deconv_api_tpu_torch.train import step
+
+    model, params, size, classes = _train_case(name)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, size, size, 3)).astype(np.float32)
+    y = rng.integers(0, classes, 4)
+    lr = 1e-3
+
+    def run(device):
+        init_fn, _ = step.make_train_step(model, device, lr)
+        state = init_fn(params)
+        loss = F.cross_entropy(step._as_apply_fn(model)(state.params, torch.from_numpy(x).to(device)),
+                               torch.from_numpy(y).to(device))
+        grads = torch.autograd.grad(loss, step.leaves(state.params))
+        step.adamw(state.params, grads, state.opt_state, lr)
+        return loss.item(), [g.cpu() for g in grads], [p.detach().cpu() for p in step.leaves(state.params)]
+
+    cpu = run("cpu")
+    ops.reset_launch_counts()
+    card = run(dev)
+    assert not any(ops.launch_counts().values())
+    assert abs(card[0] - cpu[0]) <= 1e-5 * abs(cpu[0])
+    for g, h in zip(card[1], cpu[1]):
+        assert float((g - h).abs().max()) <= 1e-4 * float(h.abs().max())
+    for p, q in zip(card[2], cpu[2]):
+        assert float((p - q).abs().max()) <= 2 * lr
+
+
+def test_resume_on_the_card_is_bit_exact(dev, tmp_path):
+    """Stopped at step 2 of 4 and resumed, under the train command's cuDNN
+    settings: the uninterrupted run's params, bit for bit."""
+    from deconv_api_tpu_torch.train import loop
+
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        common = dict(batch=4, lr=1e-3, seed=3, device="cuda")
+        params = init_params(VGG_TINY_SPEC, torch.Generator().manual_seed(0))
+        straight = loop.train_synthetic(VGG_TINY_SPEC, params, steps=4, **common)
+        ck = str(tmp_path / "run")
+        loop.train_synthetic(VGG_TINY_SPEC, params, steps=2, save_dir=ck, save_every=2, **common)
+        resumed = loop.train_synthetic(VGG_TINY_SPEC, params, steps=4, save_dir=ck, save_every=2, resume=True,
+                                       **common)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+    assert resumed["resumed_from"] == 2 and resumed["final_loss"] == straight["final_loss"]
+    for (k, a), b in zip(_flat_items(resumed["params"]), (b for _, b in _flat_items(straight["params"]))):
+        assert a.device.type == "cuda" and torch.equal(a, b), k
+
+
+def _flat_items(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_items(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
